@@ -1,0 +1,424 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (`src/repro_torch`) on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line; any failure exits non-zero:
+
+  1. env      torch / CUDA / nvcc versions and the card (nvidia-smi).
+  2. build    compiles the CUDA kernels from `src/repro_torch/kernels/*/csrc`
+              and prints what ptxas reports (registers, shared memory,
+              spills).
+  3. kernels  each kernel against its plain PyTorch version at the fleet
+              shapes (16384 lanes, R = 14 rows, C0 = 38 columns): random,
+              masked, degenerate and Bland lanes; integer outputs exact,
+              floats to rtol/atol 1e-12; kernel and plain times (CUDA
+              events) beside the memory bound.
+  4. rollout  the main path: `EngineParams.from_fleet` -> `init_state` ->
+              `rollout` of a 16384-device fleet for 8 periods, once per LP
+              method, with every kernel's launch counter set to 0 just
+              before and read just after; the two methods must agree
+              (integer metrics exact, float metrics to 1e-9) with no
+              unsolved lane.
+  5. parity   the card-marked tests (`pytest -m gpu tests/test_torch_cuda.py`,
+              in a child process): each kernel against its plain version,
+              and a 32-device rollout on the card against the same rollout
+              on the CPU (the kernels' plain versions).
+  6. timing   the 16384-device rollout again, in turns (tableau, revised,
+              revised, tableau), for steady-state devices/s.
+  7. profile  one rollout per method under `torch.profiler`: device time by
+              kernel name and the device's busy share of the wall time.
+
+Then the nvidia-smi line, the kernels line and, last, the result line.
+Exits non-zero without a CUDA card, and when the repository's `src/` is
+not beside this file.
+"""
+from __future__ import annotations
+
+import json
+import os
+import re
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# H100 SXM data sheet (NVIDIA): HBM3 bandwidth, FP64 (non-tensor) peak, and
+# the dense BF16 tensor rate used as the ES tier's FLOP/s in the fleet's
+# roofline profiles
+HBM_BYTES_S = 3.35e12
+FP64_FLOPS = 34e12
+ES_PEAK_FLOPS = 989e12
+D_FLEET, PERIODS, R, N_JOBS = 16384, 8, 14, 12
+C0 = N_JOBS * 3 + 2
+RTOL = ATOL = 1e-12
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    raise SystemExit(1)
+
+
+def check(cond, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+def run(cmd) -> str:
+    return subprocess.run(cmd, capture_output=True, text=True, check=True,
+                          timeout=120).stdout.strip()
+
+
+def bound_of(nbytes, flops):
+    """(bound_ms, bound_by): the larger of the memory time and the FP64
+    time of one call."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = flops / FP64_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def cuda_ms(fn, inputs, torch) -> float:
+    """Mean milliseconds of ``fn(*args)`` over ``inputs`` (one argument
+    tuple per call, so in-place kernels never see their own output)."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for args in inputs:
+        fn(*args)
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / len(inputs)
+
+
+# --------------------------------------------------------------------------
+# phase 3 inputs
+# --------------------------------------------------------------------------
+def tableau_case(torch, dev, g):
+    """Random (D, R+1, C0+1) tableaus, 80% of lanes active; masked lanes
+    carry out-of-range pivot coordinates."""
+    D = D_FLEET
+    tabs = torch.randn((D, R + 1, C0 + 1), generator=g, dtype=torch.float64)
+    r = torch.randint(0, R, (D,), generator=g, dtype=torch.int32)
+    j = torch.randint(0, C0, (D,), generator=g, dtype=torch.int32)
+    mask = torch.rand((D,), generator=g) < 0.8
+    lanes = torch.arange(D)
+    piv = tabs[lanes, r.long(), j.long()]
+    tabs[lanes, r.long(), j.long()] = piv + torch.sign(piv) * 0.5
+    r[~mask] = 99
+    return [t.to(dev) for t in (tabs, r, j, mask)]
+
+
+def reduced_case(torch, dev, g):
+    """Random revised-simplex lanes: a quarter degenerate (zero basic
+    levels), a third on Bland's rule, some masked or not allowed to
+    pivot."""
+    D = D_FLEET
+    A = torch.randn((D, R, C0), generator=g, dtype=torch.float64)
+    c = torch.randn((D, C0), generator=g, dtype=torch.float64)
+    Binv = torch.eye(R, dtype=torch.float64) + 0.3 * torch.randn(
+        (D, R, R), generator=g, dtype=torch.float64)
+    xB = 2.0 * torch.rand((D, R), generator=g, dtype=torch.float64)
+    lanes = torch.arange(D)
+    xB[(lanes % 4 == 1)[:, None] & (torch.arange(R) % 2 == 0)[None, :]] = 0.0
+    basis = torch.argsort(torch.rand((D, C0 + R), generator=g),
+                          dim=1)[:, :R].to(torch.int32).contiguous()
+    use_bland = lanes % 3 == 0
+    may_pivot = torch.rand((D,), generator=g) < 0.8
+    lane_ok = torch.rand((D,), generator=g) < 0.9
+    return [t.to(dev) for t in (A, c, Binv, xB, basis, use_bland, may_pivot,
+                                lane_ok)]
+
+
+def phase_kernels(torch, ops, ref, dev):
+    g = torch.Generator().manual_seed(7)
+    reps = 10
+    rows = {}
+
+    # ---- simplex_pivot ---------------------------------------------------
+    tabs, r, j, mask = tableau_case(torch, dev, g)
+    want = ref.pivot_update_ref(tabs, r, j, mask)
+    got = tabs.clone()
+    ops.pivot_update(got, r, j, mask)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    check(torch.allclose(got, want, rtol=RTOL, atol=ATOL),
+          f"simplex_pivot disagrees with its plain version (max {err})")
+    copies = [(tabs.clone(), r, j, mask) for _ in range(reps)]
+    ms = cuda_ms(ops.pivot_update, copies, torch)
+    del copies
+    plain_ms = cuda_ms(ref.pivot_update_ref, [(tabs, r, j, mask)] * 3, torch)
+    # every lane reads its mask byte; an active lane also reads r, j and
+    # its tableau and writes the tableau back
+    active = int(mask.sum())
+    lane_bytes = (R + 1) * (C0 + 1) * 8
+    nbytes = D_FLEET + active * (2 * lane_bytes + 4 + 4)
+    flops = active * ((R + 1) * (C0 + 1) * 2 + (C0 + 1))
+    rows["simplex_pivot"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                 bytes=nbytes, flops=flops)
+
+    # ---- reduced_pivot ---------------------------------------------------
+    case = reduced_case(torch, dev, g)
+    want = ref.reduced_pivot_ref(*case, art_cost=1.0, tol=1e-7)
+    got = [t.clone() for t in case]
+    flags = ops.reduced_pivot(*got, art_cost=1.0, tol=1e-7)
+    torch.cuda.synchronize()
+    err = max((got[2] - want[0]).abs().max().item(),
+              (got[3] - want[1]).abs().max().item())
+    check(torch.allclose(got[2], want[0], rtol=RTOL, atol=ATOL)
+          and torch.allclose(got[3], want[1], rtol=RTOL, atol=ATOL),
+          f"reduced_pivot factor disagrees with its plain version ({err})")
+    check(torch.equal(got[4], want[2]), "reduced_pivot basis disagrees")
+    for name, a, b in zip(("has_enter", "unbounded", "degenerate"), flags,
+                          want[3:]):
+        check(torch.equal(a, b), f"reduced_pivot flag {name} disagrees")
+    has_enter, unbounded, degen = want[3:]
+    check(bool(degen[has_enter].any()) and bool((~has_enter).any())
+          and bool(case[5][has_enter].any()),
+          "reduced_pivot inputs miss degenerate, Bland or no-entry lanes")
+    pivoted = int((case[6] & has_enter & ~unbounded).sum())
+    copies = [tuple(t.clone() if k in (2, 3, 4) else t
+                    for k, t in enumerate(case)) for _ in range(reps)]
+    ms = cuda_ms(lambda *a: ops.reduced_pivot(*a, art_cost=1.0, tol=1e-7),
+                 copies, torch)
+    del copies
+    plain_ms = cuda_ms(
+        lambda *a: ref.reduced_pivot_ref(*a, art_cost=1.0, tol=1e-7),
+        [tuple(case)] * 3, torch)
+    nbytes, flops = reduced_pivot_work(torch, ref, case, want)
+    rows["reduced_pivot"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                 bytes=nbytes, flops=flops)
+    for name, row in rows.items():
+        row["bound_ms"], row["bound_by"] = bound_of(row["bytes"],
+                                                         row["flops"])
+        emit("kernels", kernel=name, **row)
+    return rows
+
+
+def reduced_pivot_work(torch, ref, case, want):
+    """Bytes and FP64 operations one `reduced_pivot` call needs on these
+    inputs, lane by lane:
+
+    * every lane reads `lane_ok`, its factor `Binv`, `xB` and `basis`,
+      and writes its three flags;
+    * a lane with `lane_ok` False enters no column: its flags come from the
+      ratio test on column 0 alone (R values of A, one FTRAN);
+    * a lane with `lane_ok` True prices the columns that decide its
+      entering index — all C0 under Dantzig or when none enters, columns
+      0..j under Bland — reading them from A and c, plus c at its basic
+      labels;
+    * a lane that enters a column reads `use_bland`, and `may_pivot` too
+      when its ratio test is bounded;
+    * a lane that pivots writes `Binv`, `xB` and one basis label."""
+    A, c, Binv, xB, basis, use_bland, may_pivot, lane_ok = case
+    has_enter, unbounded = want[3], want[4]
+    D = A.shape[0]
+    rc = ref.price_reduced_ref(A, c, Binv, basis, 1.0)
+    enter = (rc < -1e-7) & lane_ok[:, None]
+    j_bland = enter.to(torch.uint8).argmax(dim=1)
+    cols = torch.where(use_bland & has_enter, j_bland + 1, C0)
+    cols = torch.where(lane_ok, cols, 0)
+    col_idx = torch.arange(C0, device=A.device)
+    basic = (basis[:, :, None] == col_idx) & lane_ok[:, None, None]
+    c_read = (col_idx[None, :] < cols[:, None]) | basic.any(dim=1)
+    n_cols = int(cols.sum())
+    n_ok = int(lane_ok.sum())
+    pivoted = int((may_pivot & has_enter & ~unbounded).sum())
+    nbytes = (D * (1 + R * R * 8 + R * 8 + R * 4 + 3)
+              + (D - n_ok) * R * 8                      # column 0
+              + n_cols * R * 8 + int(c_read.sum()) * 8  # priced columns
+              + int(has_enter.sum())                    # use_bland
+              + int((has_enter & ~unbounded).sum())     # may_pivot
+              + pivoted * (R * R * 8 + R * 8 + 4))
+    flops = (n_ok * 2 * R * R + n_cols * (2 * R + 1)    # BTRAN, pricing
+             + D * (2 * R * R + R)                      # FTRAN, ratios
+             + pivoted * 2 * R * (R + 1))               # eta update
+    return nbytes, flops
+
+
+# --------------------------------------------------------------------------
+# phases 4 to 7: the engine
+# --------------------------------------------------------------------------
+def build_params(dev):
+    """The 16384-device fleet's params, one per LP method, from one fleet
+    and one replayed arrival trace."""
+    from repro_torch.api import engine as E
+    from repro_torch.serving.fleet import make_fleet
+    from repro_torch.serving.queue import RequestQueue
+    devices = make_fleet(D_FLEET, seed=7, horizon=PERIODS,
+                         es_peak_flops=ES_PEAK_FLOPS, es_hbm_bw=HBM_BYTES_S)
+    queue = RequestQueue(D_FLEET, (128, 512, 1024), rate=10.0,
+                         batch_max=N_JOBS, seed=7)
+    return {m: E.EngineParams.from_fleet(
+        devices, queue, T=1.2, n_servers=D_FLEET // 16, horizon=PERIODS,
+        lp_method=m, device=dev) for m in ("tableau", "revised")}
+
+
+def compare_metrics(E, torch, a, b, what):
+    for f in E.METRIC_FIELDS:
+        x, y = getattr(a, f).cpu(), getattr(b, f).cpu()
+        check(tuple(x.shape) == (PERIODS,), f"{what}: {f} shape {x.shape}")
+        if x.is_floating_point():
+            check(bool(torch.isfinite(x).all()), f"{what}: {f} not finite")
+            d = (x - y).abs().max().item()
+            check(d <= 1e-9, f"{what}: {f} differs by {d}")
+        else:
+            check(torch.equal(x, y), f"{what}: {f} {x.tolist()} vs "
+                                     f"{y.tolist()}")
+
+
+def phase_rollout(torch, ops, dev, params):
+    from repro_torch.api import engine as E
+    counters = {"tableau": ("simplex_pivot", ops.pivot_update),
+                "revised": ("reduced_pivot", ops.reduced_pivot)}
+    out, launches = {}, {}
+    for method, (kname, counter) in counters.items():
+        state = E.init_state(params[method], device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        _final, metrics = E.rollout(state, params[method], PERIODS,
+                                    device=dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches[kname] = counter.launches
+        check(counter.launches > 0, f"{kname} never launched on the "
+                                    f"{method} path")
+        n_unsolved = int(metrics.n_unsolved.sum())
+        check(n_unsolved == 0, f"{method}: {n_unsolved} unsolved lanes")
+        out[method] = metrics
+        emit("rollout", lp_method=method, devices=D_FLEET, periods=PERIODS,
+             seconds=seconds, devices_per_s=D_FLEET * PERIODS / seconds,
+             peak_mem_bytes=torch.cuda.max_memory_allocated(),
+             launches={kname: counter.launches},
+             launches_per_period=counter.launches / PERIODS,
+             n_jobs=int(metrics.n_jobs.sum()),
+             n_backpressured=int(metrics.n_backpressured.sum()),
+             mean_job_accuracy=float(metrics.mean_job_accuracy.mean()))
+    compare_metrics(E, torch, out["revised"], out["tableau"],
+                    "revised vs tableau")
+    return launches
+
+
+def phase_parity():
+    """The card-marked tests, in a child process: the kernels against their
+    plain versions, and a small rollout on the card against the CPU."""
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        filter(None, (os.path.join(ROOT, "src"),
+                      os.environ.get("PYTHONPATH")))))
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider",
+         "-m", "gpu", os.path.join("tests", "test_torch_cuda.py")],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    tail = proc.stdout.strip().splitlines()[-1:] or [""]
+    check(proc.returncode == 0 and "skipped" not in tail[0],
+          f"card-marked tests failed:\n{proc.stdout[-4000:]}"
+          f"{proc.stderr[-2000:]}")
+    emit("parity", tests="tests/test_torch_cuda.py -m gpu", result=tail[0],
+         seconds=time.perf_counter() - t0)
+
+
+def phase_timing(torch, dev, params):
+    from repro_torch.api import engine as E
+    seconds = {"tableau": [], "revised": []}
+    for method in ("tableau", "revised", "revised", "tableau"):
+        state = E.init_state(params[method], device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        E.rollout(state, params[method], PERIODS, device=dev)
+        torch.cuda.synchronize()
+        seconds[method].append(time.perf_counter() - t0)
+    for method, ts in seconds.items():
+        emit("timing", lp_method=method, seconds=ts,
+             devices_per_s=[D_FLEET * PERIODS / t for t in ts])
+    return seconds
+
+
+def phase_profile(torch, dev, params, seconds):
+    """Device time of one rollout per method, summed over the kernels the
+    profiler saw, against the best unprofiled wall time of phase 6."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.api import engine as E
+    for method, p in params.items():
+        state = E.init_state(p, device=dev)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            E.rollout(state, p, PERIODS, device=dev)
+            torch.cuda.synchronize()
+        by_name = {}
+        for ev in prof.events():
+            if ev.device_type == DeviceType.CUDA:
+                us = ev.time_range.elapsed_us()
+                n, t = by_name.get(ev.name, (0, 0.0))
+                by_name[ev.name] = (n + 1, t + us)
+        device_s = sum(t for _n, t in by_name.values()) / 1e6
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+        wall = min(seconds[method])
+        emit("profile", lp_method=method, device_seconds=device_s,
+             wall_seconds=wall, busy_share=device_s / wall if device_s
+             else None, n_kernel_launches=sum(n for n, _t in
+                                              by_name.values()),
+             top=[dict(name=k[:80], calls=n, ms=t / 1e3)
+                  for k, (n, t) in top])
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card visible", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.kernels.simplex_pivot import ops, ref
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    smi = run(["nvidia-smi", "--query-gpu=name,power.limit",
+               "--format=csv,noheader"]).splitlines()[0]
+    emit("env", torch=torch.__version__, cuda=torch.version.cuda,
+         device=torch.cuda.get_device_name(0), nvidia_smi=smi,
+         nvcc=run([ops.nvcc(), "--version"]).splitlines()[-1])
+
+    t0 = time.perf_counter()
+    path, log = ops.build()
+    ops.library()
+    ptxas = [ln.strip() for ln in log.splitlines()
+             if re.search(r"registers|spill|Compiling entry", ln)]
+    emit("build", seconds=time.perf_counter() - t0,
+         library=os.path.relpath(path, ROOT), ptxas=ptxas)
+
+    rows = phase_kernels(torch, ops, ref, dev)
+    params = build_params(dev)
+    launches = phase_rollout(torch, ops, dev, params)
+    phase_parity()
+    seconds = phase_timing(torch, dev, params)
+    phase_profile(torch, dev, params, seconds)
+
+    src = "src/repro_torch/kernels/simplex_pivot/csrc/simplex_pivot.cu"
+    tpu = "src/repro/kernels/simplex_pivot/simplex_pivot.py"
+    replaces = {"simplex_pivot": f"{tpu}:57", "reduced_pivot": f"{tpu}:146"}
+    kernels = [dict(name=name, route="cuda", source=src,
+                    replaces=replaces[name], launches=launches[name],
+                    max_abs_err=row["max_abs_err"], ms=row["ms"],
+                    plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                    bound_by=row["bound_by"], library_ms=None)
+               for name, row in rows.items()]
+    print(smi, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

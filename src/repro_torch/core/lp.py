@@ -1,0 +1,368 @@
+"""Batched two-phase primal simplex over float64 tensors.
+
+Port of the engine path of `repro.core.lp`: `simplex_batch_core` with its
+dense-tableau (`_two_phase_virtual` -> `_phase_batched`) and reduced
+revised (`_revised_core` -> `_revised_two_phase` -> `_revised_phase`)
+methods, the warm start (`_warm_init`, `_warm_init_reduced`,
+`_batched_inverse`) and the iteration budget (`_bucket_maxiter`).
+
+Problem form (canonicalised, ``b >= 0``): minimize ``c @ x`` subject to
+``A x == b``, ``x >= 0``, batched over a leading lane axis.  Every
+artificial is virtual — a basis LABEL ``>= C0`` whose column is never
+materialized — so a cold lane starts with every row basic on its own
+artificial and phase 1 minimizes their sum; a warm lane factors last
+period's basis and repairs infeasible rows with virtual artificials.
+
+Anti-cycling: Dantzig's entering rule until ``bland_after`` consecutive
+degenerate pivots, then Bland's smallest index until a non-degenerate
+pivot; the leaving row is the smallest basis label among min-ratio ties,
+with basic artificials at level 0 driven out first.
+
+The reference runs each phase as a `lax.while_loop`; here it is a Python
+loop whose condition is read on the host once per pivot.  The pivot body
+is `kernels.simplex_pivot.ops` — the CUDA kernel on a CUDA tensor, its
+plain version on a CPU tensor.  The LP is float64 only: a float32
+simplex cycles until ``maxiter``.
+
+Statuses: 0 optimal, 1 iteration limit, 2 infeasible, 3 unbounded.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..kernels.simplex_pivot import ops as pivot_ops
+from ..kernels.simplex_pivot.ref import INT32_MAX, price_reduced_ref
+from .types import next_pow2
+
+OPTIMAL, ITERATION_LIMIT, INFEASIBLE, UNBOUNDED = 0, 1, 2, 3
+
+# Consecutive degenerate pivots tolerated before the entering rule switches
+# from Dantzig to Bland.
+BLAND_AFTER = 8
+
+# warm-start accept thresholds (float64): primal feasibility of the
+# factored basis and the factor's residual
+_FEAS_TOL, _RESID_TOL = 1e-9, 1e-6
+
+
+def _bucket_maxiter(maxiter: int) -> int:
+    """Round a shape-derived default maxiter up to a power of two (the
+    reference's trace-reuse bucketing; kept so budgets match)."""
+    return next_pow2(maxiter)
+
+
+def _running(status, it, maxiter: int) -> bool:
+    """The phase loop's condition, read on the host (one sync per pivot)."""
+    return bool(((status == ITERATION_LIMIT) & (it < maxiter)).any())
+
+
+def _phase_batched(tabs, bases, art_start: int, *, maxiter: int, tol: float,
+                   bland_after: int, it0=None):
+    """Masked batched simplex phase over stacked tableaus (B, R+1, C+1).
+
+    Every iteration pivots all still-active lanes at once through
+    `ops.pivot_update`.  ``tabs`` is updated in place; ``it0`` (B,) int32
+    seeds the per-lane iteration counters (one maxiter budget across both
+    phases).  Returns ``(tabs, bases, it, status)``."""
+    B, R1, C1 = tabs.shape
+    R, C = R1 - 1, C1 - 1
+    dev = tabs.device
+    cols = torch.arange(C, device=dev)
+    rows = torch.arange(R, device=dev)
+    it = (torch.zeros(B, dtype=torch.int32, device=dev) if it0 is None
+          else it0.clone())
+    status = torch.full((B,), ITERATION_LIMIT, dtype=torch.int32,
+                        device=dev)
+    degen = torch.zeros(B, dtype=torch.int32, device=dev)
+    while _running(status, it, maxiter):
+        rc = tabs[:, -1, :C]
+        enter_mask = (rc < -tol) & (cols[None, :] < art_start)
+        has_enter = enter_mask.any(dim=1)
+        running = status == ITERATION_LIMIT
+        status = torch.where(running & ~has_enter, OPTIMAL, status)
+        active = running & has_enter & (it < maxiter)
+
+        score = torch.where(enter_mask, rc, torch.inf)
+        j_dantzig = score.argmin(dim=1)
+        j_bland = enter_mask.to(torch.uint8).argmax(dim=1)
+        j = torch.where(degen >= bland_after, j_bland, j_dantzig)
+
+        col = torch.gather(tabs[:, :R, :], 2,
+                           j[:, None, None].expand(B, R, 1))[..., 0]
+        rhsv = tabs[:, :R, -1]
+        pos = col > tol
+        ratio = torch.where(pos, rhsv / torch.where(pos, col, 1.0),
+                            torch.inf)
+        art_basic = (bases >= art_start) & (col.abs() > tol) & (rhsv <= tol)
+        ratio = torch.where(art_basic, 0.0, ratio)
+        unbounded = ~(ratio < torch.inf).any(dim=1)
+        rmin = ratio.amin(dim=1)
+        tie = ratio <= (rmin + torch.clamp_min(rmin.abs() * 1e-9,
+                                               1e-12))[:, None]
+        r = torch.where(tie, bases, INT32_MAX).argmin(dim=1)
+
+        do_pivot = active & ~unbounded
+        j32 = j.to(torch.int32)
+        pivot_ops.pivot_update(tabs, r.to(torch.int32), j32, do_pivot)
+        is_r = rows[None, :] == r[:, None]
+        bases = torch.where(do_pivot[:, None] & is_r, j32[:, None], bases)
+        status = torch.where(active & unbounded, UNBOUNDED, status)
+        degen = torch.where(do_pivot,
+                            torch.where(rmin <= tol, degen + 1, 0), degen)
+        it = it + active.to(torch.int32)
+    rc = tabs[:, -1, :C]
+    done = ~((rc < -tol) & (cols[None, :] < art_start)).any(dim=1)
+    status = torch.where((status == ITERATION_LIMIT) & done, OPTIMAL,
+                         status)
+    return tabs, bases, it, status
+
+
+def _batched_inverse(Bmat):
+    """Gauss-Jordan inverse with partial pivoting across the lane axis:
+    (B, R, R) -> (B, R, R), the reference's elimination step for step (so
+    warm-start repair makes the same decisions).  Singular lanes come out
+    inf/nan and are caught by the caller's residual check."""
+    B, R, _ = Bmat.shape
+    dev, dtype = Bmat.device, Bmat.dtype
+    eye = torch.eye(R, dtype=dtype, device=dev).expand(B, R, R)
+    aug = torch.cat([Bmat, eye], dim=2)                 # (B, R, 2R)
+    rows = torch.arange(R, device=dev)
+    lanes = torch.arange(B, device=dev)
+    for k in range(R):
+        cand = torch.where(rows[None, :] >= k, aug[:, :, k].abs(), -1.0)
+        p = cand.argmax(dim=1)                          # pivot row
+        row_p = aug[lanes, p]
+        row_k = aug[:, k, :]
+        is_k = rows[None, :] == k
+        is_p = rows[None, :] == p[:, None]
+        aug = torch.where(is_k[:, :, None], row_p[:, None, :], aug)
+        aug = torch.where((is_p & ~is_k)[:, :, None], row_k[:, None, :], aug)
+        piv_row = aug[:, k, :] / aug[:, k, k:k + 1]
+        new = torch.addcmul(aug, aug[:, :, k, None], piv_row[:, None, :],
+                            value=-1)          # one rounding, like XLA's FMA
+        aug = torch.where(is_k[:, :, None], piv_row[:, None, :], new)
+    return aug[:, :, R:]
+
+
+def _warm_init_reduced(A, b, basis0):
+    """Factor each lane's previous basis and repair primal infeasibility in
+    basis-inverse form: violated rows are sign-flipped (on the Binv row)
+    and handed a virtual artificial (label C0 + row).
+
+    Returns ``(Binv (B, R, R), rhs (B, R), bas (B, R) int32, ok (B,))``;
+    lanes with ``ok`` False (a -1 / out-of-range basis row, or a singular
+    or ill-conditioned factor) hold garbage and must run cold."""
+    B, R, C0 = A.shape
+    dev, dtype = A.device, A.dtype
+    bas = basis0.clamp(0, C0 - 1).to(torch.int32)
+    in_range = (basis0 >= 0).all(dim=1) & (basis0 < C0).all(dim=1)
+
+    Bmat = torch.gather(A, 2, bas.long()[:, None, :].expand(B, R, R))
+    Binv = _batched_inverse(Bmat)
+    eye = torch.eye(R, dtype=dtype, device=dev)
+    resid = (Bmat @ Binv - eye).abs().amax(dim=(1, 2))
+    rhs = (Binv @ b[..., None])[..., 0]
+    ok = in_range & torch.isfinite(resid) & (resid < _RESID_TOL)
+
+    flip = rhs < -_FEAS_TOL
+    sgn = torch.where(flip, -1.0, 1.0).to(dtype)
+    Binv = Binv * sgn[:, :, None]
+    rhs = torch.clamp_min(rhs * sgn, 0.0)   # clamp -feas_tol..0 dust to 0
+    rows = torch.arange(R, dtype=torch.int32, device=dev)
+    bas = torch.where(flip, C0 + rows[None, :], bas)
+    return Binv, rhs, bas.to(torch.int32), ok
+
+
+def _warm_init(A, b, basis0):
+    """`_warm_init_reduced` expanded to dense-tableau form: the repaired
+    factor prices the full tableau (``tabA = Binv @ A``).  Returns
+    ``(tabA (B, R, C0), rhs, bas, ok)``."""
+    Binv, rhs, bas, ok = _warm_init_reduced(A, b, basis0)
+    return Binv @ A, rhs, bas, ok
+
+
+def _two_phase_virtual(tabA, rhs, bas, b, c_full, *, nv, maxiter, tol,
+                       bland_after, lane_mask=None):
+    """Both simplex phases over virtual-artificial tableaus: build the
+    (B, R+1, C0+1) stack, minimize the sum of artificial-basis rows, swap
+    in the real objective priced over the resulting basis, run phase 2,
+    and scatter the solution out.  ``lane_mask`` False zeroes a lane's
+    tableau (no entering column, 0 pivots, garbage x).
+
+    Returns ``(x (B, nv), fun, status, niter, bases)``."""
+    B, R, C0 = tabA.shape
+    dev, dtype = tabA.device, tabA.dtype
+    tabs = torch.zeros((B, R + 1, C0 + 1), dtype=dtype, device=dev)
+    tabs[:, :R, :C0] = tabA
+    tabs[:, :R, -1] = rhs
+    art_row = (bas >= C0).to(dtype)
+    tabs[:, -1, :] = -torch.einsum("br,brc->bc", art_row, tabs[:, :R, :])
+    if lane_mask is not None:
+        tabs = torch.where(lane_mask[:, None, None], tabs, 0.0)
+
+    tabs, bases, it1, status1 = _phase_batched(
+        tabs, bas, C0, maxiter=maxiter, tol=tol, bland_after=bland_after)
+    phase1_obj = tabs[:, -1, -1]          # = -(sum of basic artificials)
+    infeasible = phase1_obj < -max(tol, 1e-5) * (1.0 + b.abs().sum(dim=1))
+
+    # phase 2: swap in the real objective, priced out over the basis
+    # (virtual artificial labels price at cost 0)
+    obj = torch.zeros((B, C0 + 1), dtype=dtype, device=dev)
+    obj[:, :C0] = c_full
+    cb = torch.where(bases < C0,
+                     torch.gather(obj[:, :C0], 1,
+                                  bases.long().clamp(0, C0 - 1)), 0.0)
+    obj = obj - torch.einsum("br,brc->bc", cb, tabs[:, :R, :])
+    if lane_mask is not None:
+        obj = torch.where(lane_mask[:, None], obj, 0.0)
+    tabs[:, -1, :] = obj
+    tabs, bases, it2, status2 = _phase_batched(
+        tabs, bases, C0, maxiter=maxiter, tol=tol, bland_after=bland_after,
+        it0=it1)
+
+    vals = torch.where(bases < C0, tabs[:, :R, -1], 0.0)
+    x = torch.zeros((B, C0), dtype=dtype, device=dev).scatter_add_(
+        1, bases.long().clamp(0, C0 - 1), vals)
+    fun = -tabs[:, -1, -1]
+    status = torch.where(status1 != OPTIMAL, status1,
+                         torch.where(infeasible, INFEASIBLE, status2))
+    return x[:, :nv], fun, status, it2, bases
+
+
+def _revised_phase(A, c_phase, Binv, xB, bas, *, art_cost: float,
+                   maxiter: int, tol: float, bland_after: int, lane_ok,
+                   it0=None):
+    """Masked batched simplex phase in reduced form: only the (R, R)
+    factor and the basic solution are carried per lane (updated in place
+    by `ops.reduced_pivot`); every iteration prices all C0 columns out of
+    the factor.  Selection rules and status bookkeeping match
+    `_phase_batched`; ``art_cost`` prices virtual artificials (1 in phase
+    1, 0 in phase 2).  Returns ``(Binv, xB, bas, it, status)``."""
+    B = A.shape[0]
+    dev = A.device
+    lane_ok = (torch.ones(B, dtype=torch.bool, device=dev) if lane_ok is None
+               else lane_ok)
+    it = (torch.zeros(B, dtype=torch.int32, device=dev) if it0 is None
+          else it0.clone())
+    status = torch.full((B,), ITERATION_LIMIT, dtype=torch.int32,
+                        device=dev)
+    degen = torch.zeros(B, dtype=torch.int32, device=dev)
+    while _running(status, it, maxiter):
+        running = status == ITERATION_LIMIT
+        has_enter, unbounded, degen_piv = pivot_ops.reduced_pivot(
+            A, c_phase, Binv, xB, bas, degen >= bland_after,
+            running & (it < maxiter), lane_ok, art_cost=art_cost, tol=tol)
+        status = torch.where(running & ~has_enter, OPTIMAL, status)
+        active = running & has_enter & (it < maxiter)
+        status = torch.where(active & unbounded, UNBOUNDED, status)
+        do_pivot = active & ~unbounded
+        degen = torch.where(do_pivot,
+                            torch.where(degen_piv, degen + 1, 0), degen)
+        it = it + active.to(torch.int32)
+    rc = price_reduced_ref(A, c_phase, Binv, bas, art_cost)
+    done = ~((rc < -tol) & lane_ok[:, None]).any(dim=1)
+    status = torch.where((status == ITERATION_LIMIT) & done, OPTIMAL,
+                         status)
+    return Binv, xB, bas, it, status
+
+
+def _revised_two_phase(A, b, c_full, Binv, xB, bas, *, nv, maxiter, tol,
+                       bland_after, lane_mask=None):
+    """Both simplex phases in reduced form (`_two_phase_virtual`'s twin):
+    the infeasibility certificate reads the basic-artificial levels off
+    ``xB``.  ``lane_mask`` False lanes never produce an entering column
+    (0 pivots, OPTIMAL, x = 0).  Returns ``(x, fun, status, niter,
+    bases)``."""
+    B, R, C0 = A.shape
+    Binv, xB, bas, it1, status1 = _revised_phase(
+        A, torch.zeros_like(c_full), Binv, xB, bas, art_cost=1.0,
+        maxiter=maxiter, tol=tol, bland_after=bland_after,
+        lane_ok=lane_mask)
+    art_sum = torch.where(bas >= C0, xB, 0.0).sum(dim=1)
+    infeasible = art_sum > max(tol, 1e-5) * (1.0 + b.abs().sum(dim=1))
+    if lane_mask is not None:
+        infeasible = infeasible & lane_mask
+
+    Binv, xB, bas, it2, status2 = _revised_phase(
+        A, c_full, Binv, xB, bas, art_cost=0.0, maxiter=maxiter, tol=tol,
+        bland_after=bland_after, lane_ok=lane_mask, it0=it1)
+
+    vals = torch.where(bas < C0, xB, 0.0)
+    idx = bas.long().clamp(0, C0 - 1)
+    x = torch.zeros((B, C0), dtype=A.dtype, device=A.device).scatter_add_(
+        1, idx, vals)
+    cb = torch.where(bas < C0, torch.gather(c_full, 1, idx), 0.0)
+    fun = (cb * vals).sum(dim=1)
+    if lane_mask is not None:
+        fun = torch.where(lane_mask, fun, 0.0)
+    status = torch.where(status1 != OPTIMAL, status1,
+                         torch.where(infeasible, INFEASIBLE, status2))
+    return x[:, :nv], fun, status, it2, bas
+
+
+def _revised_core(A, b, c_full, basis0, *, nv, maxiter, tol,
+                  bland_after=BLAND_AFTER, lane_mask=None):
+    """Warm-or-cold batched revised simplex (``method="revised"``): a cold
+    lane's factor is the identity (xB = b, every row on its virtual
+    artificial), a warm lane reuses its repaired `_warm_init_reduced`
+    factor, rejected lanes start cold in the same call."""
+    B, R, C0 = A.shape
+    dev, dtype = A.device, A.dtype
+    rows = torch.arange(R, dtype=torch.int32, device=dev)
+    bas_c = (C0 + rows).expand(B, R)
+    eye = torch.eye(R, dtype=dtype, device=dev).expand(B, R, R)
+    if basis0 is None:
+        warm_ok = torch.zeros(B, dtype=torch.bool, device=dev)
+        Binv, xB, bas = eye.clone(), b.clone(), bas_c.clone()
+    else:
+        Binv_w, rhs_w, bas_w, warm_ok = _warm_init_reduced(A, b, basis0)
+        Binv = torch.where(warm_ok[:, None, None], Binv_w, eye)
+        xB = torch.where(warm_ok[:, None], rhs_w, b)
+        bas = torch.where(warm_ok[:, None], bas_w, bas_c)
+    x, fun, status, niter, bases = _revised_two_phase(
+        A, b, c_full, Binv.contiguous(), xB.contiguous(),
+        bas.to(torch.int32).contiguous(), nv=nv, maxiter=maxiter, tol=tol,
+        bland_after=bland_after, lane_mask=lane_mask)
+    return x, fun, status, niter, bases, warm_ok
+
+
+def simplex_batch_core(A, b, c_full, basis0, *, nv: int, maxiter: int,
+                       tol: float = 1e-7, bland_after: int = BLAND_AFTER,
+                       lane_mask=None, method: str = "tableau"):
+    """Warm-or-cold batched two-phase simplex (the engine's plan solve).
+
+    ``A`` (B, R, C0), ``b`` (B, R) >= 0 and ``c_full`` (B, C0) float64;
+    ``basis0`` (B, R) int32 previous bases (rows of -1 start cold) or None
+    (every lane cold).  ``lane_mask`` (B,) bool False lanes spend 0 pivots.
+    ``method`` is ``"tableau"`` (dense (R+1, C0+1) pivots through the
+    simplex_pivot kernel) or ``"revised"`` (the (R, R) basis inverse
+    through the reduced_pivot kernel); they agree on statuses and pivot
+    counts and to solver tolerance on x/fun.
+
+    Returns ``(x (B, nv), fun, status, niter, basis, warm_ok)``."""
+    if A.dtype != torch.float64:
+        raise TypeError(f"the LP is float64-only (got {A.dtype}): a float32 "
+                        f"simplex cycles until maxiter")
+    A, b, c_full = A.contiguous(), b.contiguous(), c_full.contiguous()
+    if method == "revised":
+        return _revised_core(A, b, c_full, basis0, nv=nv, maxiter=maxiter,
+                             tol=tol, bland_after=bland_after,
+                             lane_mask=lane_mask)
+    if method != "tableau":
+        raise ValueError(f"unknown simplex method {method!r}; expected "
+                         f"'tableau' or 'revised'")
+    B, R, C0 = A.shape
+    rows = torch.arange(R, dtype=torch.int32, device=A.device)
+    bas_c = (C0 + rows).expand(B, R)
+    if basis0 is None:
+        warm_ok = torch.zeros(B, dtype=torch.bool, device=A.device)
+        tabA, rhs, bas = A, b, bas_c
+    else:
+        tabA_w, rhs_w, bas_w, warm_ok = _warm_init(A, b, basis0)
+        tabA = torch.where(warm_ok[:, None, None], tabA_w, A)
+        rhs = torch.where(warm_ok[:, None], rhs_w, b)
+        bas = torch.where(warm_ok[:, None], bas_w, bas_c)
+    x, fun, status, niter, bases = _two_phase_virtual(
+        tabA, rhs, bas.to(torch.int32), b, c_full, nv=nv, maxiter=maxiter,
+        tol=tol, bland_after=bland_after, lane_mask=lane_mask)
+    return x, fun, status, niter, bases, warm_ok

@@ -1,0 +1,105 @@
+"""Problem containers for the offloading problem `P` (paper §III).
+
+Port of `repro.core.types` (`OffloadInstance`, `InstanceBatch`,
+`next_pow2`).  They stay NumPy containers: they hold host-side instance
+data that the fleet constructors turn into tensors.
+
+Notation follows the paper: n jobs, m models on the ED and one on the ES
+(index m); ``p_ed[j, i]`` is job j's time on ED model i, ``p_es[j]`` its
+total ES time (communication included), ``acc[i]`` the accuracy of model
+i, and ``T`` the budget of each capacity constraint.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+
+def next_pow2(x: int) -> int:
+    """Smallest power of two >= x (the shape-bucketing primitive)."""
+    return 1 << (max(int(x), 1) - 1).bit_length()
+
+
+@dataclasses.dataclass(frozen=True)
+class OffloadInstance:
+    """One instance of problem P."""
+
+    p_ed: np.ndarray   # (n, m) float
+    p_es: np.ndarray   # (n,)  float  (comm + server compute)
+    acc: np.ndarray    # (m+1,) float
+    T: float
+
+    def __post_init__(self):
+        object.__setattr__(self, "p_ed", np.asarray(self.p_ed, np.float64))
+        object.__setattr__(self, "p_es", np.asarray(self.p_es, np.float64))
+        object.__setattr__(self, "acc", np.asarray(self.acc, np.float64))
+        if self.p_ed.ndim != 2:
+            raise ValueError("p_ed must be (n, m)")
+        if self.p_es.shape != (self.n,):
+            raise ValueError("p_es must be (n,)")
+        if self.acc.shape != (self.m + 1,):
+            raise ValueError("acc must be (m+1,)")
+
+    @property
+    def n(self) -> int:
+        return self.p_ed.shape[0]
+
+    @property
+    def m(self) -> int:
+        return self.p_ed.shape[1]
+
+
+@dataclasses.dataclass(frozen=True)
+class InstanceBatch:
+    """B instances sharing (n, m), stacked on a leading axis."""
+
+    p_ed: np.ndarray   # (B, n, m) float
+    p_es: np.ndarray   # (B, n)  float
+    acc: np.ndarray    # (B, m+1) float
+    T: np.ndarray      # (B,)  float
+
+    def __post_init__(self):
+        object.__setattr__(self, "p_ed", np.asarray(self.p_ed, np.float64))
+        object.__setattr__(self, "p_es", np.asarray(self.p_es, np.float64))
+        object.__setattr__(self, "acc", np.asarray(self.acc, np.float64))
+        object.__setattr__(self, "T", np.asarray(self.T, np.float64))
+        if self.p_ed.ndim != 3:
+            raise ValueError("p_ed must be (B, n, m)")
+        B, n, m = self.p_ed.shape
+        if self.p_es.shape != (B, n):
+            raise ValueError("p_es must be (B, n)")
+        if self.acc.shape != (B, m + 1):
+            raise ValueError("acc must be (B, m+1)")
+        if self.T.shape != (B,):
+            raise ValueError("T must be (B,)")
+
+    @classmethod
+    def stack(cls, instances: "list[OffloadInstance]") -> "InstanceBatch":
+        if not instances:
+            raise ValueError("cannot stack an empty instance list")
+        n, m = instances[0].n, instances[0].m
+        for inst in instances[1:]:
+            if (inst.n, inst.m) != (n, m):
+                raise ValueError(
+                    f"instances must share (n, m); got ({inst.n}, {inst.m}) "
+                    f"vs ({n}, {m})")
+        return cls(p_ed=np.stack([i.p_ed for i in instances]),
+                   p_es=np.stack([i.p_es for i in instances]),
+                   acc=np.stack([i.acc for i in instances]),
+                   T=np.array([i.T for i in instances]))
+
+    def __len__(self) -> int:
+        return self.p_ed.shape[0]
+
+    def __getitem__(self, b: int) -> OffloadInstance:
+        return OffloadInstance(p_ed=self.p_ed[b], p_es=self.p_es[b],
+                               acc=self.acc[b], T=float(self.T[b]))
+
+    @property
+    def n(self) -> int:
+        return self.p_ed.shape[1]
+
+    @property
+    def m(self) -> int:
+        return self.p_ed.shape[2]

@@ -1,0 +1,116 @@
+"""AMR^2's LP build and rounding (`repro_torch.core.amr2`) against the
+reference (`repro.core.amr2`), plus the paper's 2T makespan guarantee.
+
+The rounding is held on identical inputs — the reference's own LP
+relaxation, handed to both sides as NumPy — over every branch of the case
+tree: integral rows, one and two fractional jobs, more than two (the
+numeric fallback), infeasible and unsolved lanes.  Tolerances: the LP
+arrays and every rounding output exact.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.amr2 import build_lp_arrays_jnp, round_relaxation_jnp
+from repro.core import lp as jlp
+from repro_torch.core import amr2, lp
+from test_torch_parity_util import reference_x64, to_numpy
+
+B, N, M = 32, 8, 2
+
+
+def _batch(seed):
+    rng = np.random.default_rng(seed)
+    p_ed = np.sort(rng.uniform(0.02, 0.4, (B, N, M)), axis=2)
+    p_es = rng.uniform(0.1, 0.9, (B, N))
+    acc = np.sort(rng.uniform(0.3, 0.95, (B, M + 1)), axis=1)
+    T = rng.uniform(0.5, 1.5, B)
+    return p_ed, p_es, acc, T
+
+
+def _t(x):
+    return torch.as_tensor(np.ascontiguousarray(x))
+
+
+def test_lp_arrays_match_reference():
+    data = _batch(0)
+    got = amr2.build_lp_arrays(*map(_t, data))
+    with reference_x64():
+        want = build_lp_arrays_jnp(*map(jnp.asarray, data))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(to_numpy(g), np.asarray(w))
+
+
+def _reference_relaxation(data):
+    with reference_x64():
+        A, b, c = build_lp_arrays_jnp(*map(jnp.asarray, data))
+        x, _f, status, *_ = jax.jit(
+            lambda A, b, c: jlp.simplex_batch_core(A, b, c, None,
+                                                   nv=N * (M + 1),
+                                                   maxiter=1024))(A, b, c)
+    return (np.array(x).reshape(B, N, M + 1), np.array(status))
+
+
+def _round_both(data, xbar, status):
+    got = amr2.round_relaxation(*map(_t, data), _t(xbar), _t(status))
+    with reference_x64():
+        want = jax.jit(round_relaxation_jnp)(
+            *map(jnp.asarray, data), jnp.asarray(xbar), jnp.asarray(status))
+    for g, w, name in zip(got, want, ("assignment", "status", "n_frac")):
+        np.testing.assert_array_equal(to_numpy(g), np.asarray(w), name)
+    return [to_numpy(g) for g in got]
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3])
+def test_rounding_matches_reference_on_lp_relaxations(seed):
+    data = _batch(seed)
+    xbar, status = _reference_relaxation(data)
+    _assign, _sched, n_frac = _round_both(data, xbar, status)
+    assert (n_frac > 0).any() and (n_frac == 0).any()
+
+
+def test_rounding_matches_reference_on_every_branch():
+    data = _batch(4)
+    xbar, status = _reference_relaxation(data)
+    rng = np.random.default_rng(4)
+    # more than two fractional rows: the numeric fallback, with ties in
+    # fractionality resolved by the stable sort
+    many = np.flatnonzero(status == jlp.OPTIMAL)[:8]
+    for b in many:
+        k = 3 + b % 3
+        rows = rng.choice(N, k, replace=False)
+        xbar[b, rows] = 0.0
+        xbar[b, rows, 0] = 0.5 if b % 2 else rng.uniform(0.3, 0.7)
+        xbar[b, rows, M] = 1.0 - xbar[b, rows, 0]
+    rest = np.setdiff1d(np.arange(B), many)
+    status[rest[:4]] = jlp.INFEASIBLE
+    status[rest[4:6]] = jlp.ITERATION_LIMIT
+    status[rest[6]] = jlp.UNBOUNDED
+    _assign, sched, _n_frac = _round_both(data, xbar, status)
+    assert (sched[many] == amr2.ST_FALLBACK).all()
+    assert (sched[rest[:4]] == amr2.ST_INFEASIBLE).all()
+    assert (sched[rest[4:7]] == amr2.ST_UNSOLVED).all()
+
+
+@pytest.mark.parametrize("method", ["tableau", "revised"])
+def test_port_amr2_keeps_makespan_within_2T(method):
+    """Theorem 1: for a feasible P the rounded schedule's makespan on each
+    tier is at most 2T."""
+    data = _batch(5)
+    p_ed, p_es, acc, T = map(_t, data)
+    A, b, c = amr2.build_lp_arrays(p_ed, p_es, acc, T)
+    x, _f, status, *_ = lp.simplex_batch_core(A, b, c, None, nv=N * (M + 1),
+                                              maxiter=1024, method=method)
+    assign, sched, _nf = amr2.round_relaxation(
+        p_ed, p_es, acc, T, x.reshape(B, N, M + 1), status)
+    ok = (status == lp.OPTIMAL) & (sched != amr2.ST_FALLBACK)
+    assert ok.sum() > B // 2
+    on_ed = assign < M
+    ed = torch.where(on_ed, torch.gather(p_ed, 2, assign.clamp(0, M - 1)
+                                         .long()[..., None])[..., 0],
+                     0.0).sum(1)
+    es = torch.where(assign == M, p_es, 0.0).sum(1)
+    assert (ed[ok] <= 2 * T[ok] + 1e-12).all()
+    assert (es[ok] <= 2 * T[ok] + 1e-12).all()

@@ -1,0 +1,139 @@
+"""The port on a CUDA card: each kernel against its plain version, and a
+small rollout on the card against the same rollout on the CPU.
+
+Every test here is marked ``gpu`` and skips (with the reason) where no
+card is visible.  The file imports no JAX — it compares the port with
+itself, not with the reference — so it also runs on a card machine
+without jax:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
+
+Tolerances: integer outputs and metrics exact; floats to rtol/atol 1e-12
+for a single kernel call, 1e-9 for rollout metrics (the card reduces in
+another order than the CPU).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import convert
+from repro_torch.api import engine as E
+from repro_torch.kernels.simplex_pivot import ops, ref
+from repro_torch.serving.fleet import make_fleet
+from repro_torch.serving.queue import RequestQueue
+
+RTOL = ATOL = 1e-12
+B, R, C0 = 256, 14, 38                      # the fleet's R and C0
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (see README: PyTorch / H100 port)")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _fail_if_called(*_a, **_k):
+    raise AssertionError("a CUDA tensor reached the plain version")
+
+
+def _tableau_case(seed):
+    g = torch.Generator().manual_seed(seed)
+    tabs = torch.randn((B, R + 1, C0 + 1), generator=g, dtype=torch.float64)
+    r = torch.randint(0, R, (B,), generator=g, dtype=torch.int32)
+    j = torch.randint(0, C0, (B,), generator=g, dtype=torch.int32)
+    mask = torch.rand((B,), generator=g) < 0.7
+    return tabs, r, j, mask
+
+
+def _reduced_case(seed):
+    g = torch.Generator().manual_seed(seed)
+    A = torch.randn((B, R, C0), generator=g, dtype=torch.float64)
+    c = torch.randn((B, C0), generator=g, dtype=torch.float64)
+    Binv = torch.eye(R, dtype=torch.float64) + 0.3 * torch.randn(
+        (B, R, R), generator=g, dtype=torch.float64)
+    xB = 2.0 * torch.rand((B, R), generator=g, dtype=torch.float64)
+    xB[::4, ::2] = 0.0                                  # degenerate lanes
+    basis = torch.argsort(torch.rand((B, C0 + R), generator=g),
+                          dim=1)[:, :R].to(torch.int32).contiguous()
+    lanes = torch.arange(B)
+    return [A, c, Binv, xB, basis, lanes % 3 == 0,
+            torch.rand((B,), generator=g) < 0.8, lanes % 10 != 5]
+
+
+@pytest.mark.gpu
+def test_cuda_pivot_kernel_matches_plain_version(cuda_device, monkeypatch):
+    tabs, r, j, mask = _tableau_case(3)
+    want = ref.pivot_update_ref(tabs, r, j, mask)
+    monkeypatch.setattr(ops, "pivot_update_ref", _fail_if_called)
+    ops.reset_launches()
+    t = tabs.to(cuda_device)
+    ops.pivot_update(t, r.to(cuda_device), j.to(cuda_device),
+                     mask.to(cuda_device))
+    torch.cuda.synchronize()
+    assert ops.pivot_update.launches == 1
+    np.testing.assert_allclose(t.cpu().numpy(), want.numpy(), rtol=RTOL,
+                               atol=ATOL)
+
+
+@pytest.mark.gpu
+def test_cuda_reduced_kernel_matches_plain_version(cuda_device,
+                                                   monkeypatch):
+    case = _reduced_case(4)
+    want = ref.reduced_pivot_ref(*case, art_cost=1.0, tol=1e-7)
+    monkeypatch.setattr(ops, "reduced_pivot_ref", _fail_if_called)
+    ops.reset_launches()
+    dev = [x.to(cuda_device) for x in case]
+    flags = ops.reduced_pivot(*dev, art_cost=1.0, tol=1e-7)
+    torch.cuda.synchronize()
+    assert ops.reduced_pivot.launches == 1
+    for got, w in ((dev[2], want[0]), (dev[3], want[1])):
+        np.testing.assert_allclose(got.cpu().numpy(), w.numpy(), rtol=RTOL,
+                                   atol=ATOL)
+    assert torch.equal(dev[4].cpu(), want[2])
+    for got, w in zip(flags, want[3:]):
+        assert torch.equal(got.cpu(), w)
+
+
+@pytest.mark.gpu
+def test_cuda_wrappers_check_their_inputs(cuda_device):
+    tabs, r, j, mask = (x.to(cuda_device) for x in _tableau_case(5))
+    with pytest.raises(TypeError, match="int32"):
+        ops.pivot_update(tabs, r.long(), j, mask)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.pivot_update(tabs.transpose(1, 2), r, j, mask)
+    with pytest.raises(ValueError, match="expected"):
+        ops.pivot_update(tabs, r.cpu(), j, mask)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lp_method", ["tableau", "revised"])
+def test_cuda_rollout_matches_cpu_rollout(cuda_device, lp_method):
+    """Through the CUDA kernels on the card, through the plain versions on
+    the CPU.  The audit threshold is 1.4: at 1.5 a 3x straggler's audits
+    tie it exactly, and the card and the CPU sum in different orders
+    (ROADMAP §3)."""
+    D, P = 32, 6
+    devices = make_fleet(D, seed=11, horizon=P, es_peak_flops=989e12,
+                         es_hbm_bw=3.35e12)
+    queue = RequestQueue(D, (128, 512, 1024), rate=10.0, batch_max=12,
+                         seed=11)
+    cpu = E.EngineParams.from_fleet(devices, queue, T=1.2, n_servers=4,
+                                    horizon=P, lp_method=lp_method,
+                                    straggler_threshold=1.4, device="cpu")
+    gpu = convert.params_from_numpy(
+        {**{f: getattr(cpu, f).numpy() for f in E.PARAM_ARRAYS},
+         **{f: getattr(cpu, f) for f in E.PARAM_CONFIG}}, cuda_device)
+    _, mc = E.rollout(E.init_state(cpu, device="cpu"), cpu, P, device="cpu")
+    ops.reset_launches()
+    _, mg = E.rollout(E.init_state(gpu, device=cuda_device), gpu, P,
+                      device=cuda_device)
+    counter = ops.pivot_update if lp_method == "tableau" \
+        else ops.reduced_pivot
+    assert counter.launches > 0
+    for f in E.METRIC_FIELDS:
+        a, b = getattr(mg, f).cpu(), getattr(mc, f)
+        if a.is_floating_point():
+            assert (a - b).abs().max().item() <= 1e-9, f
+        else:
+            assert torch.equal(a, b), f
