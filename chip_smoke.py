@@ -3,31 +3,48 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line; any failure exits non-zero:
+Phases, each printing JSON lines; any failure exits non-zero:
 
   1. env      torch / CUDA / nvcc versions and the card (nvidia-smi).
-  2. build    compiles the CUDA kernels from `src/repro_torch/kernels/*/csrc`
+  2. build    compiles every kernel source under
+              `src/repro_torch/kernels/*/csrc` (one nvcc each, all at once)
               and prints what ptxas reports (registers, shared memory,
-              spills).
-  3. kernels  each kernel against its plain PyTorch version at the fleet
-              shapes (16384 lanes, R = 14 rows, C0 = 38 columns): random,
-              masked, degenerate and Bland lanes; integer outputs exact,
-              floats to rtol/atol 1e-12; kernel and plain times (CUDA
-              events) beside the memory bound.
-  4. rollout  the main path: `EngineParams.from_fleet` -> `init_state` ->
-              `rollout` of a 16384-device fleet for 8 periods, once per LP
-              method, with every kernel's launch counter set to 0 just
-              before and read just after; the two methods must agree
-              (integer metrics exact, float metrics to 1e-9) with no
-              unsolved lane.
-  5. parity   the card-marked tests (`pytest -m gpu tests/test_torch_cuda.py`,
+              spills) for each.
+  3. kernels  each kernel against its plain PyTorch version at the shapes
+              its main path gives it: the simplex kernels at 16384 lanes,
+              R = 14 rows, C0 = 38 columns (random, masked, degenerate and
+              Bland lanes; integer outputs exact, floats to rtol/atol
+              1e-12); the CCKP kernel on 16384 grids of 2048 x 16 cells,
+              p and accuracies from the fleet's profiles, the grids from a
+              real first-model pass (bitwise).  Kernel and plain times
+              (CUDA events) beside each bound.
+  4. rollout  the tensor engine's path: `EngineParams.from_fleet` ->
+              `init_state` -> `rollout` of a 16384-device fleet for 8
+              periods, once per LP method, with every kernel's launch
+              counter set to 0 just before and read just after; the two
+              methods must agree (integer metrics exact, float metrics to
+              1e-9) with no unsolved lane.
+  5. front    `repro_torch.api.solve(fp, policy="auto")` on a 16384-device
+              `FleetProblem`, half identical-job rows, half heterogeneous
+              rows: per-solver device counts, seconds, launches per kernel;
+              AMR^2 rows within 2T, AMDP rows within T, and the first 256
+              rows equal to the same solve on the CPU.
+  6. serve    the host `FleetEngine` (`policy="auto"`) on 16384 devices of
+              one job class for 8 periods, counters set to 0 before and
+              read after: per period the AMDP and AMR^2 device counts
+              (both > 0), backpressured devices and seconds; launches per
+              kernel and peak memory over the run.  The engine's solves
+              are strict: an unsolved lane raises.
+  7. parity   the card-marked tests (`pytest -m gpu tests/test_torch_cuda.py`,
               in a child process): each kernel against its plain version,
-              and a 32-device rollout on the card against the same rollout
-              on the CPU (the kernels' plain versions).
-  6. timing   the 16384-device rollout again, in turns (tableau, revised,
+              a 32-device rollout and a 64-device `FleetEngine` run on the
+              card against the same runs on the CPU.
+  8. timing   the 16384-device rollout again, in turns (tableau, revised,
               revised, tableau), for steady-state devices/s.
-  7. profile  one rollout per method under `torch.profiler`: device time by
-              kernel name and the device's busy share of the wall time.
+  9. profile  one rollout per LP method and one serve run under
+              `torch.profiler`: device time by kernel name and the device's
+              busy share of the wall time; one more serve run under
+              cProfile: host seconds by pipeline stage.
 
 Then the nvidia-smi line, the kernels line and, last, the result line.
 Exits non-zero without a CUDA card, and when the repository's `src/` is
@@ -49,10 +66,15 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # roofline profiles
 HBM_BYTES_S = 3.35e12
 FP64_FLOPS = 34e12
+FP32_FLOPS = 67e12
 ES_PEAK_FLOPS = 989e12
 D_FLEET, PERIODS, R, N_JOBS = 16384, 8, 14, 12
 C0 = N_JOBS * 3 + 2
 RTOL = ATOL = 1e-12
+# AMDP's grids at the fleet's budget: T = 1.2 s at 1 ms steps (T1 =
+# next_pow2(1201)), at most 12 local jobs (K1 = next_pow2(13))
+T_BUDGET, DP_T1, DP_K1 = 1.2, 2048, 16
+N_SERVERS = D_FLEET // 16
 
 
 def emit(phase: str, **fields) -> None:
@@ -74,11 +96,11 @@ def run(cmd) -> str:
                           timeout=120).stdout.strip()
 
 
-def bound_of(nbytes, flops):
-    """(bound_ms, bound_by): the larger of the memory time and the FP64
-    time of one call."""
+def bound_of(nbytes, flops, peak=FP64_FLOPS):
+    """(bound_ms, bound_by): the larger of the memory time and the
+    operations' time at ``peak`` FLOP/s of one call."""
     t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = flops / FP64_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -198,7 +220,76 @@ def phase_kernels(torch, ops, ref, dev):
         row["bound_ms"], row["bound_by"] = bound_of(row["bytes"],
                                                          row["flops"])
         emit("kernels", kernel=name, **row)
+    rows["cckp_model_dp"] = phase_cckp_kernel(torch, dev)
     return rows
+
+
+def cckp_case(torch, dev):
+    """AMDP's second-model step as the serve path meets it: per-lane p and
+    accuracies of the fleet's class-512 profiles (p = ceil(p_ed / 1 ms)),
+    and grids that came out of the first model's pass."""
+    import numpy as np
+
+    from repro_torch.core.amdp import _integerize
+    from repro_torch.kernels.cckp_dp import ops as cckp_ops
+    from repro_torch.kernels.cckp_dp.ref import NEG
+    from repro_torch.serving.fleet import make_fleet
+    specs = make_fleet(D_FLEET, classes=(512,), seed=11, horizon=1,
+                       es_peak_flops=ES_PEAK_FLOPS, es_hbm_bw=HBM_BYTES_S)
+    p_ed = np.stack([d.profile.p_ed[0] for d in specs])         # (D, 2)
+    p_int, _ = _integerize(p_ed, np.full(D_FLEET, T_BUDGET), 1e-3)
+    acc = np.stack([d.profile.acc[:2] for d in specs])
+    p = torch.as_tensor(p_int.astype(np.int32), device=dev)
+    a = torch.as_tensor(acc.astype(np.float32), device=dev)
+    y0 = torch.full((D_FLEET, DP_T1, DP_K1), NEG, dtype=torch.float32,
+                    device=dev)
+    y0[:, :, 0] = 0.0
+    y1, _ = cckp_ops.model_dp(y0, p[:, 0].contiguous(),
+                              a[:, 0].contiguous(), DP_K1)
+    del y0
+    return y1, p[:, 1].contiguous(), a[:, 1].contiguous()
+
+
+def cckp_work(torch, p, T1, K1, n_steps):
+    """Bytes and float32 operations one `cckp_model_dp` call needs: each
+    cell reads its grid value and writes its value and count (12 bytes);
+    cell (t, k) of lane b evaluates the q whose source cell lies inside
+    the grid, min(k + 1, c) of them with c = min(t // p_b + 1, n_steps),
+    one multiply, one add and one compare each.  Summed over k < K1 that
+    is c (c + 1) / 2 + c (K1 - c) per (b, t)."""
+    t = torch.arange(T1, device=p.device, dtype=torch.int64)
+    p64 = p.to(torch.int64)[:, None]
+    c = torch.where(p64 > 0, t[None, :] // p64.clamp_min(1) + 1,
+                    torch.full_like(p64, n_steps)).clamp_max(
+                        min(n_steps, K1))                      # (B, T1)
+    n_q = (c * (c + 1) // 2 + c * (K1 - c)).sum()
+    return 12 * p.shape[0] * T1 * K1, 3 * int(n_q)
+
+
+def phase_cckp_kernel(torch, dev):
+    from repro_torch.kernels.cckp_dp import ops as cckp_ops
+    from repro_torch.kernels.cckp_dp import ref as cckp_ref
+    y, p, a = cckp_case(torch, dev)
+    got_y, got_q = cckp_ops.model_dp(y, p, a, DP_K1)
+    want_y, want_q = cckp_ref.cckp_model_dp_ref(y, p, a, DP_K1)
+    torch.cuda.synchronize()
+    err = (got_y - want_y).abs().max().item()
+    check(torch.equal(got_y, want_y) and torch.equal(got_q, want_q),
+          f"cckp_model_dp disagrees with its plain version (max {err})")
+    check(bool((got_q > 0).any()) and bool((got_y > cckp_ref.NEG).any()),
+          "cckp_model_dp inputs give no non-trivial cell")
+    del got_y, got_q, want_y, want_q
+    ms = cuda_ms(lambda: cckp_ops.model_dp(y, p, a, DP_K1), [()] * 5,
+                 torch)
+    plain_ms = cuda_ms(
+        lambda: cckp_ref.cckp_model_dp_ref(y, p, a, DP_K1), [()] * 2, torch)
+    nbytes, flops = cckp_work(torch, p, DP_T1, DP_K1, DP_K1)
+    bound_ms, bound_by = bound_of(nbytes, flops, FP32_FLOPS)
+    row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes=nbytes,
+               flops=flops, bound_ms=bound_ms, bound_by=bound_by,
+               shape=[D_FLEET, DP_T1, DP_K1])
+    emit("kernels", kernel="cckp_model_dp", **row)
+    return row
 
 
 def reduced_pivot_work(torch, ref, case, want):
@@ -307,6 +398,146 @@ def phase_rollout(torch, ops, dev, params):
     return launches
 
 
+def kernel_launches():
+    """The launch counters of every kernel, by kernel name."""
+    from repro_torch.kernels.cckp_dp import ops as cckp_ops
+    from repro_torch.kernels.simplex_pivot import ops
+    return {"simplex_pivot": ops.pivot_update.launches,
+            "reduced_pivot": ops.reduced_pivot.launches,
+            "cckp_model_dp": cckp_ops.model_dp.launches}
+
+
+def reset_launches():
+    from repro_torch.kernels.cckp_dp import ops as cckp_ops
+    from repro_torch.kernels.simplex_pivot import ops
+    ops.reset_launches()
+    cckp_ops.reset_launches()
+
+
+def front_problem():
+    """16384 devices of 12 jobs: even rows `identical_instance`s (m = 2,
+    T = 1.2 s), odd rows heterogeneous jobs drawn from `make_fleet`
+    profiles of the three paper classes."""
+    import numpy as np
+
+    from repro_torch.api import FleetProblem
+    from repro_torch.core.instances import identical_instance
+    from repro_torch.serving.fleet import make_fleet
+    half = D_FLEET // 2
+    specs = make_fleet(half, seed=13, horizon=1, es_peak_flops=ES_PEAK_FLOPS,
+                       es_hbm_bw=HBM_BYTES_S)
+    rng = np.random.default_rng(13)
+    het = [s.profile.instance(rng.choice((128, 512, 1024), N_JOBS), T_BUDGET)
+           for s in specs]
+    ident = [identical_instance(N_JOBS, 2, T_BUDGET, seed=s)
+             for s in range(half)]
+    insts = [x for pair in zip(ident, het) for x in pair]
+    return FleetProblem(p_ed=np.stack([i.p_ed for i in insts]),
+                        p_es=np.stack([i.p_es for i in insts]),
+                        acc=np.stack([i.acc for i in insts]),
+                        T=np.full(D_FLEET, T_BUDGET),
+                        real_mask=np.ones((D_FLEET, N_JOBS), bool))
+
+
+def phase_front(torch, dev):
+    import numpy as np
+
+    from repro_torch import api
+    fp = front_problem()
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sol = api.solve(fp, policy="auto", device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kernel_launches()
+    tags = np.asarray(sol.solver).astype(str)
+    counts = {t: int((tags == t).sum()) for t in sorted(set(tags))}
+    check(counts.get("amdp", 0) > 0 and counts.get("amr2", 0) > 0,
+          f"front: policy='auto' did not split the fleet: {counts}")
+    check(launches["cckp_model_dp"] > 0 and launches["simplex_pivot"] > 0,
+          f"front: a kernel never launched: {launches}")
+    check(sol.assignment.shape == (D_FLEET, N_JOBS)
+          and bool(np.isfinite(sol.accuracy).all()), "front: bad output")
+    ok = sol.status == 0
+    amr2, amdp = ok & (tags == "amr2"), ok & (tags == "amdp")
+    check(bool((sol.makespan[amr2] <= 2 * T_BUDGET + 1e-9).all()),
+          "front: an AMR^2 plan exceeds 2T (Theorem 1)")
+    check(bool((sol.violation[amdp] <= 1e-9).all()),
+          "front: an AMDP plan exceeds T")
+    # the first 256 rows again on the CPU (the kernels' plain versions):
+    # statuses and tags exact, each device's accuracy and makespan to 1e-9
+    cpu = api.solve(fp.take(np.arange(256)), policy="auto", device="cpu")
+    check(np.array_equal(cpu.status, sol.status[:256])
+          and np.array_equal(np.asarray(cpu.solver).astype(str), tags[:256])
+          and np.allclose(cpu.accuracy, sol.accuracy[:256], rtol=0,
+                          atol=1e-9)
+          and np.allclose(cpu.makespan, sol.makespan[:256], rtol=0,
+                          atol=1e-9),
+          "front: the card's plan differs from the CPU's on 256 rows")
+    emit("front", devices=D_FLEET, solver_counts=counts, seconds=seconds,
+         launches=launches, statuses=np.bincount(sol.status).tolist(),
+         mean_accuracy=float(sol.accuracy.mean()))
+
+
+def serve_engine(dev):
+    """The periodic-sensing fleet: every device sends one frame class
+    (512), up to 12 a period, 1024 ES servers."""
+    from repro_torch.serving.fleet import FleetEngine, make_fleet
+    from repro_torch.serving.queue import RequestQueue
+    devices = make_fleet(D_FLEET, classes=(512,), seed=7, horizon=PERIODS,
+                         es_peak_flops=ES_PEAK_FLOPS, es_hbm_bw=HBM_BYTES_S)
+    queue = RequestQueue(D_FLEET, (512,), rate=12.0, batch_max=N_JOBS,
+                         seed=7)
+    return FleetEngine(devices, queue, T=T_BUDGET, n_servers=N_SERVERS,
+                       policy="auto", device=dev)
+
+
+def phase_serve(torch, dev):
+    import math
+    engine = serve_engine(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    periods = []
+    t_all = time.perf_counter()
+    for _ in range(PERIODS):
+        t0 = time.perf_counter()
+        stats = engine.run_period()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        log = engine.solver_log[-1]
+        row = dict(period=stats.period, seconds=seconds,
+                   amdp=log["plan"]["amdp"], amr2=log["plan"]["amr2"],
+                   replan=dict(log["replan"]),
+                   n_backpressured=stats.n_backpressured,
+                   n_jobs=stats.n_jobs, n_straggler_updates=
+                   stats.n_straggler_updates,
+                   mean_job_accuracy=stats.mean_job_accuracy,
+                   es_utilization=stats.es_utilization)
+        check(row["amdp"] > 0 and row["amr2"] > 0,
+              f"serve: period {stats.period} did not use both solvers: "
+              f"{dict(log['plan'])}")
+        check(stats.n_jobs > 0 and all(
+            math.isfinite(getattr(stats, f)) for f in
+            ("total_accuracy", "worst_violation", "es_utilization",
+             "realized_makespan")), f"serve: bad stats {stats}")
+        check(0.3 < stats.mean_job_accuracy < 0.8,
+              f"serve: mean job accuracy {stats.mean_job_accuracy}")
+        periods.append(row)
+        emit("serve", **row)
+    seconds = time.perf_counter() - t_all
+    launches = kernel_launches()
+    for name in ("cckp_model_dp", "simplex_pivot"):
+        check(launches[name] > 0, f"serve: {name} never launched")
+    emit("serve", devices=D_FLEET, periods=PERIODS, seconds=seconds,
+         devices_per_s=D_FLEET * PERIODS / seconds, launches=launches,
+         launches_per_period={k: v / PERIODS for k, v in launches.items()},
+         peak_mem_bytes=torch.cuda.max_memory_allocated(),
+         summary=engine.summary())
+    return launches, seconds
+
+
 def phase_parity():
     """The card-marked tests, in a child process: the kernels against their
     plain versions, and a small rollout on the card against the CPU."""
@@ -317,7 +548,7 @@ def phase_parity():
     proc = subprocess.run(
         [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider",
          "-m", "gpu", os.path.join("tests", "test_torch_cuda.py")],
-        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
     tail = proc.stdout.strip().splitlines()[-1:] or [""]
     check(proc.returncode == 0 and "skipped" not in tail[0],
           f"card-marked tests failed:\n{proc.stdout[-4000:]}"
@@ -342,35 +573,85 @@ def phase_timing(torch, dev, params):
     return seconds
 
 
-def phase_profile(torch, dev, params, seconds):
-    """Device time of one rollout per method, summed over the kernels the
-    profiler saw, against the best unprofiled wall time of phase 6."""
+def profiled(torch, run):
+    """``run()`` under `torch.profiler`: (device seconds, kernel launches,
+    the ten largest device items by name)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    by_name = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            us = ev.time_range.elapsed_us()
+            n, t = by_name.get(ev.name, (0, 0.0))
+            by_name[ev.name] = (n + 1, t + us)
+    device_s = sum(t for _n, t in by_name.values()) / 1e6
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    return (device_s, sum(n for n, _t in by_name.values()),
+            [dict(name=k[:80], calls=n, ms=t / 1e3) for k, (n, t) in top])
 
+
+def phase_profile(torch, dev, params, seconds, serve_seconds):
+    """Device time of one rollout per method and of one serve run, summed
+    over the kernels the profiler saw, against the best unprofiled wall
+    time of phases 8 and 6."""
     from repro_torch.api import engine as E
     for method, p in params.items():
         state = E.init_state(p, device=dev)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            E.rollout(state, p, PERIODS, device=dev)
-            torch.cuda.synchronize()
-        by_name = {}
-        for ev in prof.events():
-            if ev.device_type == DeviceType.CUDA:
-                us = ev.time_range.elapsed_us()
-                n, t = by_name.get(ev.name, (0, 0.0))
-                by_name[ev.name] = (n + 1, t + us)
-        device_s = sum(t for _n, t in by_name.values()) / 1e6
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+        device_s, n, top = profiled(
+            torch, lambda: E.rollout(state, p, PERIODS, device=dev))
         wall = min(seconds[method])
-        emit("profile", lp_method=method, device_seconds=device_s,
-             wall_seconds=wall, busy_share=device_s / wall if device_s
-             else None, n_kernel_launches=sum(n for n, _t in
-                                              by_name.values()),
-             top=[dict(name=k[:80], calls=n, ms=t / 1e3)
-                  for k, (n, t) in top])
+        emit("profile", path="rollout", lp_method=method,
+             device_seconds=device_s, wall_seconds=wall,
+             busy_share=device_s / wall if device_s else None,
+             n_kernel_launches=n, top=top)
+    engine = serve_engine(dev)
+    device_s, n, top = profiled(torch, lambda: engine.run(PERIODS))
+    emit("profile", path="serve", device_seconds=device_s,
+         wall_seconds=serve_seconds,
+         busy_share=device_s / serve_seconds if device_s else None,
+         n_kernel_launches=n, top=top)
+    emit("profile", path="serve", host=serve_host_breakdown(torch, dev))
+
+
+# the serve path's stages, by the function that runs each
+SERVE_STAGES = {
+    "queue.poll": ("queue.py", "poll"),
+    "assemble": ("fleet.py", "_assemble"),
+    "solve (plan + replan)": ("front.py", "solve"),
+    "amdp_arrays": ("amdp.py", "amdp_arrays"),
+    "cckp_counts (DP + backtrack)": ("amdp.py", "cckp_counts"),
+    "amr2_batch_arrays": ("amr2.py", "amr2_batch_arrays"),
+    "simplex_batch_core": ("lp.py", "simplex_batch_core"),
+    "round_relaxation_batch": ("amr2.py", "round_relaxation_batch"),
+    "admit_mask": ("fleet.py", "admit_mask"),
+    "identical_mask": ("problem.py", "identical_mask"),
+}
+
+
+def serve_host_breakdown(torch, dev):
+    """Host seconds of one serve run (fresh engine, 8 periods) by stage,
+    under cProfile: each stage's cumulative time, and the whole run's."""
+    import cProfile
+    import pstats
+    engine = serve_engine(dev)
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    engine.run(PERIODS)
+    torch.cuda.synchronize()
+    prof.disable()
+    out = {"total (profiled)": time.perf_counter() - t0}
+    stats = pstats.Stats(prof).stats
+    for stage, (fname, func) in SERVE_STAGES.items():
+        out[stage] = sum(v[3] for (f, _line, name), v in stats.items()
+                         if f.endswith(fname) and name == func)
+    return out
 
 
 def main() -> int:
@@ -379,6 +660,8 @@ def main() -> int:
         print("chip_smoke: no CUDA card visible", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.cckp_dp import ops as cckp_ops
     from repro_torch.kernels.simplex_pivot import ops, ref
 
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -386,27 +669,39 @@ def main() -> int:
                "--format=csv,noheader"]).splitlines()[0]
     emit("env", torch=torch.__version__, cuda=torch.version.cuda,
          device=torch.cuda.get_device_name(0), nvidia_smi=smi,
-         nvcc=run([ops.nvcc(), "--version"]).splitlines()[-1])
+         nvcc=run([_build.nvcc(), "--version"]).splitlines()[-1])
 
     t0 = time.perf_counter()
-    path, log = ops.build()
-    ops.library()
-    ptxas = [ln.strip() for ln in log.splitlines()
-             if re.search(r"registers|spill|Compiling entry", ln)]
-    emit("build", seconds=time.perf_counter() - t0,
-         library=os.path.relpath(path, ROOT), ptxas=ptxas)
+    libs = [ops.LIBRARY, cckp_ops.LIBRARY]
+    built = _build.build_many(libs)
+    for lib in libs:
+        lib.load()
+    for lib, (path, log) in zip(libs, built):
+        ptxas = [ln.strip() for ln in log.splitlines()
+                 if re.search(r"registers|spill|Compiling entry", ln)]
+        emit("build", source=os.path.relpath(lib.src, ROOT),
+             library=os.path.relpath(path, ROOT), ptxas=ptxas)
+    emit("build", seconds=time.perf_counter() - t0)
 
     rows = phase_kernels(torch, ops, ref, dev)
     params = build_params(dev)
     launches = phase_rollout(torch, ops, dev, params)
+    phase_front(torch, dev)
+    serve_launches, serve_seconds = phase_serve(torch, dev)
+    launches["cckp_model_dp"] = serve_launches["cckp_model_dp"]
     phase_parity()
     seconds = phase_timing(torch, dev, params)
-    phase_profile(torch, dev, params, seconds)
+    phase_profile(torch, dev, params, seconds, serve_seconds)
 
-    src = "src/repro_torch/kernels/simplex_pivot/csrc/simplex_pivot.cu"
-    tpu = "src/repro/kernels/simplex_pivot/simplex_pivot.py"
-    replaces = {"simplex_pivot": f"{tpu}:57", "reduced_pivot": f"{tpu}:146"}
-    kernels = [dict(name=name, route="cuda", source=src,
+    simplex_src = "src/repro_torch/kernels/simplex_pivot/csrc/simplex_pivot.cu"
+    simplex_tpu = "src/repro/kernels/simplex_pivot/simplex_pivot.py"
+    source = {"simplex_pivot": simplex_src, "reduced_pivot": simplex_src,
+              "cckp_model_dp":
+                  "src/repro_torch/kernels/cckp_dp/csrc/cckp_dp.cu"}
+    replaces = {"simplex_pivot": f"{simplex_tpu}:57",
+                "reduced_pivot": f"{simplex_tpu}:146",
+                "cckp_model_dp": "src/repro/kernels/cckp_dp/cckp_dp.py:57"}
+    kernels = [dict(name=name, route="cuda", source=source[name],
                     replaces=replaces[name], launches=launches[name],
                     max_abs_err=row["max_abs_err"], ms=row["ms"],
                     plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],

@@ -1,1 +1,30 @@
-"""Public API of the port: the fleet engine (`engine`)."""
+"""Public API of the port.
+
+One front door (`solve` / `solve_many`), one problem vocabulary
+(`Problem`, `FleetProblem`), one result type (`Solution`) and a
+capability-declaring registry (`register_solver`, `solvers`) — the port
+of `repro.api` — plus the fleet engine (`engine`):
+
+    >>> from repro_torch import api
+    >>> sol = api.solve(fleet_problem)                  # auto: AMDP | AMR^2
+    >>> sol = api.solve(fleet_problem, es_disabled=True)
+    >>> api.solver_names()
+    ['amdp', 'amr2', 'greedy', 'lp']
+
+Every entry point runs on the CUDA card unless given ``device="cpu"``.
+"""
+from ..core.problem import (ES_DISABLED_SENTINEL, SOLUTION_STATUS_NAMES,
+                            ST_UNSOLVED, FleetProblem, Problem, Solution)
+from . import engine
+from .front import batched_policies, solve, solve_many
+from .registry import (Solver, SolverInfo, get_solver, register_solver,
+                       solver_names, solver_table, solvers)
+
+__all__ = [
+    "Problem", "FleetProblem", "Solution",
+    "SOLUTION_STATUS_NAMES", "ST_UNSOLVED", "ES_DISABLED_SENTINEL",
+    "solve", "solve_many", "batched_policies",
+    "Solver", "SolverInfo", "register_solver", "get_solver",
+    "solver_names", "solvers", "solver_table",
+    "engine",
+]

@@ -7,8 +7,8 @@ scenario armed and replayed arrivals.  Each period:
   * assembles the padded `FleetProblem` (outage periods price the ES at
     the disabled sentinel; a lane whose outage flag flipped starts cold);
   * plans every device in one batched solve (`_plan`):
-    `amr2.build_lp_arrays` -> `lp.simplex_batch_core` (warm from last
-    period's basis) -> `amr2.round_relaxation`;
+    `amr2.build_lp_arrays_torch` -> `lp.simplex_batch_core` (warm from last
+    period's basis) -> `amr2.round_relaxation_torch`;
   * recovers lanes whose LP did not finish with the greedy local fill
     (`_recover_unsolved`);
   * admits offloads to the ES pool (`mobility.admit_mask_pool`);
@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from .._device import DeviceLike, check_device, resolve_device
-from ..core.amr2 import build_lp_arrays, round_relaxation
+from ..core.amr2 import build_lp_arrays_torch, round_relaxation_torch
 from ..core.faults import greedy_local_fill
 from ..core.lp import _bucket_maxiter, simplex_batch_core
 from ..core.mobility import admit_mask_pool
@@ -338,13 +338,13 @@ def _plan(params: EngineParams, fp: FleetProblem, warm_basis,
     bitwise-invisible and has no counterpart here.)"""
     D, n = fp.p_es.shape
     m = fp.p_ed.shape[2]
-    A, b, c_full = build_lp_arrays(fp.p_ed, fp.p_es, fp.acc, fp.T)
+    A, b, c_full = build_lp_arrays_torch(fp.p_ed, fp.p_es, fp.acc, fp.T)
     maxiter = params.maxiter if params.maxiter is not None else \
         _bucket_maxiter(50 * (A.shape[1] + 2))
     x, _fun, st, _ni, basis, _ok = simplex_batch_core(
         A, b, c_full, warm_basis, nv=n * (m + 1), maxiter=maxiter,
         tol=params.tol, lane_mask=lane_mask, method=params.lp_method)
-    assign, sched_status, _nf = round_relaxation(
+    assign, sched_status, _nf = round_relaxation_torch(
         fp.p_ed, fp.p_es, fp.acc, fp.T, x.reshape(D, n, m + 1), st,
         frac_tol=params.frac_tol)
     return assign, sched_status, basis.to(torch.int32)

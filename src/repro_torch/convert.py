@@ -1,19 +1,32 @@
-"""Carry the reference engine's params and state across to the port.
+"""Carry the reference's values across to the port, so that both
+packages in a parity test start from the same arrays.
 
-`params_from_numpy` and `state_from_numpy` take the reference's
-`EngineParams` / `EngineState` fields, given as NumPy arrays and plain
-scalars keyed by the reference's field names, and build the port's
-values on ``device``.  The parity tests use them to feed both engines the
-same inputs.  Arrivals cross as the replayed trace (``counts`` /
-``stream``): `jax.random` streams cannot be redrawn in torch.
+* `params_from_numpy` / `state_from_numpy`: the reference engine's
+  `EngineParams` / `EngineState` fields, given as NumPy arrays and plain
+  scalars keyed by the reference's field names, as the port's values on
+  ``device``.  Arrivals cross as the replayed trace (``counts`` /
+  ``stream``): `jax.random` streams cannot be redrawn in torch.
+* `fleet_problem_from_numpy`: a reference `FleetProblem` or
+  `InstanceBatch` (anything with its array fields) as the port's
+  `FleetProblem`.
+* `device_specs_from_numpy`: the reference's `DeviceSpec` list (profile,
+  drift, outage) as the port's.
+* `solution_fields`: a `Solution` of either package as a dict of NumPy
+  arrays, for comparisons.
+
+The functions read attributes and arrays only; this module imports
+neither jax nor the reference.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
 from ._device import DeviceLike, resolve_device
+from .core.problem import FleetProblem
+from .serving.fleet import DeviceSpec
+from .serving.profile import TierProfile
 from .api.engine import (PARAM_ARRAYS, PARAM_CONFIG, EngineParams,
                          EngineState, _not_ported, params_from_arrays,
                          state_from_arrays)
@@ -44,3 +57,54 @@ def state_from_numpy(fields: Dict[str, object],
     """The port's `EngineState` from the reference's state fields (the
     Poisson key, mobility and HI leaves are not carried)."""
     return state_from_arrays(fields, resolve_device(device))
+
+
+def fleet_problem_from_numpy(obj) -> FleetProblem:
+    """The port's `FleetProblem` from an object with ``p_ed``, ``p_es``,
+    ``acc``, ``T`` and, optionally, ``real_mask`` array fields (a
+    reference `FleetProblem` or `InstanceBatch`; every slot real when the
+    mask is absent)."""
+    p_es = np.asarray(obj.p_es)
+    mask = getattr(obj, "real_mask", None)
+    return FleetProblem(
+        p_ed=np.array(obj.p_ed, np.float64), p_es=np.array(p_es, np.float64),
+        acc=np.array(obj.acc, np.float64), T=np.array(obj.T, np.float64),
+        real_mask=(np.ones(p_es.shape, bool) if mask is None
+                   else np.array(mask, bool)))
+
+
+def _copy_or_none(a) -> Optional[np.ndarray]:
+    return None if a is None else np.array(a)
+
+
+def device_specs_from_numpy(specs: Sequence) -> List[DeviceSpec]:
+    """The port's `DeviceSpec`s from the reference's: each profile's name,
+    tables and class labels, the drift and outage schedules, the name."""
+    out = []
+    for s in specs:
+        prof = s.profile
+        out.append(DeviceSpec(
+            profile=TierProfile(name=prof.name,
+                                p_ed=np.array(prof.p_ed, np.float64),
+                                p_es=np.array(prof.p_es, np.float64),
+                                acc=np.array(prof.acc, np.float64),
+                                classes=list(prof.classes)),
+            drift=_copy_or_none(s.drift), outage=_copy_or_none(s.outage),
+            name=s.name))
+    return out
+
+
+def solution_fields(sol) -> Dict[str, Optional[np.ndarray]]:
+    """A `Solution` of either package as NumPy arrays: ``assignment``,
+    ``status``, ``solver`` (str array), ``lp_accuracy``, ``n_fractional``
+    and ``basis`` (None where the solution has none)."""
+    solver = sol.solver
+    return {
+        "assignment": np.asarray(sol.assignment),
+        "status": np.asarray(sol.status),
+        "solver": np.asarray([solver] if isinstance(solver, str)
+                             else np.atleast_1d(solver)).astype(str),
+        "lp_accuracy": _copy_or_none(sol.lp_accuracy),
+        "n_fractional": _copy_or_none(sol.n_fractional),
+        "basis": _copy_or_none(sol.basis),
+    }

@@ -24,12 +24,22 @@ is `kernels.simplex_pivot.ops` — the CUDA kernel on a CUDA tensor, its
 plain version on a CPU tensor.  The LP is float64 only: a float32
 simplex cycles until ``maxiter``.
 
+The host entry points `solve_lp_batch` and `solve_lp` (port of the
+reference's) take NumPy LPs in standard form, canonicalise them
+(`_canonicalize_batch`), run `simplex_batch_core` on ``device`` and bring
+NumPy results back.
+
 Statuses: 0 optimal, 1 iteration limit, 2 infeasible, 3 unbounded.
 """
 from __future__ import annotations
 
+import dataclasses
+from typing import Optional
+
+import numpy as np
 import torch
 
+from .._device import DeviceLike, resolve_device
 from ..kernels.simplex_pivot import ops as pivot_ops
 from ..kernels.simplex_pivot.ref import INT32_MAX, price_reduced_ref
 from .types import next_pow2
@@ -366,3 +376,126 @@ def simplex_batch_core(A, b, c_full, basis0, *, nv: int, maxiter: int,
         tabA, rhs, bas.to(torch.int32), b, c_full, nv=nv, maxiter=maxiter,
         tol=tol, bland_after=bland_after, lane_mask=lane_mask)
     return x, fun, status, niter, bases, warm_ok
+
+
+# --------------------------------------------------------------------------
+# host entry points: NumPy LPs in, NumPy results out
+# --------------------------------------------------------------------------
+@dataclasses.dataclass
+class LPResult:
+    x: np.ndarray
+    fun: float
+    status: int
+    niter: int
+    basis: np.ndarray   # row -> basic variable index
+    warm: bool = False  # True when a warm_basis start was accepted
+
+    @property
+    def success(self) -> bool:
+        return self.status == OPTIMAL
+
+
+@dataclasses.dataclass
+class BatchLPResult:
+    """`solve_lp_batch` output: a leading batch axis on every field."""
+    x: np.ndarray        # (B, nv)
+    fun: np.ndarray      # (B,)
+    status: np.ndarray   # (B,) int
+    niter: np.ndarray    # (B,) int
+    basis: np.ndarray    # (B, R) int
+    warm: np.ndarray     # (B,) bool: warm start accepted
+
+    def __len__(self) -> int:
+        return self.x.shape[0]
+
+    def __getitem__(self, b: int) -> LPResult:
+        return LPResult(x=self.x[b], fun=float(self.fun[b]),
+                        status=int(self.status[b]), niter=int(self.niter[b]),
+                        basis=self.basis[b], warm=bool(self.warm[b]))
+
+
+def _canonicalize_batch(c, A_ub, b_ub, A_eq, b_eq):
+    """``min c@x s.t. A_ub x <= b_ub, A_eq x == b_eq, x >= 0`` (every
+    input with a leading batch axis) as ``A x == b, b >= 0``: one slack
+    column per inequality row, rows with a negative rhs flipped.  Returns
+    ``(A (B, R, C0), b (B, R), c_full (B, C0), nv, n_slack)``."""
+    c = np.asarray(c, dtype=np.float64)
+    B, nv = c.shape
+    rows, rhs = [], []
+    n_ub = 0
+    if A_ub is not None:
+        A_ub = np.asarray(A_ub, dtype=np.float64)
+        b_ub = np.asarray(b_ub, dtype=np.float64)
+        n_ub = A_ub.shape[1]
+        eye = np.broadcast_to(np.eye(n_ub), (B, n_ub, n_ub))
+        rows.append(np.concatenate([A_ub, eye], axis=2))
+        rhs.append(b_ub)
+    if A_eq is not None:
+        A_eq = np.asarray(A_eq, dtype=np.float64)
+        b_eq = np.asarray(b_eq, dtype=np.float64)
+        pad = np.zeros((B, A_eq.shape[1], n_ub))
+        rows.append(np.concatenate([A_eq, pad], axis=2))
+        rhs.append(b_eq)
+    A = np.concatenate(rows, axis=1)
+    b = np.concatenate(rhs, axis=1)
+    neg = b < 0
+    A = np.where(neg[:, :, None], -A, A)
+    b = np.where(neg, -b, b)
+    c_full = np.concatenate([c, np.zeros((B, n_ub))], axis=1)
+    return A, b, c_full, nv, n_ub
+
+
+def solve_lp_batch(c, A_ub=None, b_ub=None, A_eq=None, b_eq=None, *,
+                   maxiter: Optional[int] = None, tol: float = 1e-7,
+                   warm_basis: Optional[np.ndarray] = None,
+                   bland_after: int = BLAND_AFTER, method: str = "tableau",
+                   device: DeviceLike = None) -> BatchLPResult:
+    """Solve B structurally identical LPs in one batched simplex on
+    ``device`` (the card unless named), float64.
+
+    ``warm_basis`` (B, R) starts each lane from that basis; lanes whose
+    row is -1, out of range, singular or ill-conditioned run the cold
+    two-phase solve in the same call (``BatchLPResult.warm`` says which).
+    The default ``maxiter`` is the reference's shape-derived budget
+    rounded up to a power of two."""
+    A, b, c_full, nv, _ = _canonicalize_batch(c, A_ub, b_ub, A_eq, b_eq)
+    if maxiter is None:
+        maxiter = _bucket_maxiter(50 * (A.shape[1] + 2))
+    dev = resolve_device(device)
+    basis0 = None
+    if warm_basis is not None:
+        wb = np.asarray(warm_basis, np.int64)
+        if wb.shape != A.shape[:2]:
+            raise ValueError(f"warm_basis must be (B, R) = {A.shape[:2]}; "
+                             f"got {wb.shape}")
+        basis0 = torch.as_tensor(wb, device=dev)
+
+    def f64(x):
+        return torch.as_tensor(x, dtype=torch.float64, device=dev)
+
+    x, fun, status, niter, basis, ok = simplex_batch_core(
+        f64(A), f64(b), f64(c_full), basis0, nv=nv, maxiter=maxiter,
+        tol=tol, bland_after=bland_after, method=method)
+    return BatchLPResult(x=x.cpu().numpy(), fun=fun.cpu().numpy(),
+                         status=status.cpu().numpy().astype(np.int64),
+                         niter=niter.cpu().numpy().astype(np.int64),
+                         basis=basis.cpu().numpy().astype(np.int64),
+                         warm=ok.cpu().numpy())
+
+
+def solve_lp(c, A_ub=None, b_ub=None, A_eq=None, b_eq=None, *,
+             maxiter: Optional[int] = None, tol: float = 1e-7,
+             warm_basis: Optional[np.ndarray] = None,
+             bland_after: int = BLAND_AFTER, method: str = "tableau",
+             device: DeviceLike = None) -> LPResult:
+    """Minimize ``c@x`` s.t. ``A_ub x <= b_ub``, ``A_eq x == b_eq``,
+    ``x >= 0``: `solve_lp_batch` at B = 1 (the reference's sequential
+    NumPy oracle is not ported)."""
+    def one(x):
+        return None if x is None else np.asarray(x, np.float64)[None]
+
+    wb = None if warm_basis is None else np.asarray(warm_basis)[None]
+    return solve_lp_batch(one(c), one(A_ub), one(b_ub), one(A_eq),
+                          one(b_eq), maxiter=maxiter, tol=tol,
+                          warm_basis=wb, bland_after=bland_after,
+                          method=method, device=device)[0]

@@ -1,8 +1,9 @@
 """Problem containers for the offloading problem `P` (paper §III).
 
 Port of `repro.core.types` (`OffloadInstance`, `InstanceBatch`,
-`next_pow2`).  They stay NumPy containers: they hold host-side instance
-data that the fleet constructors turn into tensors.
+`Schedule`, `next_pow2`).  They stay NumPy containers: they hold host-side
+instance data that the solvers and the fleet constructors turn into
+tensors, and the schedules that come back.
 
 Notation follows the paper: n jobs, m models on the ED and one on the ES
 (index m); ``p_ed[j, i]`` is job j's time on ED model i, ``p_es[j]`` its
@@ -12,6 +13,7 @@ i, and ``T`` the budget of each capacity constraint.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 
@@ -48,6 +50,12 @@ class OffloadInstance:
     @property
     def m(self) -> int:
         return self.p_ed.shape[1]
+
+    def is_identical(self, rtol: float = 1e-9) -> bool:
+        """True when all jobs share processing times (paper §VI setting)."""
+        return bool(
+            np.allclose(self.p_ed, self.p_ed[:1], rtol=rtol)
+            and np.allclose(self.p_es, self.p_es[:1], rtol=rtol))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,6 +104,14 @@ class InstanceBatch:
         return OffloadInstance(p_ed=self.p_ed[b], p_es=self.p_es[b],
                                acc=self.acc[b], T=float(self.T[b]))
 
+    def identical_mask(self, rtol: float = 1e-9) -> np.ndarray:
+        """(B,) bool: `OffloadInstance.is_identical` vectorized over the
+        batch — the criterion every batched dispatch uses."""
+        return (np.isclose(self.p_ed, self.p_ed[:, :1], rtol=rtol)
+                .all(axis=(1, 2))
+                & np.isclose(self.p_es, self.p_es[:, :1], rtol=rtol)
+                .all(axis=1))
+
     @property
     def n(self) -> int:
         return self.p_ed.shape[1]
@@ -103,3 +119,44 @@ class InstanceBatch:
     @property
     def m(self) -> int:
         return self.p_ed.shape[2]
+
+
+@dataclasses.dataclass
+class Schedule:
+    """A (possibly constraint-violating) solution to P: ``assignment[j]``
+    in 0..m, m meaning the ES."""
+
+    assignment: np.ndarray          # (n,) int in [0, m]
+    instance: OffloadInstance
+    lp_accuracy: Optional[float] = None    # A*_LP upper bound when known
+    n_fractional: Optional[int] = None     # fractional jobs seen by AMR^2
+    status: str = "ok"                     # ok | infeasible | fallback | ...
+    solver: str = ""
+
+    @property
+    def total_accuracy(self) -> float:
+        return float(self.instance.acc[self.assignment].sum())
+
+    @property
+    def ed_makespan(self) -> float:
+        inst = self.instance
+        mask = self.assignment < inst.m
+        if not mask.any():
+            return 0.0
+        j = np.nonzero(mask)[0]
+        return float(inst.p_ed[j, self.assignment[j]].sum())
+
+    @property
+    def es_makespan(self) -> float:
+        inst = self.instance
+        return float(inst.p_es[self.assignment == inst.m].sum())
+
+    @property
+    def makespan(self) -> float:
+        """Both tiers run in parallel: the later finisher."""
+        return max(self.ed_makespan, self.es_makespan)
+
+    @property
+    def violation(self) -> float:
+        """makespan / T - 1 (0 when within budget)."""
+        return max(0.0, self.makespan / self.instance.T - 1.0)

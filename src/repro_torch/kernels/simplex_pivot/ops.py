@@ -16,101 +16,34 @@ launch increments it.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 from pathlib import Path
-from typing import Optional, Tuple
 
 import torch
 
+from .._build import Library
+from .._build import check_tensor as _check
+from .._build import raise_on as _raise_on
+from .._build import stream_of as _stream
 from .ref import pivot_update_ref, reduced_pivot_ref
 
-_SRC = Path(__file__).resolve().parent / "csrc" / "simplex_pivot.cu"
-# <checkout>/build/kernels (this file is src/repro_torch/kernels/<pkg>/)
-_BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "kernels"
-_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_lib: Optional[ctypes.CDLL] = None
-
-
-def nvcc() -> str:
-    """Path of the CUDA compiler."""
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = Path(cuda_home) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found (PATH, CUDA_HOME or /usr/local/cuda)")
+def _declare(lib: ctypes.CDLL) -> None:
+    P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    lib.simplex_pivot_launch.argtypes = [P, P, P, P, I, I, I, P]
+    lib.simplex_pivot_launch.restype = I
+    lib.reduced_pivot_launch.argtypes = [P, P, P, P, P, P, P, P, P,
+                                         I, I, I, D, D, P]
+    lib.reduced_pivot_launch.restype = I
 
 
-def build() -> Tuple[Path, str]:
-    """Compile the kernel source into a shared library named by its
-    content hash (a changed source rebuilds; an unchanged one is reused).
-    Returns ``(library path, nvcc/ptxas log)``; the log is empty when the
-    library already existed."""
-    src = _SRC.read_bytes()
-    digest = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()
-    out = _BUILD_DIR / f"libsimplex_pivot_{digest[:16]}.so"
-    if out.exists():
-        return out, ""
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run([nvcc(), *_NVCC_FLAGS, "-o", tmp, str(_SRC)],
-                              capture_output=True, text=True, timeout=600)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {_SRC}:\n{proc.stderr}")
-        os.replace(tmp, out)             # atomic: concurrent builds agree
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out, proc.stdout + proc.stderr
+LIBRARY = Library(Path(__file__).resolve().parent / "csrc" /
+                  "simplex_pivot.cu", _declare)
 
 
 def library() -> ctypes.CDLL:
     """The kernels' shared library, built if needed and loaded once per
     process."""
-    global _lib
-    if _lib is None:
-        path, _log = build()
-        lib = ctypes.CDLL(str(path))
-        P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        lib.simplex_pivot_launch.argtypes = [P, P, P, P, I, I, I, P]
-        lib.simplex_pivot_launch.restype = I
-        lib.reduced_pivot_launch.argtypes = [P, P, P, P, P, P, P, P, P,
-                                             I, I, I, D, D, P]
-        lib.reduced_pivot_launch.restype = I
-        _lib = lib
-    return _lib
-
-
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape,
-           device: torch.device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, "
-                         f"got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _raise_on(err: int, kernel: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{kernel} launch failed with cudaError {err}")
-
-
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    return LIBRARY.load()
 
 
 def pivot_update(tabs: torch.Tensor, r: torch.Tensor, j: torch.Tensor,

@@ -1,5 +1,6 @@
-"""The port on a CUDA card: each kernel against its plain version, and a
-small rollout on the card against the same rollout on the CPU.
+"""The port on a CUDA card: each kernel against its plain version, a
+small rollout and a small host `FleetEngine` run on the card against the
+same runs on the CPU.
 
 Every test here is marked ``gpu`` and skips (with the reason) where no
 card is visible.  The file imports no JAX — it compares the port with
@@ -9,17 +10,23 @@ without jax:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
 
 Tolerances: integer outputs and metrics exact; floats to rtol/atol 1e-12
-for a single kernel call, 1e-9 for rollout metrics (the card reduces in
-another order than the CPU).
+for a single simplex kernel call, 1e-9 for rollout and fleet metrics (the
+card reduces in another order than the CPU); the CCKP kernel bitwise
+(float32 values and argmax counts), since it rounds exactly as its plain
+version does.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch import convert
 from repro_torch.api import engine as E
+from repro_torch.kernels.cckp_dp import ops as cckp_ops
+from repro_torch.kernels.cckp_dp import ref as cckp_ref
 from repro_torch.kernels.simplex_pivot import ops, ref
-from repro_torch.serving.fleet import make_fleet
+from repro_torch.serving.fleet import FleetEngine, make_fleet
 from repro_torch.serving.queue import RequestQueue
 
 RTOL = ATOL = 1e-12
@@ -137,3 +144,87 @@ def test_cuda_rollout_matches_cpu_rollout(cuda_device, lp_method):
             assert (a - b).abs().max().item() <= 1e-9, f
         else:
             assert torch.equal(a, b), f
+
+
+def _cckp_case(seed, T1=257, K1=16, lanes=64):
+    """Value grids of the DP's kinds — its start, random (whose sums an
+    FMA would round otherwise) — with per-lane p from 0 past the grid's
+    height, and accuracies in (0.3, 0.99)."""
+    g = torch.Generator().manual_seed(seed)
+    y = torch.randn((lanes, T1, K1), generator=g, dtype=torch.float32)
+    y[::2] = cckp_ref.NEG
+    y[::2, :, 0] = 0.0
+    p = torch.randint(0, 40, (lanes,), generator=g, dtype=torch.int32)
+    p[0], p[1], p[2] = 0, T1, T1 + 9
+    a = 0.3 + 0.69 * torch.rand((lanes,), generator=g)
+    return y, p, a
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K1", [16, 1])
+def test_cuda_cckp_kernel_matches_plain_version_bitwise(cuda_device,
+                                                        monkeypatch, K1):
+    y, p, a = _cckp_case(6, K1=K1)
+    want = cckp_ref.cckp_model_dp_ref(y, p, a, K1)
+    monkeypatch.setattr(cckp_ops, "cckp_model_dp_ref", _fail_if_called)
+    cckp_ops.reset_launches()
+    got = cckp_ops.model_dp(y.to(cuda_device), p.to(cuda_device),
+                            a.to(cuda_device), K1)
+    torch.cuda.synchronize()
+    assert cckp_ops.model_dp.launches == 1
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.gpu
+def test_cuda_cckp_wrapper_checks_its_inputs(cuda_device):
+    y, p, a = (x.to(cuda_device) for x in _cckp_case(7))
+    with pytest.raises(TypeError, match="int32"):
+        cckp_ops.model_dp(y, p.long(), a, 16)
+    with pytest.raises(TypeError, match="float32"):
+        cckp_ops.model_dp(y.double(), p, a, 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        cckp_ops.model_dp(y.transpose(1, 2), p, a, 16)
+    with pytest.raises(ValueError, match="expected"):
+        cckp_ops.model_dp(y, p.cpu(), a, 16)
+
+
+@pytest.mark.gpu
+def test_cuda_fleet_engine_matches_cpu_run(cuda_device, monkeypatch):
+    """The host `FleetEngine` under policy="auto" at the default audit
+    threshold: 64 devices of one job class, so every period plans with
+    both AMDP (the CCKP kernel) and AMR^2 (the simplex kernel) and bumps
+    devices into the ES-disabled replan.  On the card no plain version
+    may run."""
+    D, P = 64, 4
+
+    def run(device):
+        engine = FleetEngine(
+            make_fleet(D, classes=(512,), seed=7, horizon=P,
+                       es_peak_flops=989e12, es_hbm_bw=3.35e12),
+            RequestQueue(D, (512,), rate=12.0, batch_max=12, seed=7),
+            T=1.2, n_servers=4, policy="auto", device=device)
+        return engine, engine.run(P)
+
+    cpu_engine, want = run("cpu")
+    for mod, name in ((cckp_ops, "cckp_model_dp_ref"),
+                      (ops, "pivot_update_ref"),
+                      (ops, "reduced_pivot_ref")):
+        monkeypatch.setattr(mod, name, _fail_if_called)
+    cckp_ops.reset_launches()
+    ops.reset_launches()
+    gpu_engine, got = run(cuda_device)
+    assert cckp_ops.model_dp.launches > 0 and ops.pivot_update.launches > 0
+    for log in gpu_engine.solver_log:
+        assert log["plan"]["amdp"] > 0 and log["plan"]["amr2"] > 0
+    for w, g in zip(want, got):
+        for f in dataclasses.fields(w):
+            if f.name == "plan_seconds":
+                continue
+            a, b = getattr(w, f.name), getattr(g, f.name)
+            if isinstance(a, float):
+                assert abs(a - b) <= 1e-9, (w.period, f.name, a, b)
+            else:
+                assert a == b, (w.period, f.name, a, b)
+    for dc, dg in zip(cpu_engine.devices, gpu_engine.devices):
+        assert dc.n_updates == dg.n_updates

@@ -4,7 +4,8 @@
 NumPy data — cold lanes, warm lanes (previous bases, some rejected, some
 needing feasibility repair) and masked lanes — beside the reference's
 `repro.core.lp.simplex_batch_core` (jitted, as the engine runs it) and
-scipy's HiGHS objectives.
+scipy's HiGHS objectives.  The host entry points `solve_lp_batch` and
+`solve_lp` (NumPy in, NumPy out) run beside the reference's.
 
 Tolerances: statuses and warm-accept flags exact; ``x`` and ``fun`` of
 OPTIMAL lanes to atol 1e-9; scipy objectives to 1e-7 (HiGHS' own
@@ -30,7 +31,7 @@ from scipy.optimize import linprog
 from repro.core import lp as jlp
 from repro.core.amr2 import build_lp_arrays_jnp
 from repro_torch.core import lp
-from repro_torch.core.amr2 import build_lp_arrays
+from repro_torch.core.amr2 import build_lp_arrays_torch
 from test_torch_parity_util import reference_x64, to_numpy
 
 B, N, M = 24, 6, 2
@@ -56,8 +57,8 @@ def _fleet(seed, degenerate=False):
 
 
 def _port_arrays(p_ed, p_es, acc, T):
-    return build_lp_arrays(*(torch.as_tensor(x) for x in (p_ed, p_es, acc,
-                                                          T)))
+    return build_lp_arrays_torch(*(torch.as_tensor(x)
+                                   for x in (p_ed, p_es, acc, T)))
 
 
 def _ref_solve(p_ed, p_es, acc, T, basis0, lane_mask, method):
@@ -205,3 +206,59 @@ def test_batched_inverse_matches_reference():
 def test_bucket_maxiter_matches_reference():
     for v in (1, 50, 800, 801, 1024):
         assert lp._bucket_maxiter(v) == jlp._bucket_maxiter(v)
+
+
+def _standard_form(seed, degenerate=False):
+    """The fleet LPs of `_fleet` in the standard form the host entry
+    points take."""
+    from repro.core.amr2 import build_lp_arrays_batch
+    from repro.core.types import InstanceBatch
+    return build_lp_arrays_batch(InstanceBatch(*_fleet(seed, degenerate)))
+
+
+@pytest.mark.parametrize("method", ["tableau", "revised"])
+def test_solve_lp_batch_matches_reference(method):
+    """Cold, then warm from the cold bases with some rows -1: statuses,
+    warm flags and pivots of accepted lanes exact, optima to 1e-9."""
+    arrays = _standard_form(11, degenerate=True)
+    with reference_x64():
+        cold_want = jlp.solve_lp_batch(*arrays, method=method)
+    cold = lp.solve_lp_batch(*arrays, method=method, device="cpu")
+    warm_basis = cold.basis.copy()
+    warm_basis[::4] = -1
+    with reference_x64():
+        warm_want = jlp.solve_lp_batch(*arrays, method=method,
+                                       warm_basis=warm_basis)
+    warm = lp.solve_lp_batch(*arrays, method=method, warm_basis=warm_basis,
+                             device="cpu")
+    for got, want in ((cold, cold_want), (warm, warm_want)):
+        np.testing.assert_array_equal(got.status, want.status)
+        np.testing.assert_array_equal(got.warm, want.warm)
+        opt = want.status == lp.OPTIMAL
+        np.testing.assert_allclose(got.x[opt], want.x[opt], atol=1e-9,
+                                   rtol=0)
+        np.testing.assert_allclose(got.fun[opt], want.fun[opt], atol=1e-9,
+                                   rtol=0)
+    ok = warm.warm
+    assert ok.sum() > B // 2 and not ok[::4].any()
+    np.testing.assert_array_equal(warm.niter[ok], warm_want.niter[ok])
+    np.testing.assert_array_equal(warm.basis[ok], cold.basis[ok])
+    with pytest.raises(ValueError, match="warm_basis"):
+        lp.solve_lp_batch(*arrays, warm_basis=warm_basis[:, :3],
+                          device="cpu")
+
+
+def test_solve_lp_single_matches_reference():
+    c, A_ub, b_ub, A_eq, b_eq = (x[4] for x in _standard_form(12))
+    with reference_x64():
+        want = jlp.solve_lp(c, A_ub, b_ub, A_eq, b_eq, backend="jax")
+        warm_want = jlp.solve_lp(c, A_ub, b_ub, A_eq, b_eq, backend="jax",
+                                 warm_basis=want.basis)
+    got = lp.solve_lp(c, A_ub, b_ub, A_eq, b_eq, device="cpu")
+    warm = lp.solve_lp(c, A_ub, b_ub, A_eq, b_eq, warm_basis=got.basis,
+                       device="cpu")
+    assert got.status == want.status == lp.OPTIMAL and got.success
+    assert got.fun == pytest.approx(want.fun, abs=1e-9)
+    np.testing.assert_allclose(got.x, want.x, atol=1e-9, rtol=0)
+    assert warm.warm and warm_want.warm and warm.niter == 0
+    np.testing.assert_array_equal(warm.basis, got.basis)

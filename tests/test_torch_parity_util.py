@@ -101,13 +101,13 @@ def test_reference_call_leaves_global_x64_flag_off():
 
 def test_port_calls_keep_torch_defaults():
     from repro_torch.core.lp import simplex_batch_core
-    from repro_torch.core.amr2 import build_lp_arrays
+    from repro_torch.core.amr2 import build_lp_arrays_torch
     dtype, threads = torch.get_default_dtype(), torch.get_num_threads()
     rng = np.random.default_rng(0)
     p_ed = torch.as_tensor(rng.uniform(0.01, 0.3, (3, 4, 2)))
     p_es = torch.as_tensor(rng.uniform(0.1, 0.5, (3, 4)))
     acc = torch.as_tensor(np.sort(rng.uniform(0.3, 0.9, (3, 3)), axis=1))
-    A, b, c = build_lp_arrays(p_ed, p_es, acc, torch.full((3,), 0.6,
+    A, b, c = build_lp_arrays_torch(p_ed, p_es, acc, torch.full((3,), 0.6,
                                                           dtype=torch.float64))
     simplex_batch_core(A, b, c, None, nv=12, maxiter=64)
     assert torch.get_default_dtype() == dtype
