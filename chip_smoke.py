@@ -14,7 +14,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
               its main path gives it: the simplex kernels at 16384 lanes,
               R = 14 rows, C0 = 38 columns (random, masked, degenerate and
               Bland lanes; integer outputs exact, floats to rtol/atol
-              1e-12); the CCKP kernel on 16384 grids of 2048 x 16 cells,
+              1e-12); the CCKP kernel on 16384 grids of 1201 x 13 cells,
               p and accuracies from the fleet's profiles, the grids from a
               real first-model pass (bitwise).  Kernel and plain times
               (CUDA events) beside each bound.
@@ -71,9 +71,10 @@ ES_PEAK_FLOPS = 989e12
 D_FLEET, PERIODS, R, N_JOBS = 16384, 8, 14, 12
 C0 = N_JOBS * 3 + 2
 RTOL = ATOL = 1e-12
-# AMDP's grids at the fleet's budget: T = 1.2 s at 1 ms steps (T1 =
-# next_pow2(1201)), at most 12 local jobs (K1 = next_pow2(13))
-T_BUDGET, DP_T1, DP_K1 = 1.2, 2048, 16
+# AMDP's largest grid on the serve path: T = 1.2 s at 1 ms steps (T1 =
+# 1200 + 1) and 12 local jobs (K1 = 12 + 1: a device in outage or in the
+# ES-disabled replan offloads none)
+T_BUDGET, DP_T1, DP_K1 = 1.2, 1201, 13
 N_SERVERS = D_FLEET // 16
 
 

@@ -8,12 +8,11 @@ Dispatch rules:
     each side runs through its solver's batched path in one call.
   * ``policy=<name>`` — any registry entry (`solver_names()`).
     ``policy="amdp"`` on heterogeneous jobs falls back to AMR^2.
-  * ``backend`` — ``"batched"`` (the default) runs each solver's batched
-    path; ``"sequential"`` plans a fleet device by device through
-    ``solve_one`` (the only fleet path of a solver without a batched one,
-    such as ``greedy``).  The reference's sequential NumPy LP oracle is not
-    ported: ``solve_one`` of an LP-backed solver runs the batched LP at
-    B = 1.
+  * a fleet runs through each solver's batched path; a solver without
+    one (``greedy``) plans it device by device through ``solve_one``.
+    The reference's sequential NumPy LP oracle (``backend="numpy"``) is
+    not ported: ``solve_one`` of an LP-backed solver runs the batched LP
+    at B = 1.
   * ``es_disabled=True`` — plan with offloading made infeasible (uniform
     huge p_es on real jobs): the backpressure / ES-outage replan path.
     Identical-job detection then looks at the real jobs only.
@@ -36,10 +35,9 @@ from ..core.amdp import amdp_arrays, amdp_batch
 from ..core.problem import (ST_UNSOLVED, FleetProblem, Problem, Solution)
 from ..core.types import InstanceBatch, OffloadInstance
 from . import solvers as _solvers
-from .registry import get_solver, solver_names, solvers
+from .registry import get_solver, solvers
 
 AnyProblem = Union[Problem, FleetProblem, OffloadInstance, InstanceBatch]
-BACKENDS = ("batched", "sequential")
 
 
 def batched_policies() -> "tuple[str, ...]":
@@ -53,15 +51,6 @@ def _fallback_name(policy: str) -> str:
     """The solver of a fleet's non-identical rows: AMR^2 under
     ``auto``/``amdp``; any other named solver handles its whole fleet."""
     return "amr2" if policy in ("auto", "amdp") else policy
-
-
-def _check_backend(backend: Optional[str]) -> str:
-    backend = backend or "batched"
-    if backend not in BACKENDS:
-        raise ValueError(
-            f"unknown backend {backend!r}; the port has {BACKENDS} (the "
-            f"reference's sequential NumPy LP oracle is not ported)")
-    return backend
 
 
 def _coerce(problem: AnyProblem) -> Union[Problem, FleetProblem]:
@@ -93,9 +82,11 @@ def _filter_opts(fn: Callable, opts: Dict) -> Dict:
 def _validate_opts(policy: str, opts: Dict) -> None:
     """Typo guard: an explicitly named policy must accept every option on
     at least one of its entry points (``auto`` options are best-effort)."""
-    if policy == "auto" or not opts:
+    if policy == "auto":
         return
-    solver = get_solver(policy)
+    solver = get_solver(policy)           # unknown names raise here
+    if not opts:
+        return
     accepted: set = set()
     for meth in ("solve_one", "solve_fleet"):
         fn = getattr(solver, meth, None)
@@ -124,7 +115,7 @@ def _check_strict(sol: Solution, strict: bool) -> Solution:
 
 
 def solve(problem: AnyProblem, *, policy: str = "auto",
-          backend: Optional[str] = None, es_disabled: bool = False,
+          es_disabled: bool = False,
           strict: bool = True, warm_start: Optional[np.ndarray] = None,
           device: DeviceLike = None, **opts) -> Solution:
     """Plan one `Problem` or a whole `FleetProblem` through the registry.
@@ -137,7 +128,6 @@ def solve(problem: AnyProblem, *, policy: str = "auto",
 
     Returns a `Solution`; ``plan_seconds`` is the wall time of the call."""
     problem = _coerce(problem)
-    backend = _check_backend(backend)
     dev = resolve_device(device)
     if warm_start is not None:
         opts["warm_start"] = np.asarray(warm_start)
@@ -150,10 +140,9 @@ def solve(problem: AnyProblem, *, policy: str = "auto",
             f"it cannot drive the backpressure/outage replan path")
     if isinstance(problem, FleetProblem):
         if es_disabled:
-            sol = _solve_fleet_es_disabled(problem, policy, backend, dev,
-                                           **opts)
+            sol = _solve_fleet_es_disabled(problem, policy, dev, **opts)
         else:
-            sol = _solve_fleet(problem, policy, backend, dev, **opts)
+            sol = _solve_fleet(problem, policy, dev, **opts)
         return _check_strict(sol, strict)
     if es_disabled:
         problem = problem.es_disabled()
@@ -183,17 +172,6 @@ def _solve_one(problem: Problem, policy: str, device, **opts) -> Solution:
 # --------------------------------------------------------------------------
 # fleet problem
 # --------------------------------------------------------------------------
-def _check_fleet_policy(policy: str, backend: str) -> None:
-    if policy == "auto":
-        return
-    solver = get_solver(policy)           # unknown names raise here
-    if backend == "batched" and not solver.info.batched:
-        raise ValueError(
-            f"policy={policy!r} has no batched path; pass "
-            f"backend='sequential' (batched solvers: "
-            f"{[n for n in solver_names() if get_solver(n).info.batched]})")
-
-
 def _take_rows(opts: Dict, rows: np.ndarray) -> Dict:
     """Options of a row-subset dispatch: per-device option arrays (only
     ``warm_start``) are sliced to the subset's rows."""
@@ -237,18 +215,17 @@ class _FleetMerge:
                         plan_seconds=time.perf_counter() - t0)
 
 
-def _solve_fleet(fleet: FleetProblem, policy: str, backend: str, device,
+def _solve_fleet(fleet: FleetProblem, policy: str, device,
                  **opts) -> Solution:
     t0 = time.perf_counter()
-    _check_fleet_policy(policy, backend)
     B, n = fleet.p_es.shape
     out = _FleetMerge(B, n)
     if B == 0:
         return out.solution(fleet, t0)
 
-    if backend != "batched" or policy not in batched_policies():
+    if policy not in batched_policies():
         warm = opts.get("warm_start")
-        for b in range(B):                # sequential path
+        for b in range(B):                # no batched path: device by device
             o = opts
             if warm is not None:
                 o = dict(opts)
@@ -283,15 +260,15 @@ def _solve_fleet(fleet: FleetProblem, policy: str, backend: str, device,
     return out.solution(fleet, t0)
 
 
-def _solve_fleet_es_disabled(fleet: FleetProblem, policy: str, backend: str,
-                             device, **opts) -> Solution:
+def _solve_fleet_es_disabled(fleet: FleetProblem, policy: str, device,
+                             **opts) -> Solution:
     """ONE batched ES-disabled solve for a sub-fleet (backpressure /
     outage): real jobs get the uniform huge ES time, phantom padding stays
     free, and under ``auto``/``amdp`` devices whose real jobs share
     processing times go to the exact DP on their stripped instances."""
     crippled = fleet.es_disabled()
-    if backend != "batched" or policy not in ("auto", "amdp"):
-        return _solve_fleet(crippled, policy, backend, device, **opts)
+    if policy not in ("auto", "amdp"):
+        return _solve_fleet(crippled, policy, device, **opts)
 
     t0 = time.perf_counter()
     B, n = crippled.p_es.shape
@@ -326,7 +303,7 @@ def _solve_fleet_es_disabled(fleet: FleetProblem, policy: str, backend: str,
         out.solver[idxs] = "amdp"
     rest = np.nonzero(~ident)[0]
     if len(rest):
-        sub = _solve_fleet(crippled.take(rest), "amr2", "batched", device,
+        sub = _solve_fleet(crippled.take(rest), "amr2", device,
                            **_take_rows(opts, rest))
         out.put(rest, sub, np.atleast_1d(sub.solver))
     return out.solution(crippled, t0)
@@ -336,7 +313,7 @@ def _solve_fleet_es_disabled(fleet: FleetProblem, policy: str, backend: str,
 # many single problems (mixed shapes)
 # --------------------------------------------------------------------------
 def solve_many(problems: Sequence[AnyProblem], *, policy: str = "auto",
-               backend: Optional[str] = None, strict: bool = True,
+               strict: bool = True,
                warm_start: Optional[Sequence] = None,
                device: DeviceLike = None, **opts) -> List[Solution]:
     """Plan a sequence of (possibly mixed-shape) problems in as few solver
@@ -358,18 +335,16 @@ def solve_many(problems: Sequence[AnyProblem], *, policy: str = "auto",
             f"bases for {len(probs)} problems")
     if not probs:
         return []
-    backend = _check_backend(backend)
     dev = resolve_device(device)
     _validate_opts(policy, opts)
     opts.setdefault("on_error", "mark")
-    _check_fleet_policy(policy, backend)
 
     def _done(sols: List[Solution]) -> List[Solution]:
         for s in sols:
             _check_strict(s, strict)
         return sols
 
-    if backend != "batched" or policy not in batched_policies():
+    if policy not in batched_policies():
         out = []
         for i, p in enumerate(probs):
             o = opts

@@ -30,7 +30,7 @@ import torch
 from .._device import DeviceLike, resolve_device
 from ..kernels.cckp_dp import ops as cckp_ops
 from ..kernels.cckp_dp.ref import NEG
-from .types import InstanceBatch, OffloadInstance, Schedule, next_pow2
+from .types import InstanceBatch, OffloadInstance, Schedule
 
 
 def cckp_counts(p_int: np.ndarray, acc: np.ndarray, T_int: np.ndarray,
@@ -42,10 +42,11 @@ def cckp_counts(p_int: np.ndarray, acc: np.ndarray, T_int: np.ndarray,
 
     ``p_int`` (B, m) int, ``acc`` (B, m) (rounded to float32 for the DP),
     ``T_int`` and ``n_l`` (B,) int >= 0.  The lanes share one
-    (T1, K1) grid, the batch's largest corner rounded up to powers of two;
-    the grid is exact padding (the recurrence is local in (t, k), so a
-    lane's corner never sees cells beyond it).  One kernel launch per
-    model.
+    (T1, K1) grid, the batch's largest corner; the grid is exact padding
+    (the recurrence is local in (t, k), so a lane's corner never sees
+    cells beyond it).  The reference rounds the grid up to powers of two
+    only to reuse jit traces; nothing here is traced.  One kernel launch
+    per model.
 
     Returns ``(counts (B, m) int64, feasible (B,) bool, value (B,)
     float32)``; counts of infeasible lanes are 0."""
@@ -54,8 +55,8 @@ def cckp_counts(p_int: np.ndarray, acc: np.ndarray, T_int: np.ndarray,
     if B == 0:
         return (np.zeros((0, m), np.int64), np.zeros(0, bool),
                 np.zeros(0, np.float32))
-    T1 = next_pow2(int(T_int.max()) + 1)
-    K1 = next_pow2(int(n_l.max()) + 1)
+    T1 = int(T_int.max()) + 1
+    K1 = int(n_l.max()) + 1
     y = torch.full((B, T1, K1), NEG, dtype=torch.float32, device=dev)
     y[:, :, 0] = 0.0
     p_t = torch.as_tensor(np.asarray(p_int, np.int32), device=dev)

@@ -28,8 +28,8 @@
 // Bound.  Each cell reads its own Y once from device memory (the other
 // q-1 reads of a walk hit neighbouring cells of the same lane, in L1/L2)
 // and writes Y' and bestq: 12 bytes a cell, about two float operations per
-// q.  At the fleet's grids (T1 = 2048, K1 = 16) that is memory-bound:
-// B = 16384 lanes move 6.44 GB, 1.92 ms at 3.35 TB/s.  Shared-memory tiles
+// q.  At the fleet's grids (T1 = 1201, K1 = 13) that is memory-bound:
+// B = 16384 lanes move 3.07 GB, 0.92 ms at 3.35 TB/s.  Shared-memory tiles
 // of a lane's rows, narrower bestq types and fusing the m models are left
 // for later.
 //

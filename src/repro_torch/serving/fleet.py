@@ -32,7 +32,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from .._device import DeviceLike, resolve_device
-from ..api.front import _check_backend, solve
+from ..api.front import batched_policies, solve
 from ..api.registry import get_solver
 from ..core.instances import (PAPER_ACC, PAPER_COMM, PAPER_P_ED,
                               PAPER_P_ES_PROC)
@@ -245,27 +245,16 @@ class FleetEngine:
 
     def __init__(self, devices: Sequence[DeviceSpec], queue: RequestQueue, *,
                  n_servers: int = 1, T: float, policy: str = "auto",
-                 backend: Optional[str] = None,
                  straggler_threshold: float = 1.5, ema: float = 0.5,
-                 delegate: bool = True, faults=None, strict: str = "raise",
-                 hi=None, device: DeviceLike = None):
+                 delegate: bool = True, faults=None, hi=None,
+                 device: DeviceLike = None):
         if queue.n_devices != len(devices):
             raise ValueError("queue.n_devices must match the fleet size")
-        if strict not in ("raise", "warn"):
-            raise ValueError(f"strict={strict!r}; expected 'raise' or "
-                             f"'warn'")
-        backend = _check_backend(backend)
-        if policy != "auto":
-            info = get_solver(policy).info        # also rejects unknowns
-            if info.bound_only:
-                raise ValueError(
-                    f"policy={policy!r} is a bound-only solver; its "
-                    f"assignments need not satisfy the budgets, so it "
-                    f"cannot drive the serving engine")
-            if backend == "batched" and not info.batched:
-                raise ValueError(
-                    f"policy={policy!r} has no batched path; construct "
-                    f"the engine with backend='sequential'")
+        if policy != "auto" and get_solver(policy).info.bound_only:
+            raise ValueError(                     # get_solver rejects unknowns
+                f"policy={policy!r} is a bound-only solver; its "
+                f"assignments need not satisfy the budgets, so it "
+                f"cannot drive the serving engine")
         for d, spec in enumerate(devices):
             cls = np.asarray(spec.profile.classes)
             if cls.size > 1 and np.any(np.diff(cls) <= 0):
@@ -288,10 +277,10 @@ class FleetEngine:
         self.pool = EdgeServerPool(n_servers)
         self.T = T
         self.policy = policy
-        self.backend = backend
+        # a solver without a batched path (greedy) plans device by device
+        self._batched = policy in batched_policies()
         self.straggler_threshold = straggler_threshold
         self.ema = ema
-        self.strict = strict
         self.device = resolve_device(device)
         self.history: List[FleetPeriodStats] = []
         # per period: how many devices each solver planned, in the plan
@@ -305,8 +294,8 @@ class FleetEngine:
             by_key.setdefault(key, []).append(d)
         self._groups = [_ShapeGroup(ids, [self.devices[d] for d in ids])
                         for ids in by_key.values()]
-        if delegate and backend == "batched" \
-                and policy in ("amr2", "dual") and len(self._groups) == 1:
+        if delegate and policy in ("amr2", "dual") \
+                and len(self._groups) == 1:
             raise NotImplementedError(_NOT_PORTED["delegate"])
 
     def run(self, periods: int) -> List[FleetPeriodStats]:
@@ -341,13 +330,12 @@ class FleetEngine:
         for g in self._groups:
             fp, base = self._assemble(g, arrivals, outage, n_pad)
             warm = {}
-            if self.backend == "batched" and g.warm_basis is not None:
+            if g.warm_basis is not None:
                 wb = np.asarray(g.warm_basis)
                 if stale_all is not None:
                     wb = np.where(stale_all[g.ids][:, None], -1, wb)
                 warm["warm_start"] = wb
-            sol = solve(fp, policy=self.policy, backend=self.backend,
-                        device=self.device, **warm)
+            sol = solve(fp, policy=self.policy, device=self.device, **warm)
             # LP-planned rows warm the next period; a period with no LP
             # solve drops the carry rather than hand it to a later one
             g.warm_basis = None if sol.basis is None \
@@ -369,7 +357,7 @@ class FleetEngine:
             rows = np.nonzero(np.isin(g.ids, bumped))[0]
             if not len(rows):
                 continue
-            if self.backend == "batched":
+            if self._batched:
                 fb = solve(fp.take(rows), policy=self.policy,
                            es_disabled=True, device=self.device)
                 plan_seconds += fb.plan_seconds
@@ -384,8 +372,7 @@ class FleetEngine:
                         p_ed=fp.p_ed[r, :k], p_es=fp.p_es[r, :k],
                         acc=fp.acc[r], T=self.T)
                     fbp = solve(stripped, policy=self.policy,
-                                backend="sequential", es_disabled=True,
-                                device=self.device)
+                                es_disabled=True, device=self.device)
                     log["replan"][str(fbp.solver)] += 1
                     assign[r, :k] = fbp.assignment
                 plan_seconds += time.perf_counter() - t0

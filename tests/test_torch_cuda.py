@@ -160,12 +160,35 @@ def _cckp_case(seed, T1=257, K1=16, lanes=64):
     return y, p, a
 
 
+def _single_rounding(y, p, a, n_steps):
+    """The DP's values with ``s + q*a`` rounded once, as an FMA would:
+    formed in float64 (the float32 product is exact there), then rounded
+    to float32."""
+    B, T1, K1 = y.shape
+    best = torch.full_like(y, cckp_ref.NEG)
+    lanes = torch.arange(B)[:, None]
+    for q in range(min(n_steps, K1)):
+        rows = torch.arange(T1)[None, :] - q * p.long()[:, None]  # (B, T1)
+        src = torch.full_like(y, cckp_ref.NEG)
+        src[:, :, q:] = torch.where((rows >= 0)[:, :, None],
+                                    y[lanes, rows.clamp_min(0), :K1 - q],
+                                    cckp_ref.NEG)
+        val = (src.double() + q * a.double()[:, None, None]).float()
+        best = torch.where(val > best, val, best)
+    return best
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("K1", [16, 1])
 def test_cuda_cckp_kernel_matches_plain_version_bitwise(cuda_device,
                                                         monkeypatch, K1):
+    """With K1 > 1 the inputs must hold cells where one rounding of
+    ``s + q*a`` differs from two, so a kernel that nvcc contracted into an
+    FMA fails; with K1 = 1 only q = 0 exists and there is no product."""
     y, p, a = _cckp_case(6, K1=K1)
     want = cckp_ref.cckp_model_dp_ref(y, p, a, K1)
+    if K1 > 1:
+        assert (_single_rounding(y, p, a, K1) != want[0]).any()
     monkeypatch.setattr(cckp_ops, "cckp_model_dp_ref", _fail_if_called)
     cckp_ops.reset_launches()
     got = cckp_ops.model_dp(y.to(cuda_device), p.to(cuda_device),

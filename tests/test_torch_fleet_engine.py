@@ -7,8 +7,8 @@ straggler threshold 1.5.
   slots to AMR^2, every period, and admission bumps devices into the
   ES-disabled replan;
 * the 3-class `make_fleet` with outages and stragglers;
-* ``policy="greedy"`` on the sequential path (the reference's NumPy
-  backend), with devices carried across by
+* ``policy="greedy"``, which has no batched path and plans device by
+  device (the reference's NumPy backend), with devices carried across by
   `repro_torch.convert.device_specs_from_numpy`.
 
 Bar: every `FleetPeriodStats` field but ``plan_seconds`` — integers
@@ -101,8 +101,7 @@ def test_greedy_sequential_matches_reference_numpy_backend():
     port = FleetEngine(convert.device_specs_from_numpy(specs),
                        RequestQueue(24, classes, rate=9.0, batch_max=12,
                                     seed=5),
-                       T=1.2, n_servers=2, policy="greedy",
-                       backend="sequential", device="cpu")
+                       T=1.2, n_servers=2, policy="greedy", device="cpu")
     _compare(ref, port, 4)
 
 
@@ -125,6 +124,6 @@ def test_unported_configurations_raise():
         engine(hi=object())
     with pytest.raises(ValueError, match="bound-only"):
         engine(policy="lp")
-    with pytest.raises(ValueError, match="no batched path"):
-        engine(policy="greedy")
+    with pytest.raises(ValueError, match="unknown solver"):
+        engine(policy="simplex")
     assert engine(policy="amr2", delegate=False).run(1)[0].n_devices == 4

@@ -125,11 +125,15 @@ def test_greedy_sequential_matches_reference_numpy_backend():
     fp = _fleet(8, seed=30)
     want = RAPI.solve(fp, policy="greedy", backend="numpy")
     got = PAPI.solve(convert.fleet_problem_from_numpy(fp), policy="greedy",
-                     backend="sequential", device="cpu")
+                     device="cpu")
     _assert_same(want, got)
-    with pytest.raises(ValueError, match="no batched path"):
-        PAPI.solve(convert.fleet_problem_from_numpy(fp), policy="greedy",
-                   device="cpu")
+    probs = [fp[b] for b in range(len(fp))]
+    want_many = RAPI.solve_many(probs, policy="greedy", backend="numpy")
+    got_many = PAPI.solve_many([PAPI.Problem(p.p_ed, p.p_es, p.acc, p.T)
+                                for p in probs], policy="greedy",
+                               device="cpu")
+    for w, g in zip(want_many, got_many, strict=True):
+        _assert_same(w, g)
 
 
 def test_lp_bound_matches_reference():
@@ -164,6 +168,6 @@ def test_typo_guard_and_registry():
             PAPI.solve(fp, policy=name, device="cpu")
     with pytest.raises(ValueError, match="unknown solver"):
         PAPI.get_solver("simplex")
-    with pytest.raises(ValueError, match="unknown backend"):
-        PAPI.solve(fp, backend="numpy", device="cpu")
+    with pytest.raises(TypeError, match="does not accept"):
+        PAPI.solve(fp, policy="amr2", backend="numpy", device="cpu")
     assert "| `amdp` | yes | yes |" in PAPI.solver_table()
