@@ -16,8 +16,16 @@ Phases, each printing JSON lines; any failure exits non-zero:
               Bland lanes; integer outputs exact, floats to rtol/atol
               1e-12); the CCKP kernel on 16384 grids of 1201 x 13 cells,
               p and accuracies from the fleet's profiles, the grids from a
-              real first-model pass (bitwise).  Kernel and plain times
-              (CUDA events) beside each bound.
+              real first-model pass (bitwise); the flash attention kernel
+              at the LM path's shapes (paper_edge's ES model: 32 jobs x 64
+              tokens, 8 heads on 4 KV heads, head_dim 64, causal;
+              gemma3-1b: 2 x 2048 tokens, 4 heads on 1, head_dim 256,
+              window 512 and causal) and a ragged unmasked one, each in
+              bfloat16 and float32 (float32 to 1e-5, bfloat16 to 2^-7
+              relative and absolute).  Kernel and plain times (CUDA
+              events) beside each bound; for flash attention also the
+              time of `scaled_dot_product_attention` on the same inputs
+              (the library column, never on the port's path).
   4. rollout  the tensor engine's path: `EngineParams.from_fleet` ->
               `init_state` -> `rollout` of a 16384-device fleet for 8
               periods, once per LP method, with every kernel's launch
@@ -35,16 +43,33 @@ Phases, each printing JSON lines; any failure exits non-zero:
               (both > 0), backpressured devices and seconds; launches per
               kernel and peak memory over the run.  The engine's solves
               are strict: an unsolved lane raises.
-  7. parity   the card-marked tests (`pytest -m gpu tests/test_torch_cuda.py`,
+  7. lm_forward  gemma3-1b at full width (26 layers, d 1152, GQA 4:1 at
+              head_dim 256, vocabulary 262144): `init_params` on the card
+              from a seed, 2 requests of 2048 `TokenPipeline` tokens,
+              `forward` + `logits_from_h` in bfloat16 with the flash
+              launch counter set to 0 just before and read just after (26
+              per forward), tokens/s and peak memory; then the same
+              forward with the plain dense attention (`attn_impl="dense"`)
+              on the card, in bfloat16 and in float32, against the flash
+              forward (tolerances at `LM_BF16_*` and `LM_F32_ATOL`).
+  8. lm_serve `repro_torch.launch.serve.main` on the paper_edge ladder: 6
+              periods of 24 jobs, an ES outage in period 2, every counter
+              set to 0 before and read after; per period the policy,
+              accuracy, predicted and wall makespan, violation and the
+              replanned flag; no dropped job, period 2 replanned, the flash
+              kernel launched.
+  9. parity   the card-marked tests (`pytest -m gpu tests/test_torch_cuda.py`,
               in a child process): each kernel against its plain version,
-              a 32-device rollout and a 64-device `FleetEngine` run on the
-              card against the same runs on the CPU.
-  8. timing   the 16384-device rollout again, in turns (tableau, revised,
+              a 32-device rollout, a 64-device `FleetEngine` run and a
+              2-layer LM forward on the card against the same runs on the
+              CPU.
+ 10. timing   the 16384-device rollout again, in turns (tableau, revised,
               revised, tableau), for steady-state devices/s.
-  9. profile  one rollout per LP method and one serve run under
+ 11. profile  one rollout per LP method and one serve run under
               `torch.profiler`: device time by kernel name and the device's
               busy share of the wall time; one more serve run under
-              cProfile: host seconds by pipeline stage.
+              cProfile: host seconds by pipeline stage.  (Phase 7 profiles
+              one gemma3-1b forward the same way.)
 
 Then the nvidia-smi line, the kernels line and, last, the result line.
 Exits non-zero without a CUDA card, and when the repository's `src/` is
@@ -76,6 +101,21 @@ RTOL = ATOL = 1e-12
 # ES-disabled replan offloads none)
 T_BUDGET, DP_T1, DP_K1 = 1.2, 1201, 13
 N_SERVERS = D_FLEET // 16
+BF16_FLOPS = ES_PEAK_FLOPS
+# flash attention at the LM path's shapes:
+# (name, batch, Sq, Sk, heads, kv heads, head_dim, mask, window)
+FLASH_SHAPES = (
+    ("paper_edge_es", 32, 64, 64, 8, 4, 64, "causal", 0),
+    ("gemma3_local", 2, 2048, 2048, 4, 1, 256, "window", 512),
+    ("gemma3_global", 2, 2048, 2048, 4, 1, 256, "causal", 0),
+    ("ragged_none", 3, 1000, 777, 4, 2, 128, "none", 0),
+)
+FLASH_LINE = ("gemma3_local", "bfloat16")    # the kernels line's shape
+FLASH_SRC = ("src/repro_torch/kernels/flash_attention/csrc/"
+             "flash_attention.cu")
+FLASH_TPU = "src/repro/kernels/flash_attention/flash_attention.py:86"
+# the gemma3-1b forward: 2 requests of 2048 tokens
+LM_BATCH, LM_SEQ, LM_SEED = 2, 2048, 0
 
 
 def emit(phase: str, **fields) -> None:
@@ -293,6 +333,92 @@ def phase_cckp_kernel(torch, dev):
     return row
 
 
+# --------------------------------------------------------------------------
+# flash attention
+# --------------------------------------------------------------------------
+def live_pairs(Sq, Sk, mask, window):
+    """(query, key) pairs the index-derived mask leaves live."""
+    import numpy as np
+    i = np.arange(Sq)
+    if mask == "none":
+        return Sq * Sk
+    hi = np.minimum(i, Sk - 1)
+    lo = np.maximum(0, i - window + 1) if mask == "window" else 0
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def flash_work(B, Sq, Sk, H, KH, D, mask, window, itemsize):
+    """Bytes and operations one call needs: q, k and v read once and o
+    written once; 4 D operations (q.k and p.v, a multiply and an add
+    each) per live (query, key) pair of each of the B H q-heads."""
+    nbytes = itemsize * D * (2 * B * H * Sq + 2 * B * KH * Sk)
+    return nbytes, 4 * D * B * H * live_pairs(Sq, Sk, mask, window)
+
+
+def phase_flash_kernel(torch, dev):
+    """Flash attention against its plain version at every shape of
+    `FLASH_SHAPES`, in bfloat16 and float32, with kernel, plain and
+    `scaled_dot_product_attention` times.  Returns the rows by (shape,
+    dtype)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    g = torch.Generator(device=dev).manual_seed(5)
+    rows = {}
+    for name, B, Sq, Sk, H, KH, D, mask, window in FLASH_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[-1]
+            q, k, v = (torch.randn(shape, generator=g, device=dev).to(dtype)
+                       for shape in ((B * H, Sq, D), (B * KH, Sk, D),
+                                     (B * KH, Sk, D)))
+            kw = dict(mask_kind=mask, window=window, group=H // KH)
+            got = fa_ops.flash_attention_fwd(q, k, v, **kw)
+            want = fa_ref.attention_ref(q, k, v, **kw)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            rtol, atol = ((0.0, 1e-5) if dtype == torch.float32
+                          else (2.0 ** -7, 2.0 ** -7))
+            check(torch.allclose(got.float(), want.float(), rtol=rtol,
+                                 atol=atol),
+                  f"flash_attention_fwd {name} {dname} disagrees with its "
+                  f"plain version (max {err})")
+            del got, want
+            ms = cuda_ms(lambda: fa_ops.flash_attention_fwd(q, k, v, **kw),
+                         [()] * 10, torch)
+            plain_ms = cuda_ms(lambda: fa_ref.attention_ref(q, k, v, **kw),
+                               [()] * 3, torch)
+            # the library's call on the same inputs: (B, H, S, D) views,
+            # KV heads shared by enable_gqa, the mask as a boolean tensor
+            qq, kk, vv = (t.view(B, t.shape[0] // B, t.shape[1], D)
+                          for t in (q, k, v))
+            live = (None if mask != "window"
+                    else fa_ref.index_mask(mask, Sq, Sk, window, dev))
+
+            def library():
+                return sdpa(qq, kk, vv, attn_mask=live,
+                            is_causal=mask == "causal", enable_gqa=True)
+
+            lib_err = (library().reshape(q.shape).float()
+                       - fa_ref.attention_ref(q, k, v, **kw).float()
+                       ).abs().max().item()
+            library_ms = cuda_ms(library, [()] * 10, torch)
+            nbytes, flops = flash_work(B, Sq, Sk, H, KH, D, mask, window,
+                                       q.element_size())
+            bound_ms, bound_by = bound_of(
+                nbytes, flops,
+                BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
+            row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       library_ms=library_ms, library_max_abs_err=lib_err,
+                       bytes=nbytes, flops=flops, bound_ms=bound_ms,
+                       bound_by=bound_by)
+            emit("kernels", kernel="flash_attention_fwd", shape=name,
+                 dtype=dname, dims=dict(B=B, Sq=Sq, Sk=Sk, H=H, KH=KH, D=D,
+                                        mask=mask, window=window), **row)
+            rows[(name, dname)] = row
+            del q, k, v, qq, kk, vv
+    return rows
+
+
 def reduced_pivot_work(torch, ref, case, want):
     """Bytes and FP64 operations one `reduced_pivot` call needs on these
     inputs, lane by lane:
@@ -402,17 +528,21 @@ def phase_rollout(torch, ops, dev, params):
 def kernel_launches():
     """The launch counters of every kernel, by kernel name."""
     from repro_torch.kernels.cckp_dp import ops as cckp_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.simplex_pivot import ops
     return {"simplex_pivot": ops.pivot_update.launches,
             "reduced_pivot": ops.reduced_pivot.launches,
-            "cckp_model_dp": cckp_ops.model_dp.launches}
+            "cckp_model_dp": cckp_ops.model_dp.launches,
+            "flash_attention_fwd": fa_ops.flash_attention_fwd.launches}
 
 
 def reset_launches():
     from repro_torch.kernels.cckp_dp import ops as cckp_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.simplex_pivot import ops
     ops.reset_launches()
     cckp_ops.reset_launches()
+    fa_ops.reset_launches()
 
 
 def front_problem():
@@ -539,6 +669,134 @@ def phase_serve(torch, dev):
     return launches, seconds
 
 
+# --------------------------------------------------------------------------
+# phases 7 and 8: the LM forward and the serving runtime
+# --------------------------------------------------------------------------
+# the flash forward of gemma3-1b against the same forward with the plain
+# dense attention, on the card.  float32: both run their products in full
+# float32 (TF32 off), so they differ by summation order over 26 layers.
+# bfloat16: the flash kernel rounds p to bfloat16 against a running max
+# per 32-key block, the dense path the normalised p; those roundings feed
+# 26 residual layers of an untrained model whose runner-up logits are
+# close.  Bounds on logits of scale ~1-5:
+LM_F32_ATOL = 1e-3
+LM_BF16_ATOL, LM_BF16_MEAN, LM_BF16_TOP1 = 0.5, 0.05, 0.9
+
+
+def phase_lm_forward(torch, dev):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import forward, init_params, logits_from_h
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("gemma3_1b")
+    params = init_params(cfg, LM_SEED, device=dev)
+    tokens = torch.as_tensor(TokenPipeline(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=LM_SEQ, global_batch=LM_BATCH,
+        seed=LM_SEED)).batch_at(0)["tokens"], device=dev)
+
+    @torch.inference_mode()
+    def run(c):
+        return logits_from_h(params, forward(params, {"tokens": tokens}, c),
+                             c)
+
+    run(cfg)                                     # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    logits = run(cfg)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kernel_launches()
+    peak = torch.cuda.max_memory_allocated()
+    check(launches["flash_attention_fwd"] == cfg.num_layers,
+          f"lm_forward: {launches['flash_attention_fwd']} flash launches "
+          f"for {cfg.num_layers} layers")
+    V = cfg.vocab_size
+    check(tuple(logits.shape) == (LM_BATCH, LM_SEQ, cfg.padded_vocab)
+          and bool(torch.isfinite(logits[..., :V]).all()),
+          f"lm_forward: bad logits {tuple(logits.shape)}")
+    steady = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run(cfg)
+        torch.cuda.synchronize()
+        steady.append(time.perf_counter() - t0)
+
+    device_s, n_launch, top = profiled(torch, lambda: run(cfg))
+    emit("profile", path="lm_forward", device_seconds=device_s,
+         wall_seconds=min(steady), busy_share=device_s / min(steady),
+         n_kernel_launches=n_launch, top=top)
+
+    def compare(a, b):
+        d = (a[..., :V] - b[..., :V]).abs()
+        top1 = (a[..., :V].argmax(-1) == b[..., :V].argmax(-1))
+        return (d.max().item(), d.mean().item(), top1.float().mean().item())
+
+    plain = run(dataclasses.replace(cfg, attn_impl="dense"))
+    bf16 = compare(logits, plain)
+    scale = logits[..., :V].abs().max().item()
+    del logits, plain
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    flash32 = run(cfg32)
+    f32 = compare(flash32, run(dataclasses.replace(cfg32, attn_impl="dense")))
+    del flash32
+    emit("lm_forward", model=cfg.name, params=cfg.param_count(),
+         batch=LM_BATCH, seq=LM_SEQ, seconds=seconds, steady_seconds=steady,
+         tokens_per_s=LM_BATCH * LM_SEQ / min(steady),
+         peak_mem_bytes=peak, launches=launches,
+         launches_per_forward=launches["flash_attention_fwd"],
+         logit_scale=scale,
+         bf16_vs_dense=dict(max_abs=bf16[0], mean_abs=bf16[1],
+                            top1_agree=bf16[2]),
+         f32_vs_dense=dict(max_abs=f32[0], mean_abs=f32[1],
+                           top1_agree=f32[2]))
+    check(f32[0] <= LM_F32_ATOL,
+          f"lm_forward: float32 flash vs dense logits differ by {f32[0]}")
+    check(bf16[0] <= LM_BF16_ATOL and bf16[1] <= LM_BF16_MEAN
+          and bf16[2] >= LM_BF16_TOP1,
+          f"lm_forward: bfloat16 flash vs dense logits (max, mean, top-1) "
+          f"{bf16}")
+    del params
+    torch.cuda.empty_cache()
+
+
+def phase_lm_serve(torch, dev):
+    """The port's launcher on the paper_edge ladder; returns the flash
+    launches of the run."""
+    from repro_torch.launch import serve
+    periods, fail = 6, 2
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    history = serve.main(["--periods", str(periods), "--n", "24",
+                          "--fail-period", str(fail), "--device", str(dev)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kernel_launches()
+    check(len(history) == periods, "lm_serve: missing periods")
+    for period, s in enumerate(history):
+        emit("lm_serve", period=period, policy=s.policy,
+             total_accuracy=s.total_accuracy,
+             predicted_makespan=s.predicted_makespan,
+             wall_makespan=s.wall_makespan, violation=s.violation,
+             replanned=s.replanned, profile_updated=s.profile_updated,
+             n_dropped=s.n_dropped, plan_seconds=s.plan_seconds)
+        check(s.n_dropped == 0, f"lm_serve: period {period} dropped "
+                                f"{s.n_dropped} jobs")
+    check(history[fail].replanned,
+          f"lm_serve: the ES outage of period {fail} was not replanned")
+    check(launches["flash_attention_fwd"] > 0,
+          "lm_serve: the flash kernel never launched")
+    emit("lm_serve", periods=periods, jobs_per_period=24, seconds=seconds,
+         launches=launches,
+         flash_launches_per_period=launches["flash_attention_fwd"] / periods)
+    return launches["flash_attention_fwd"]
+
+
 def phase_parity():
     """The card-marked tests, in a child process: the kernels against their
     plain versions, and a small rollout on the card against the CPU."""
@@ -663,6 +921,7 @@ def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.kernels import _build
     from repro_torch.kernels.cckp_dp import ops as cckp_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.simplex_pivot import ops, ref
 
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -673,7 +932,7 @@ def main() -> int:
          nvcc=run([_build.nvcc(), "--version"]).splitlines()[-1])
 
     t0 = time.perf_counter()
-    libs = [ops.LIBRARY, cckp_ops.LIBRARY]
+    libs = [ops.LIBRARY, cckp_ops.LIBRARY, fa_ops.LIBRARY]
     built = _build.build_many(libs)
     for lib in libs:
         lib.load()
@@ -685,11 +944,15 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t0)
 
     rows = phase_kernels(torch, ops, ref, dev)
+    flash_rows = phase_flash_kernel(torch, dev)
     params = build_params(dev)
     launches = phase_rollout(torch, ops, dev, params)
     phase_front(torch, dev)
     serve_launches, serve_seconds = phase_serve(torch, dev)
     launches["cckp_model_dp"] = serve_launches["cckp_model_dp"]
+    phase_lm_forward(torch, dev)
+    launches["flash_attention_fwd"] = phase_lm_serve(torch, dev)
+    rows["flash_attention_fwd"] = flash_rows[FLASH_LINE]
     phase_parity()
     seconds = phase_timing(torch, dev, params)
     phase_profile(torch, dev, params, seconds, serve_seconds)
@@ -698,15 +961,18 @@ def main() -> int:
     simplex_tpu = "src/repro/kernels/simplex_pivot/simplex_pivot.py"
     source = {"simplex_pivot": simplex_src, "reduced_pivot": simplex_src,
               "cckp_model_dp":
-                  "src/repro_torch/kernels/cckp_dp/csrc/cckp_dp.cu"}
+                  "src/repro_torch/kernels/cckp_dp/csrc/cckp_dp.cu",
+              "flash_attention_fwd": FLASH_SRC}
     replaces = {"simplex_pivot": f"{simplex_tpu}:57",
                 "reduced_pivot": f"{simplex_tpu}:146",
-                "cckp_model_dp": "src/repro/kernels/cckp_dp/cckp_dp.py:57"}
+                "cckp_model_dp": "src/repro/kernels/cckp_dp/cckp_dp.py:57",
+                "flash_attention_fwd": FLASH_TPU}
     kernels = [dict(name=name, route="cuda", source=source[name],
                     replaces=replaces[name], launches=launches[name],
                     max_abs_err=row["max_abs_err"], ms=row["ms"],
                     plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
-                    bound_by=row["bound_by"], library_ms=None)
+                    bound_by=row["bound_by"],
+                    library_ms=row.get("library_ms"))
                for name, row in rows.items()]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

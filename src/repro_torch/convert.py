@@ -13,15 +13,18 @@ packages in a parity test start from the same arrays.
   drift, outage) as the port's.
 * `solution_fields`: a `Solution` of either package as a dict of NumPy
   arrays, for comparisons.
+* `model_params_from_numpy`: the reference LM's `init_params` pytree,
+  given as NumPy arrays, as the port's parameters on ``device``.
 
 The functions read attributes and arrays only; this module imports
 neither jax nor the reference.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from ._device import DeviceLike, resolve_device
 from .core.problem import FleetProblem
@@ -108,3 +111,20 @@ def solution_fields(sol) -> Dict[str, Optional[np.ndarray]]:
         "n_fractional": _copy_or_none(sol.n_fractional),
         "basis": _copy_or_none(sol.basis),
     }
+
+
+def model_params_from_numpy(tree: Any, device: DeviceLike = None) -> Any:
+    """The port's LM parameters from the reference's `init_params` pytree
+    with NumPy leaves: dicts stay dicts (same keys), tuples and lists
+    become tuples, each array a tensor of its dtype on ``device``, leaf
+    for leaf, so both packages' `forward` compute the same thing."""
+    dev = resolve_device(device)
+
+    def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        if isinstance(x, (tuple, list)):
+            return tuple(conv(v) for v in x)
+        return torch.as_tensor(np.array(x), device=dev)
+
+    return conv(tree)

@@ -1,0 +1,132 @@
+"""Wrappers around the CUDA flash attention kernel
+(`csrc/flash_attention.cu`).
+
+* `flash_attention_fwd(q, k, v, *, mask_kind, window, group)` takes the
+  Pallas function's layout: q (B·KH·G, Sq, D), k and v (B·KH, Sk, D).
+* `flash_attention(q, k, v, q_pos, k_pos, *, mask_kind, window)` is the
+  model layer's entry: q (B, Sq, H, D), k and v (B, Sk, KH, D) with KV
+  not repeated (group = H // KH).
+
+Masks are derived from indices, exactly as in the reference's
+`ops.flash_attention`: the kernel assumes self-attention positions
+``arange(Sq)`` and ``arange(Sk)``, and ``q_pos`` / ``k_pos`` only have to
+match those lengths.  Inputs where some query row would have no live key
+(a window with Sq >= Sk + window) are refused on every device.
+
+On a CUDA tensor the hand-written kernel runs, built at first use with
+``nvcc`` into ``build/kernels/`` of the checkout and bound with `ctypes`;
+on a CPU tensor the plain PyTorch version in `ref.py` runs.  There is no
+fallback: a CUDA tensor gets the kernel or an exception.  Only a kernel
+launch adds one to ``flash_attention_fwd.launches``.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from .._build import Library, check_tensor, raise_on, stream_of
+from .ref import MASK_KINDS, attention_ref
+
+_MASK_CODE = {"none": 0, "causal": 1, "window": 2}
+_DTYPES = (torch.float32, torch.bfloat16)
+MAX_HEAD_DIM = 256
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.flash_attention_fwd_launch.argtypes = [
+        P, P, P, P, I, I, I, I, I, I, I, ctypes.c_float, I, P]
+    lib.flash_attention_fwd_launch.restype = I
+
+
+LIBRARY = Library(Path(__file__).resolve().parent / "csrc"
+                  / "flash_attention.cu", _declare)
+
+
+def library() -> ctypes.CDLL:
+    """The kernel's shared library, built if needed and loaded once per
+    process."""
+    return LIBRARY.load()
+
+
+def _check_mask(mask_kind: str, window: int, Sq: int, Sk: int) -> None:
+    if mask_kind not in MASK_KINDS:
+        raise ValueError(f"mask_kind must be one of {MASK_KINDS}, "
+                         f"got {mask_kind!r}")
+    if Sk < 1:
+        raise ValueError("attention needs at least one key")
+    if mask_kind == "window" and (window < 1 or Sq >= Sk + window):
+        raise ValueError(
+            f"window {window} with Sq {Sq}, Sk {Sk} leaves query rows with "
+            f"no live key")
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, mask_kind: str = "causal", window: int = 0,
+                        group: int = 1) -> torch.Tensor:
+    """q (B·KH·G, Sq, D); k, v (B·KH, Sk, D), G = ``group``; q-head row b
+    reads kv head b // group.  Returns (B·KH·G, Sq, D) in q's dtype."""
+    BH, Sq, D = q.shape
+    BKH, Sk, Dk = k.shape
+    if group < 1 or BH != BKH * group or Dk != D or v.shape != k.shape:
+        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} do not fit group {group}")
+    _check_mask(mask_kind, window, Sq, Sk)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_contiguous():        # on every device: the kernel's
+            raise ValueError(f"{name} must be contiguous")   # layout
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, mask_kind=mask_kind, window=window,
+                             group=group)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash_attention kernel for {q.device}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"flash_attention takes {_DTYPES}, got {q.dtype}")
+    if D % 4 or D > MAX_HEAD_DIM:
+        raise ValueError(f"head_dim must be a multiple of 4 up to "
+                         f"{MAX_HEAD_DIM}, got {D}")
+    dev = q.device
+    check_tensor("q", q, q.dtype, (BH, Sq, D), dev)
+    check_tensor("k", k, q.dtype, (BKH, Sk, D), dev)
+    check_tensor("v", v, q.dtype, (BKH, Sk, D), dev)
+    out = torch.empty_like(q)
+    err = library().flash_attention_fwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH, Sq,
+        Sk, D, group, _MASK_CODE[mask_kind], int(window), float(D ** -0.5),
+        int(q.dtype == torch.bfloat16), stream_of(dev))
+    raise_on(err, "flash_attention_fwd")
+    flash_attention_fwd.launches += 1
+    return out
+
+
+flash_attention_fwd.launches = 0
+
+
+def reset_launches() -> None:
+    """Set the kernel's launch counter to 0."""
+    flash_attention_fwd.launches = 0
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    q_pos: torch.Tensor, k_pos: torch.Tensor, *,
+                    mask_kind: str, window: int = 0) -> torch.Tensor:
+    """q (B, Sq, H, D); k, v (B, Sk, KH, D) with KH dividing H.  Returns
+    (B, Sq, H, D).  Self-attention positions (``arange``) are assumed:
+    the mask comes from indices, ``q_pos`` / ``k_pos`` give the lengths."""
+    B, Sq, H, D = q.shape
+    Sk, KH = k.shape[1], k.shape[2]
+    if H % KH or len(q_pos) != Sq or len(k_pos) != Sk:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"{len(q_pos)} and {len(k_pos)} positions")
+    o = flash_attention_fwd(heads_major(q), heads_major(k), heads_major(v),
+                            mask_kind=mask_kind, window=window,
+                            group=H // KH)
+    return o.view(B, H, Sq, D).transpose(1, 2)
+
+
+def heads_major(x: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, D) -> contiguous (B·H, S, D), the kernel's layout."""
+    B, S, H, D = x.shape
+    return x.transpose(1, 2).contiguous().view(B * H, S, D)

@@ -1,6 +1,6 @@
 """The port on a CUDA card: each kernel against its plain version, a
-small rollout and a small host `FleetEngine` run on the card against the
-same runs on the CPU.
+small rollout, a small host `FleetEngine` run and a 2-layer LM forward on
+the card against the same runs on the CPU.
 
 Every test here is marked ``gpu`` and skips (with the reason) where no
 card is visible.  The file imports no JAX — it compares the port with
@@ -13,7 +13,12 @@ Tolerances: integer outputs and metrics exact; floats to rtol/atol 1e-12
 for a single simplex kernel call, 1e-9 for rollout and fleet metrics (the
 card reduces in another order than the CPU); the CCKP kernel bitwise
 (float32 values and argmax counts), since it rounds exactly as its plain
-version does.
+version does; the flash attention kernel to 1e-5 in float32 (the
+card sums scores and the PV product in another order) and 2^-7
+relative and absolute in bfloat16 (p is rounded to bfloat16 against a
+running max per 32-key block instead of the row's max; one bfloat16
+ulp is 2^-8); the LM forward's float32 logits to 1e-4 (matrix products
+of 64-wide rows summed in other orders on the card).
 """
 import dataclasses
 
@@ -21,9 +26,12 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import convert
+from repro_torch import configs, convert
 from repro_torch.api import engine as E
 from repro_torch.kernels.cckp_dp import ops as cckp_ops
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
+from repro_torch.models import forward, init_params, logits_from_h
 from repro_torch.kernels.cckp_dp import ref as cckp_ref
 from repro_torch.kernels.simplex_pivot import ops, ref
 from repro_torch.serving.fleet import FleetEngine, make_fleet
@@ -251,3 +259,100 @@ def test_cuda_fleet_engine_matches_cpu_run(cuda_device, monkeypatch):
                 assert a == b, (w.period, f.name, a, b)
     for dc, dg in zip(cpu_engine.devices, gpu_engine.devices):
         assert dc.n_updates == dg.n_updates
+
+
+FLASH_CASES = [  # (B*KH, G, Sq, Sk, D, mask_kind, window)
+    (4, 2, 100, 100, 64, "causal", 0),
+    (2, 4, 130, 130, 256, "window", 33),
+    (3, 1, 70, 45, 16, "none", 0),
+    (2, 2, 96, 96, 128, "window", 200),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_cuda_flash_kernel_matches_plain_version(cuda_device, monkeypatch,
+                                                 case, dtype):
+    BKH, G, Sq, Sk, D, mask_kind, window = case
+    g = torch.Generator().manual_seed(Sq + D)
+    q, k, v = (torch.randn(shape, generator=g).to(dtype)
+               for shape in ((BKH * G, Sq, D), (BKH, Sk, D), (BKH, Sk, D)))
+    want = fa_ref.attention_ref(q, k, v, mask_kind=mask_kind, window=window,
+                                group=G)
+    monkeypatch.setattr(fa_ops, "attention_ref", _fail_if_called)
+    fa_ops.reset_launches()
+    got = fa_ops.flash_attention_fwd(
+        q.to(cuda_device), k.to(cuda_device), v.to(cuda_device),
+        mask_kind=mask_kind, window=window, group=G)
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention_fwd.launches == 1
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().numpy(),
+                               rtol=0 if dtype == torch.float32 else tol,
+                               atol=tol)
+
+
+@pytest.mark.gpu
+def test_cuda_flash_wrapper_checks_its_inputs(cuda_device):
+    q = torch.zeros((4, 8, 64), device=cuda_device)
+    k = torch.zeros((2, 8, 64), device=cuda_device)
+    with pytest.raises(TypeError, match="takes"):
+        fa_ops.flash_attention_fwd(q.double(), k.double(), k.double(),
+                                   mask_kind="causal", group=2)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa_ops.flash_attention_fwd(q[..., :62].contiguous(),
+                                   k[..., :62].contiguous(),
+                                   k[..., :62].contiguous(),
+                                   mask_kind="causal", group=2)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa_ops.flash_attention_fwd(q.transpose(1, 2).contiguous()
+                                   .transpose(1, 2), k, k,
+                                   mask_kind="causal", group=2)
+    with pytest.raises(ValueError, match="expected"):
+        fa_ops.flash_attention_fwd(q, k.cpu(), k, mask_kind="causal",
+                                   group=2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_lm_forward_matches_cpu_forward(cuda_device, monkeypatch,
+                                             dtype):
+    """paper_edge's 2-layer SMOKE model through the flash kernel on the
+    card against the plain version on the CPU, same parameters and
+    tokens: one kernel launch per layer.  bfloat16 logits (scale ~4) to
+    0.25 and top-1 on 85% of positions, as the CPU parity tests bound the
+    two frameworks."""
+    cfg = dataclasses.replace(configs.get_smoke_config("paper_edge"),
+                              dtype=dtype, attn_impl="auto")
+    cpu_params = init_params(cfg, 3, device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (4, 48),
+                           generator=torch.Generator().manual_seed(3))
+    want = logits_from_h(cpu_params, forward(cpu_params, {"tokens": tokens},
+                                             cfg), cfg)
+    monkeypatch.setattr(fa_ops, "attention_ref", _fail_if_called)
+    params = convert.model_params_from_numpy(_numpy_tree(cpu_params),
+                                             cuda_device)
+    fa_ops.reset_launches()
+    got = logits_from_h(params, forward(params, {"tokens": tokens}, cfg),
+                        cfg).cpu()
+    assert fa_ops.flash_attention_fwd.launches == cfg.num_layers
+    V = cfg.vocab_size
+    err = (got[..., :V] - want[..., :V]).abs()
+    if dtype == "float32":
+        assert err.max().item() <= 1e-4, err.max().item()
+    else:
+        top1 = (got[..., :V].argmax(-1) == want[..., :V].argmax(-1))
+        assert err.max().item() <= 0.25 and \
+            top1.float().mean().item() >= 0.85
+    assert torch.equal(got[..., V:], want[..., V:])
+
+
+def _numpy_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_numpy_tree(v) for v in tree)
+    return tree.numpy()

@@ -31,11 +31,36 @@ def test_port_imports_neither_jax_nor_the_reference():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     walked = set(out.stdout.split())
-    assert len(walked) >= 30                  # the whole package was walked
+    assert len(walked) >= 45                  # the whole package was walked
     assert {"repro_torch.kernels._build", "repro_torch.kernels.cckp_dp.ops",
             "repro_torch.core.amdp", "repro_torch.api.front",
             "repro_torch.api.solvers", "repro_torch.serving.fleet",
-            "repro_torch.convert"} <= walked
+            "repro_torch.convert",
+            # the dense LM and the serving runtime
+            "repro_torch.kernels.flash_attention.ops",
+            "repro_torch.kernels.flash_attention.ref",
+            "repro_torch.models.config", "repro_torch.models.layers",
+            "repro_torch.models.model", "repro_torch.configs.paper_edge",
+            "repro_torch.configs.gemma3_1b", "repro_torch.data.pipeline",
+            "repro_torch.serving.executor", "repro_torch.serving.runtime",
+            "repro_torch.launch.serve"} <= walked
+
+
+def test_chip_smoke_imports_neither_jax_nor_the_reference():
+    """`chip_smoke.py` (run on a card machine without jax) names no `jax`
+    or `repro` module in any import statement."""
+    import ast
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module)
+    roots = {n.split(".")[0] for n in names}
+    assert "repro_torch" in roots
+    assert not roots & {"jax", "jaxlib", "repro"}, sorted(roots)
 
 
 def test_build_helper_names_libraries_by_content(tmp_path, monkeypatch):
