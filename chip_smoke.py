@@ -25,7 +25,15 @@ Phases, each printing JSON lines; any failure exits non-zero:
               relative and absolute).  Kernel and plain times (CUDA
               events) beside each bound; for flash attention also the
               time of `scaled_dot_product_attention` on the same inputs
-              (the library column, never on the port's path).
+              (the library column, never on the port's path).  The SSD
+              scan kernel at mamba2-130m's shapes (8 x 2048 tokens, 24
+              heads, P 64, N 128, chunk 256, decays past exp's float32
+              overflow) in bfloat16 and float32, held with its plain
+              version to the float64 recurrence; the flash-decode kernel
+              through the model's entry at gemma3-1b's decode shapes (4
+              sequences, 4 q heads on 1, head_dim 256, rings of 512 and
+              1032 slots), in bfloat16 and float32, with SDPA timed
+              beside it.
   4. rollout  the tensor engine's path: `EngineParams.from_fleet` ->
               `init_state` -> `rollout` of a 16384-device fleet for 8
               periods, once per LP method, with every kernel's launch
@@ -52,12 +60,29 @@ Phases, each printing JSON lines; any failure exits non-zero:
               forward with the plain dense attention (`attn_impl="dense"`)
               on the card, in bfloat16 and in float32, against the flash
               forward (tolerances at `LM_BF16_*` and `LM_F32_ATOL`).
+     lm_forward (mamba2)  mamba2-130m at full width and depth (24 SSD
+              layers, d 768, d_inner 1536, vocabulary 50280) from a seed, 8
+              requests of 2048 `TokenPipeline` tokens, bfloat16: 24 SSD
+              kernel launches per forward, tokens/s, peak memory and a
+              profile; logits against the plain chunked path
+              (`impl="jnp"`) in bfloat16 and float32 (`SSM_F32_ATOL`,
+              `GEN_BF16_*`).
   8. lm_serve `repro_torch.launch.serve.main` on the paper_edge ladder: 6
               periods of 24 jobs, an ES outage in period 2, every counter
               set to 0 before and read after; per period the policy,
               accuracy, predicted and wall makespan, violation and the
               replanned flag; no dropped job, period 2 replanned, the flash
               kernel launched.
+     lm_generate  for gemma3-1b and mamba2-130m at full width and depth:
+              `init_cache`, `prefill` of 4 prompts of 1000 `TokenPipeline`
+              tokens (max_seq 1032; gemma3's 512-slot local rings have
+              wrapped, 1000 is no multiple of mamba2's chunk), then 32
+              teacher-forced `decode_step` calls, in bfloat16 and float32
+              (float32 KV cache): prefill and decode tokens/s, peak
+              memory, launch counts (gemma3-1b: 26 flash per prefill, 26
+              flash-decode per step; mamba2-130m: 24 SSD per prefill, none
+              per step) and every logit against `forward` of all 1032
+              tokens (`GEN_*`); a profile of one gemma3-1b decode step.
   9. parity   the card-marked tests (`pytest -m gpu tests/test_torch_cuda.py`,
               in a child process): each kernel against its plain version,
               a 32-device rollout, a 64-device `FleetEngine` run and a
@@ -116,6 +141,19 @@ FLASH_SRC = ("src/repro_torch/kernels/flash_attention/csrc/"
 FLASH_TPU = "src/repro/kernels/flash_attention/flash_attention.py:86"
 # the gemma3-1b forward: 2 requests of 2048 tokens
 LM_BATCH, LM_SEQ, LM_SEED = 2, 2048, 0
+# the mamba2-130m forward: 8 requests of 2048 tokens; its SSD scan shape
+# (B·H = 8 · 24 rows of S = 2048, P = 64, N = 128, chunk Q = 256)
+SSM_BATCH, SSM_SEQ = 8, 2048
+SSD_SRC = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
+SSD_TPU = "src/repro/kernels/ssd_scan/ssd_scan.py:73"
+# generation: 4 prompts of 1000 tokens, then 32 teacher-forced decode
+# steps, caches of max_seq = 1032 slots (gemma3-1b's local rings: 512)
+GEN_BATCH, GEN_PROMPT, GEN_STEPS = 4, 1000, 32
+GEN_MAX_SEQ = GEN_PROMPT + GEN_STEPS
+DECODE_SRC = ("src/repro_torch/kernels/decode_attention/csrc/"
+              "decode_attention.cu")
+DECODE_TPU = ("src/repro/kernels/decode_attention/decode_attention.py:60")
+DECODE_LINE = ("gemma3_local", "bfloat16")  # the kernels line's shape
 
 
 def emit(phase: str, **fields) -> None:
@@ -528,21 +566,30 @@ def phase_rollout(torch, ops, dev, params):
 def kernel_launches():
     """The launch counters of every kernel, by kernel name."""
     from repro_torch.kernels.cckp_dp import ops as cckp_ops
+    from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.simplex_pivot import ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     return {"simplex_pivot": ops.pivot_update.launches,
             "reduced_pivot": ops.reduced_pivot.launches,
             "cckp_model_dp": cckp_ops.model_dp.launches,
-            "flash_attention_fwd": fa_ops.flash_attention_fwd.launches}
+            "flash_attention_fwd": fa_ops.flash_attention_fwd.launches,
+            "ssd_scan_fwd": ssd_ops.ssd_scan_fwd.launches,
+            "decode_attention_fwd":
+                da_ops.decode_attention_fwd.launches}
 
 
 def reset_launches():
     from repro_torch.kernels.cckp_dp import ops as cckp_ops
+    from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.simplex_pivot import ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     ops.reset_launches()
     cckp_ops.reset_launches()
     fa_ops.reset_launches()
+    ssd_ops.reset_launches()
+    da_ops.reset_launches()
 
 
 def front_problem():
@@ -797,6 +844,417 @@ def phase_lm_serve(torch, dev):
     return launches["flash_attention_fwd"]
 
 
+# --------------------------------------------------------------------------
+# the SSD scan and flash-decode kernels
+# --------------------------------------------------------------------------
+def ssd_exact(torch, x, dt, A, Bm, Cm, heads):
+    """The SSD recurrence in float64 on the card, kernel layout: (y, final
+    state)."""
+    BH, S, P = x.shape
+    Bb, _, N = Bm.shape
+    xd = x.double().view(Bb, heads, S, P)
+    dtd = dt.double().view(Bb, heads, S)
+    Ad = A.double().view(Bb, heads)
+    Bd, Cd = Bm.double(), Cm.double()
+    h = torch.zeros((Bb, heads, P, N), dtype=torch.float64, device=x.device)
+    ys = torch.empty((Bb, heads, S, P), dtype=torch.float64, device=x.device)
+    for t in range(S):
+        d = dtd[:, :, t]
+        h = h * torch.exp(d * Ad)[..., None, None] \
+            + (d[..., None, None] * xd[:, :, t, :, None]) \
+            * Bd[:, None, t, None, :]
+        ys[:, :, t] = torch.einsum("bhpn,bn->bhp", h, Cd[:, t])
+    return ys.view(BH, S, P), h.view(BH, P, N)
+
+
+def ssd_work(BH, Bb, S, P, N, itemsize):
+    """Bytes and operations one `ssd_scan_fwd` call needs: x, B and C in
+    their type, dt and A in float32 read once, y and the state written
+    once in float32; 4 P N operations per (token, head) — the
+    recurrence's state update and readout, a multiply and an add each."""
+    nbytes = (itemsize * (BH * S * P + 2 * Bb * S * N) + 4 * (BH * S + BH)
+              + 4 * (BH * S * P + BH * P * N))
+    return nbytes, 4 * P * N * S * BH
+
+
+def phase_ssd_kernel(torch, dev):
+    """The SSD scan kernel against its plain version at mamba2-130m's
+    shapes (8 x 2048 tokens, 24 heads, P 64, N 128, chunk 256), with dt and
+    A at the model's initial scale (dt ~ softplus(0.3 N(0, 1)) ~ 0.7, A ~
+    -exp(0.2 N(0, 1)) ~ -1), so a chunk's cumulative decay reaches ~-180:
+    exp of the unselected upper triangle would overflow.  Both are held
+    to the float64 recurrence: the kernel within 1e-5 + twice the plain
+    version's own error, and within 1e-5 + three times it of the plain
+    version (the kernel sums the decays in another order)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    H, P, N, Q = 24, 64, 128, 256
+    Bb, S = SSM_BATCH, SSM_SEQ
+    BH = Bb * H
+    g = torch.Generator(device=dev).manual_seed(17)
+    x32 = torch.randn((BH, S, P), generator=g, device=dev)
+    dt = F.softplus(0.3 * torch.randn((BH, S), generator=g, device=dev))
+    A = (-torch.exp(0.2 * torch.randn((H,), generator=g, device=dev)))[
+        None].expand(Bb, H).reshape(BH, 1).contiguous()
+    B32, C32 = (torch.randn((Bb, S, N), generator=g, device=dev)
+                for _ in range(2))
+    cum = torch.cumsum((dt * A).view(BH, S // Q, Q), dim=-1)
+    min_cum = cum.min().item()
+    check(min_cum < -88.0, f"ssd inputs never pass exp's overflow "
+                           f"({min_cum})")
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        x, Bm, Cm = (t.to(dtype) for t in (x32, B32, C32))
+        got = ssd_ops.ssd_scan_fwd(x, dt, A, Bm, Cm, heads=H, chunk=Q)
+        want = ssd_ref.ssd_chunked_ref(x, dt, A, Bm, Cm, Q)
+        exact = ssd_exact(torch, x, dt, A, Bm, Cm, H)
+        torch.cuda.synchronize()
+        errs = []
+        for name, gv, wv, ev in zip(("y", "state"), got, want, exact):
+            check(bool(torch.isfinite(gv).all()),
+                  f"ssd_scan_fwd {dname}: {name} not finite")
+            own = (wv.double() - ev).abs().max().item()
+            err = (gv - wv).abs().max().item()
+            err_exact = (gv.double() - ev).abs().max().item()
+            check(err_exact <= 1e-5 + 2 * own and err <= 1e-5 + 3 * own,
+                  f"ssd_scan_fwd {dname} {name}: {err} from the plain "
+                  f"version, {err_exact} from float64 (plain's own {own})")
+            errs.append(dict(out=name, max_abs_err=err,
+                             err_vs_float64=err_exact,
+                             plain_err_vs_float64=own,
+                             scale=ev.abs().max().item()))
+        del got, want, exact
+        ms = cuda_ms(lambda: ssd_ops.ssd_scan_fwd(x, dt, A, Bm, Cm, heads=H,
+                                                  chunk=Q), [()] * 10, torch)
+        plain_ms = cuda_ms(lambda: ssd_ref.ssd_chunked_ref(x, dt, A, Bm, Cm,
+                                                           Q),
+                           [()] * 3, torch)
+        nbytes, flops = ssd_work(BH, Bb, S, P, N, x.element_size())
+        bound_ms, bound_by = bound_of(nbytes, flops, FP32_FLOPS)
+        row = dict(max_abs_err=errs[0]["max_abs_err"], ms=ms,
+                   plain_ms=plain_ms, library_ms=None, bytes=nbytes,
+                   flops=flops, bound_ms=bound_ms, bound_by=bound_by)
+        emit("kernels", kernel="ssd_scan_fwd", dtype=dname,
+             dims=dict(BH=BH, B=Bb, S=S, P=P, N=N, Q=Q),
+             min_chunk_cum=min_cum, errors=errs, **row)
+        rows[dname] = row
+        del x, Bm, Cm
+    return rows
+
+
+def decode_work(rows, G, D, n_valid, itemsize, W):
+    """Bytes and operations one flash-decode call needs: q read and o
+    written once, the K and V rows of the valid slots read once, the
+    validity mask (int32) read once; 4 D operations (q.k and p.v) per (q
+    head, valid slot)."""
+    nbytes = itemsize * (2 * rows * G * D + 2 * n_valid * D) + 4 * rows * W
+    return nbytes, 4 * D * G * n_valid
+
+
+def phase_decode_kernel(torch, dev):
+    """The flash-decode kernel through the model's entry
+    (`decode_attention`, the caches read in place) against its plain
+    version at gemma3-1b's decode shapes: 4 sequences, 4 q heads on 1 KV
+    head, head_dim 256, decoding position 1016 of the generation run, a
+    local ring of 512 slots (window 512, all slots live) and a global one
+    of max_seq = 1032 slots (1017 live), in bfloat16 and float32 (float32
+    to 1e-5, bfloat16 to 2^-7 relative and absolute).  The library column
+    is `scaled_dot_product_attention` of (B, H, 1, D) against the KV
+    expanded to the H heads with the boolean validity mask."""
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.decode_attention import ref as da_ref
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    B, KH, G, D = GEN_BATCH, 1, 4, 256
+    H = KH * G
+    index = GEN_PROMPT + GEN_STEPS // 2
+    g = torch.Generator(device=dev).manual_seed(23)
+    rows = {}
+    for name, W, window in (("gemma3_local", 512, 512),
+                            ("gemma3_global", GEN_MAX_SEQ, 0)):
+        ok = da_ref.ring_validity(W, index, window, device=dev)
+        valid = ok[None].expand(B * KH, W).contiguous()
+        n_valid = int(valid.sum())
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[-1]
+            q = torch.randn((B, 1, H, D), generator=g, device=dev).to(dtype)
+            ck, cv = (torch.randn((B, W, KH, D), generator=g,
+                                  device=dev).to(dtype) for _ in range(2))
+            got = da_ops.decode_attention(q, ck, cv, index, window=window)
+            qg = da_ops.grouped_rows(q, KH)
+            kf, vf = ck.view(B * KH, W, D), cv.view(B * KH, W, D)
+            want = da_ref.decode_attention_ref(qg, kf, vf, valid)
+            torch.cuda.synchronize()
+            err = (got.reshape(want.shape).float()
+                   - want.float()).abs().max().item()
+            rtol, atol = ((0.0, 1e-5) if dtype == torch.float32
+                          else (2.0 ** -7, 2.0 ** -7))
+            check(torch.allclose(got.reshape(want.shape).float(),
+                                 want.float(), rtol=rtol, atol=atol),
+                  f"decode_attention_fwd {name} {dname} disagrees with its "
+                  f"plain version (max {err})")
+            ms = cuda_ms(lambda: da_ops.decode_attention(
+                q, ck, cv, index, window=window), [()] * 50, torch)
+            plain_ms = cuda_ms(lambda: da_ref.decode_attention_ref(
+                qg, kf, vf, valid), [()] * 10, torch)
+            qq = q.transpose(1, 2)                          # (B, H, 1, D)
+            kk, vv = (c.transpose(1, 2).expand(B, H, W, D)
+                      for c in (ck, cv))
+            mask = (ok != 0).view(1, 1, 1, W).expand(B, H, 1, W)
+
+            def library():
+                return sdpa(qq, kk, vv, attn_mask=mask)
+
+            lib_err = (library().transpose(1, 2).float()
+                       - got.float()).abs().max().item()
+            library_ms = cuda_ms(library, [()] * 50, torch)
+            nbytes, flops = decode_work(B * KH, G, D, n_valid,
+                                        q.element_size(), W)
+            bound_ms, bound_by = bound_of(
+                nbytes, flops,
+                BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
+            row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       library_ms=library_ms, library_max_abs_err=lib_err,
+                       bytes=nbytes, flops=flops, bound_ms=bound_ms,
+                       bound_by=bound_by)
+            emit("kernels", kernel="decode_attention_fwd", shape=name,
+                 dtype=dname, dims=dict(B=B, W=W, KH=KH, G=G, D=D,
+                                        index=index, window=window,
+                                        live=n_valid // (B * KH),
+                                        splits=list(da_ops.splits(
+                                            B * KH, W,
+                                            da_ops.sm_count(dev)))),
+                 **row)
+            rows[(name, dname)] = row
+            del q, ck, cv, kk, vv
+    return rows
+
+
+# --------------------------------------------------------------------------
+# mamba2-130m's forward and the generation path
+# --------------------------------------------------------------------------
+# mamba2-130m's forward through the SSD kernel against the same forward on
+# the plain chunked path (impl="jnp") on the card.  float32: both run the
+# chunked form in float32 and differ by the order the kernel sums each
+# chunk's decays (|cum| ~180 at Q = 256) over 24 layers.  bfloat16: those
+# differences flip roundings of the bfloat16 activations.  Bounds on
+# logits of scale ~1-5:
+SSM_F32_ATOL = 2e-3
+# generation: prefill + decode logits against `forward` of the whole
+# sequence at the same positions.  float32 (with a float32 KV cache):
+# other kernels (flash-decode, the SSD recurrence in decode_step) on the
+# same arithmetic; bfloat16: other rounding points of the activations
+GEN_F32_ATOL = 2e-3
+GEN_BF16_ATOL, GEN_BF16_MEAN, GEN_BF16_TOP1 = 0.5, 0.05, 0.9
+
+
+def compare_logits(a, b, V):
+    """(max |a - b|, mean |a - b|, top-1 agreement) over the vocabulary."""
+    d = (a[..., :V] - b[..., :V]).abs()
+    top1 = (a[..., :V].argmax(-1) == b[..., :V].argmax(-1))
+    return d.max().item(), d.mean().item(), top1.float().mean().item()
+
+
+def check_bf16(what, cmp):
+    check(cmp[0] <= GEN_BF16_ATOL and cmp[1] <= GEN_BF16_MEAN
+          and cmp[2] >= GEN_BF16_TOP1,
+          f"{what}: bfloat16 logits (max, mean, top-1) {cmp}")
+
+
+def lm_tokens(torch, dev, cfg, batch, seq):
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    return torch.as_tensor(TokenPipeline(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch,
+        seed=LM_SEED)).batch_at(0)["tokens"], device=dev)
+
+
+def phase_lm_forward_ssm(torch, dev):
+    """mamba2-130m at full width and depth (24 SSD layers, d 768, d_inner
+    1536, vocabulary 50280), random weights from a seed, 8 requests of
+    2048 `TokenPipeline` tokens, bfloat16: 24 SSD kernel launches a
+    forward, tokens/s and peak memory, then the logits against the plain
+    chunked path (impl="jnp") in bfloat16 and float32."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward, init_params, logits_from_h
+    cfg = get_config("mamba2_130m")
+    params = init_params(cfg, LM_SEED, device=dev)
+    tokens = lm_tokens(torch, dev, cfg, SSM_BATCH, SSM_SEQ)
+
+    @torch.inference_mode()
+    def run(c, impl="pallas"):
+        h = forward(params, {"tokens": tokens}, c, impl=impl)
+        return logits_from_h(params, h, c)
+
+    run(cfg)                                     # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    logits = run(cfg)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kernel_launches()
+    peak = torch.cuda.max_memory_allocated()
+    check(launches["ssd_scan_fwd"] == cfg.num_layers,
+          f"lm_forward mamba2: {launches['ssd_scan_fwd']} SSD launches for "
+          f"{cfg.num_layers} layers")
+    V = cfg.vocab_size
+    check(tuple(logits.shape) == (SSM_BATCH, SSM_SEQ, cfg.padded_vocab)
+          and bool(torch.isfinite(logits[..., :V]).all()),
+          f"lm_forward mamba2: bad logits {tuple(logits.shape)}")
+    steady = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run(cfg)
+        torch.cuda.synchronize()
+        steady.append(time.perf_counter() - t0)
+    device_s, n_launch, top = profiled(torch, lambda: run(cfg))
+    emit("profile", path="lm_forward mamba2", device_seconds=device_s,
+         wall_seconds=min(steady), busy_share=device_s / min(steady),
+         n_kernel_launches=n_launch, top=top)
+    bf16 = compare_logits(logits, run(cfg, "jnp"), V)
+    scale = logits[..., :V].abs().max().item()
+    del logits
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    f32 = compare_logits(run(cfg32), run(cfg32, "jnp"), V)
+    emit("lm_forward", model=cfg.name, params=cfg.param_count(),
+         batch=SSM_BATCH, seq=SSM_SEQ, seconds=seconds,
+         steady_seconds=steady,
+         tokens_per_s=SSM_BATCH * SSM_SEQ / min(steady),
+         peak_mem_bytes=peak, launches=launches,
+         launches_per_forward=launches["ssd_scan_fwd"], logit_scale=scale,
+         bf16_vs_jnp=dict(max_abs=bf16[0], mean_abs=bf16[1],
+                          top1_agree=bf16[2]),
+         f32_vs_jnp=dict(max_abs=f32[0], mean_abs=f32[1],
+                         top1_agree=f32[2]))
+    check(f32[0] <= SSM_F32_ATOL,
+          f"lm_forward mamba2: float32 kernel vs jnp logits differ by "
+          f"{f32[0]}")
+    check_bf16("lm_forward mamba2 vs jnp", bf16)
+    del params
+    torch.cuda.empty_cache()
+
+
+def cache_leaves(cache):
+    """{path: (shape, dtype)} of a cache's tensors."""
+    out = {}
+    for part in ("blocks", "tail"):
+        for i, d in enumerate(cache[part]):
+            for name, t in d.items():
+                out[f"{part}/{i}/{name}"] = (tuple(t.shape), t.dtype)
+    return out
+
+
+def phase_lm_generate(torch, dev, arch):
+    """``arch`` at full width and depth, random weights from a seed:
+    `init_cache`, then `prefill` of 4 prompts of 1000 `TokenPipeline`
+    tokens (max_seq 1032) and 32 `decode_step` calls fed the next 32
+    tokens of the same stream, in bfloat16 and in float32 (float32 KV
+    cache).  Prints prefill and decode tokens/s and peak memory; checks
+    the launch counts (gemma3-1b: one flash launch per layer in prefill,
+    one flash-decode launch per layer and step; mamba2-130m: one SSD
+    launch per layer in prefill, none in decode) and every logit against
+    `forward` of all 1032 tokens at the same position.  Returns the
+    bfloat16 run's launches (prefill and decode together)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import (decode_step, forward, init_cache,
+                                    init_params, logits_from_h, prefill)
+    cfg = get_config(arch)
+    params = init_params(cfg, LM_SEED, device=dev)
+    tokens = lm_tokens(torch, dev, cfg, GEN_BATCH, GEN_MAX_SEQ)
+    prompt = {"tokens": tokens[:, :GEN_PROMPT]}
+    n_layers = cfg.num_layers
+    ssm = cfg.pattern[0][0] == "ssd"
+    want_pre = {"ssd_scan_fwd" if ssm else "flash_attention_fwd": n_layers}
+    want_dec = {} if ssm else {"decode_attention_fwd": n_layers * GEN_STEPS}
+    V = cfg.vocab_size
+    out = {}
+    for dname in ("bfloat16", "float32"):
+        c = cfg if dname == "bfloat16" else dataclasses.replace(
+            cfg, dtype="float32", kv_cache_dtype="float32")
+        with torch.inference_mode():
+            warm, _ = prefill(params, prompt, c, GEN_MAX_SEQ)
+            decode_step(params, tokens[:, GEN_PROMPT:GEN_PROMPT + 1], warm,
+                        c)
+            del warm
+            empty = init_cache(c, GEN_BATCH, GEN_MAX_SEQ, device=dev)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            t0 = time.perf_counter()
+            cache, lg = prefill(params, prompt, c, GEN_MAX_SEQ)
+            torch.cuda.synchronize()
+            t_prefill = time.perf_counter() - t0
+            pre = {k: v for k, v in kernel_launches().items() if v}
+            reset_launches()
+            got, walls = [lg], []
+            t_all = time.perf_counter()
+            for t in range(GEN_STEPS):
+                t0 = time.perf_counter()
+                lg, cache = decode_step(
+                    params, tokens[:, GEN_PROMPT + t:GEN_PROMPT + t + 1],
+                    cache, c)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                got.append(lg)
+            t_decode = time.perf_counter() - t_all
+            dec = {k: v for k, v in kernel_launches().items() if v}
+            peak = torch.cuda.max_memory_allocated()
+            check(cache_leaves(empty) == cache_leaves(cache),
+                  f"lm_generate {arch}: init_cache and prefill disagree on "
+                  f"the cache layout")
+            check(cache["index"] == GEN_MAX_SEQ,
+                  f"lm_generate {arch}: index {cache['index']}")
+            check(pre == want_pre and dec == want_dec,
+                  f"lm_generate {arch} {dname}: launches prefill {pre}, "
+                  f"decode {dec}; expected {want_pre}, {want_dec}")
+            h = forward(params, {"tokens": tokens}, c)
+            ref = logits_from_h(params, h[:, GEN_PROMPT - 1:], c)
+            del h
+            got = torch.cat(got, dim=1)
+            check(bool(torch.isfinite(got[..., :V]).all()),
+                  f"lm_generate {arch} {dname}: logits not finite")
+            cmp = compare_logits(got, ref, V)
+            if arch == "gemma3_1b" and dname == "bfloat16":
+                device_s, n_launch, top = profiled(torch, lambda: (
+                    decode_step(params, tokens[:, -1:], cache, c)))
+                emit("profile", path="lm_generate gemma3-1b decode_step",
+                     device_seconds=device_s, wall_seconds=min(walls),
+                     busy_share=device_s / min(walls),
+                     n_kernel_launches=n_launch, top=top)
+            del cache, empty, got, ref
+        emit("lm_generate", model=cfg.name, dtype=dname, batch=GEN_BATCH,
+             prompt=GEN_PROMPT, steps=GEN_STEPS, max_seq=GEN_MAX_SEQ,
+             prefill_seconds=t_prefill,
+             prefill_tokens_per_s=GEN_BATCH * GEN_PROMPT / t_prefill,
+             decode_seconds=t_decode,
+             decode_tokens_per_s=GEN_BATCH * GEN_STEPS / t_decode,
+             step_ms=dict(first=walls[0] * 1e3,
+                          median=sorted(walls)[GEN_STEPS // 2] * 1e3,
+                          min=min(walls) * 1e3),
+             peak_mem_bytes=peak, launches_prefill=pre,
+             launches_decode=dec,
+             vs_forward=dict(max_abs=cmp[0], mean_abs=cmp[1],
+                             top1_agree=cmp[2]))
+        if dname == "float32":
+            check(cmp[0] <= GEN_F32_ATOL,
+                  f"lm_generate {arch}: float32 logits differ from the "
+                  f"forward's by {cmp[0]}")
+        else:
+            check_bf16(f"lm_generate {arch} vs forward", cmp)
+            out = {k: pre.get(k, 0) + dec.get(k, 0)
+                   for k in set(pre) | set(dec)}
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_parity():
     """The card-marked tests, in a child process: the kernels against their
     plain versions, and a small rollout on the card against the CPU."""
@@ -921,8 +1379,10 @@ def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.kernels import _build
     from repro_torch.kernels.cckp_dp import ops as cckp_ops
+    from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.simplex_pivot import ops, ref
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
 
     dev = torch.device("cuda", torch.cuda.current_device())
     smi = run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -932,7 +1392,8 @@ def main() -> int:
          nvcc=run([_build.nvcc(), "--version"]).splitlines()[-1])
 
     t0 = time.perf_counter()
-    libs = [ops.LIBRARY, cckp_ops.LIBRARY, fa_ops.LIBRARY]
+    libs = [ops.LIBRARY, cckp_ops.LIBRARY, fa_ops.LIBRARY, ssd_ops.LIBRARY,
+            da_ops.LIBRARY]
     built = _build.build_many(libs)
     for lib in libs:
         lib.load()
@@ -945,14 +1406,23 @@ def main() -> int:
 
     rows = phase_kernels(torch, ops, ref, dev)
     flash_rows = phase_flash_kernel(torch, dev)
+    ssd_rows = phase_ssd_kernel(torch, dev)
+    decode_rows = phase_decode_kernel(torch, dev)
     params = build_params(dev)
     launches = phase_rollout(torch, ops, dev, params)
     phase_front(torch, dev)
     serve_launches, serve_seconds = phase_serve(torch, dev)
     launches["cckp_model_dp"] = serve_launches["cckp_model_dp"]
     phase_lm_forward(torch, dev)
+    phase_lm_forward_ssm(torch, dev)
     launches["flash_attention_fwd"] = phase_lm_serve(torch, dev)
     rows["flash_attention_fwd"] = flash_rows[FLASH_LINE]
+    launches["decode_attention_fwd"] = phase_lm_generate(
+        torch, dev, "gemma3_1b")["decode_attention_fwd"]
+    launches["ssd_scan_fwd"] = phase_lm_generate(
+        torch, dev, "mamba2_130m")["ssd_scan_fwd"]
+    rows["ssd_scan_fwd"] = ssd_rows["bfloat16"]
+    rows["decode_attention_fwd"] = decode_rows[DECODE_LINE]
     phase_parity()
     seconds = phase_timing(torch, dev, params)
     phase_profile(torch, dev, params, seconds, serve_seconds)
@@ -962,11 +1432,13 @@ def main() -> int:
     source = {"simplex_pivot": simplex_src, "reduced_pivot": simplex_src,
               "cckp_model_dp":
                   "src/repro_torch/kernels/cckp_dp/csrc/cckp_dp.cu",
-              "flash_attention_fwd": FLASH_SRC}
+              "flash_attention_fwd": FLASH_SRC, "ssd_scan_fwd": SSD_SRC,
+              "decode_attention_fwd": DECODE_SRC}
     replaces = {"simplex_pivot": f"{simplex_tpu}:57",
                 "reduced_pivot": f"{simplex_tpu}:146",
                 "cckp_model_dp": "src/repro/kernels/cckp_dp/cckp_dp.py:57",
-                "flash_attention_fwd": FLASH_TPU}
+                "flash_attention_fwd": FLASH_TPU, "ssd_scan_fwd": SSD_TPU,
+                "decode_attention_fwd": DECODE_TPU}
     kernels = [dict(name=name, route="cuda", source=source[name],
                     replaces=replaces[name], launches=launches[name],
                     max_abs_err=row["max_abs_err"], ms=row["ms"],

@@ -3,7 +3,8 @@
 The port of `repro.configs`.  Each ported module defines CONFIG (full
 size) and SMOKE (reduced, same family), field for field the reference's.
 Ported so far: the dense LMs the serving path runs, `paper_edge` (the
-paper's MobileNet-ladder analogue) and `gemma3_1b`.  Asking for another
+paper's MobileNet-ladder analogue) and `gemma3_1b`, and the SSM
+`mamba2_130m`.  Asking for another
 architecture of the reference raises `NotImplementedError` naming the
 ROADMAP item that ports it.
 """
@@ -26,11 +27,10 @@ ARCHS: List[str] = [
     "paper_edge",          # the paper's own MobileNet-ladder analogue
 ]
 
-PORTED = ("gemma3_1b", "paper_edge")
+PORTED = ("gemma3_1b", "paper_edge", "mamba2_130m")
 
 _ITEM = "ROADMAP §1 item 12"
 _NOT_PORTED = {
-    "mamba2_130m": f"{_ITEM}: the mamba2-130m forward with ssd_scan",
     "recurrentgemma_9b": f"{_ITEM}: recurrentgemma with rglru_scan",
     "granite_moe_3b_a800m": f"{_ITEM}: moe",
     "granite_moe_1b_a400m": f"{_ITEM}: moe",

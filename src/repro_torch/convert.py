@@ -15,6 +15,8 @@ packages in a parity test start from the same arrays.
   arrays, for comparisons.
 * `model_params_from_numpy`: the reference LM's `init_params` pytree,
   given as NumPy arrays, as the port's parameters on ``device``.
+* `cache_from_numpy`: the reference LM's cache (`init_cache` / `prefill`),
+  given as NumPy arrays, as the port's cache on ``device``.
 
 The functions read attributes and arrays only; this module imports
 neither jax nor the reference.
@@ -125,6 +127,33 @@ def model_params_from_numpy(tree: Any, device: DeviceLike = None) -> Any:
             return {k: conv(v) for k, v in x.items()}
         if isinstance(x, (tuple, list)):
             return tuple(conv(v) for v in x)
-        return torch.as_tensor(np.array(x), device=dev)
+        a = np.array(x)
+        if a.dtype.name == "bfloat16":       # ml_dtypes' bfloat16: by bits
+            return torch.as_tensor(a.view(np.uint16)).view(
+                torch.bfloat16).to(dev)
+        return torch.as_tensor(a, device=dev)
 
     return conv(tree)
+
+
+def cache_from_numpy(cache: Dict[str, Any], cfg,
+                     device: DeviceLike = None) -> Dict[str, Any]:
+    """The port's generation cache from the reference's (`prefill` or
+    `init_cache` output with NumPy leaves): ``blocks`` and ``tail`` leaf
+    for leaf as tensors of their dtype on ``device``, ``index`` as a
+    Python int, so that the port's `decode_step` continues where the
+    reference's `prefill` stopped.  ``cfg`` (the model's `ModelConfig`)
+    checks the layer structure."""
+    if cfg.is_encdec or "enc_out" in cache:
+        raise NotImplementedError("encoder-decoder caches are not ported "
+                                  "yet (ROADMAP §1 item 12: enc-dec)")
+    n_cycles, tail = cfg.cycles_and_tail
+    blocks = model_params_from_numpy(tuple(cache["blocks"]), device)
+    tails = model_params_from_numpy(tuple(cache["tail"]), device)
+    if len(blocks) != (len(cfg.pattern) if n_cycles else 0) \
+            or len(tails) != tail:
+        raise ValueError(f"cache has {len(blocks)} block and {len(tails)} "
+                         f"tail entries; {cfg.name} has {n_cycles} cycles "
+                         f"of {len(cfg.pattern)} and {tail} tail layers")
+    return {"blocks": blocks, "tail": tails,
+            "index": int(np.asarray(cache["index"]))}

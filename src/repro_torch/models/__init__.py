@@ -1,13 +1,18 @@
-"""The dense LM of the port (`repro.models`' forward path).
+"""The LM of the port (`repro.models`): forward and generation.
 
-Ported: `ModelConfig` and its constructors (`config`), the dense layers
-(`layers`: norms, RoPE, GQA self-attention on the flash kernel, SwiGLU and
-GELU FFNs) and `init_params` / `forward` / `logits_from_h` (`model`).
-Not ported yet (ROADMAP §1 item 12): MoE, the SSD and RG-LRU mixers,
-cross-attention, prefill and decoding, the loss.
+Ported: `ModelConfig` and its constructors (`config`); the layers
+(`layers`: norms, RoPE, GQA self-attention on the flash kernel, the
+ring-buffer KV cache with flash-decode, SwiGLU and GELU FFNs, the Mamba2
+SSD mixer on the SSD scan kernel); `init_params` / `forward` /
+`logits_from_h` and the generation path `init_cache` / `prefill` /
+`decode_step` (`model`).
+Not ported yet (ROADMAP §1 item 12): the RG-LRU mixer, MoE,
+cross-attention and the encoder, the loss.
 """
 from .config import ModelConfig, dense_lm, moe_lm, pad_vocab
-from .model import forward, init_params, logits_from_h
+from .model import (decode_step, forward, init_cache, init_params,
+                    logits_from_h, prefill)
 
 __all__ = ["ModelConfig", "dense_lm", "moe_lm", "pad_vocab", "init_params",
-           "forward", "logits_from_h"]
+           "forward", "logits_from_h", "init_cache", "prefill",
+           "decode_step"]

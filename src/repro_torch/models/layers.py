@@ -1,28 +1,40 @@
-"""Dense layers of the LM: the port of the dense subset of
-`repro.models.layers` (forward only).
+"""Layers of the LM: the port of `repro.models.layers` up to the SSD
+mixer and the KV cache (forward, prefill and one-token decode).
 
 Numerics follow the reference: parameters live in ``param_dtype``
 (float32) and are cast to the compute ``dtype`` (bfloat16 by default) at
 each use; norms accumulate in float32, attention scores and softmax run in
-float32.
+float32, the SSD scan and its state in float32.
 
-Attention (`attention`) has two implementations, chosen by
-``cfg.attn_impl``:
+Attention (`attention`, and `attn_decode` on the KV cache) has two
+implementations, chosen by ``cfg.attn_impl``:
 
-  * ``"auto"``, ``"chunked"``, ``"pallas"`` — the flash attention kernel
-    (`kernels.flash_attention`): the hand-written CUDA kernel on a CUDA
-    tensor, its plain PyTorch version on a CPU tensor.  KV is passed
-    un-repeated with group = H // KH; the reference repeats KV instead and
-    both give q-head h the kv-head h // G.
-  * ``"dense"`` — `_dense_attention`, the reference's dense path that
-    materialises the (Sq, Sk) scores: plain PyTorch, used to compare.
+  * ``"auto"``, ``"chunked"``, ``"pallas"`` — the hand-written kernels:
+    flash attention (`kernels.flash_attention`) over a sequence and
+    flash-decode (`kernels.decode_attention`) over a ring cache, each its
+    plain PyTorch version on a CPU tensor.  KV is passed un-repeated with
+    group = H // KH; the reference repeats KV in `attention` and groups
+    the einsum in `attn_decode`, and all give q-head h the kv-head h // G.
+  * ``"dense"`` — the reference's dense paths (`_dense_attention`, and the
+    grouped einsum of `attn_decode`): plain PyTorch, used to compare.
+
+The SSD mixer (`ssd_apply`) takes ``impl``: ``"pallas"`` runs the SSD
+scan kernel (`kernels.ssd_scan`; its plain version on a CPU tensor),
+``"jnp"`` the chunked plain path (`ssd_scan_chunked`).  One-token decode
+(`ssd_decode`) is a plain state update in both packages.
+
+Block functions return ``(x, cache)`` as the reference's do; the cache is
+None unless ``want_cache`` (prefill).  The one-token decode functions
+write the new K/V row into the ring cache in place (PyTorch's idiom; the
+reference rewrites the whole ring with a one-hot select only for the
+TPU's SPMD partitioner) and return the cache dict with the new SSD state.
 
 The reference's sharding constraints (`shard_activation`) and backward
 dtype barrier (`grad_dtype_barrier`) are no-ops in a forward pass on one
 card and are not ported.  Parameter definitions map names to shapes (the
-reference's logical sharding axes are dropped).  MoE FFNs, the SSD and
-RG-LRU mixers, cross-attention and cache construction raise
-`NotImplementedError` naming the ROADMAP item that ports them.
+reference's logical sharding axes are dropped).  MoE FFNs, the RG-LRU
+mixer and cross-attention raise `NotImplementedError` naming the ROADMAP
+item that ports them.
 """
 from __future__ import annotations
 
@@ -31,7 +43,11 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..kernels.decode_attention.ops import decode_attention
+from ..kernels.decode_attention.ref import ring_validity
 from ..kernels.flash_attention.ops import flash_attention
+from ..kernels.ssd_scan.ops import ssd_scan
+from ..kernels.ssd_scan.ref import ssd_chunked_ref
 from .config import ModelConfig
 
 NEG_INF = -1e30
@@ -40,11 +56,10 @@ FLASH_IMPLS = ("auto", "chunked", "pallas")
 _ITEM = "ROADMAP §1 item 12"
 NOT_PORTED = {
     "moe": f"{_ITEM}: moe",
-    "ssd": f"{_ITEM}: the mamba2-130m forward with ssd_scan",
     "rglru": f"{_ITEM}: recurrentgemma with rglru_scan",
     "cross": f"{_ITEM}: enc-dec",
-    "cache": f"{_ITEM}: prefill and decode_step with decode_attention",
 }
+SSD_IMPLS = ("pallas", "jnp")
 
 
 def not_ported(what: str) -> NotImplementedError:
@@ -172,10 +187,10 @@ def _mixer_spec(mixer: str, cfg: ModelConfig):
 
 def attn_apply(p, x, mixer: str, cfg: ModelConfig, positions,
                enc_out: Optional[torch.Tensor] = None,
-               want_cache: bool = False) -> torch.Tensor:
-    """Full-sequence self-attention block (pre-norm, residual)."""
-    if want_cache:
-        raise not_ported("cache")
+               want_cache: bool = False, max_seq: int = 0):
+    """Full-sequence self-attention block (pre-norm, residual).  Returns
+    ``(x, cache)``; with ``want_cache`` the cache is the ring of the last
+    ``attn_cache_len`` roped K/V rows (`attn_prefill_cache`)."""
     if enc_out is not None:
         raise not_ported("cross")
     mask_kind, window, theta = _mixer_spec(mixer, cfg)
@@ -184,9 +199,84 @@ def attn_apply(p, x, mixer: str, cfg: ModelConfig, positions,
     if mixer != "enc":                      # encoder uses no RoPE-on-frames
         q = rope(q, positions, theta)
         k = rope(k, positions, theta)
+    cache = (attn_prefill_cache(p, (k, v), mixer, cfg, max_seq)
+             if want_cache else None)
     o = attention(q, k, v, positions, positions, mask_kind=mask_kind,
                   window=window, cfg=cfg)
-    return x + o.reshape(x.shape[0], x.shape[1], -1) @ p["wo"].to(x.dtype)
+    x = x + o.reshape(x.shape[0], x.shape[1], -1) @ p["wo"].to(x.dtype)
+    return x, cache
+
+
+def attn_cache_len(mixer: str, cfg: ModelConfig, max_seq: int) -> int:
+    mask_kind, window, _ = _mixer_spec(mixer, cfg)
+    return min(max_seq, window) if mask_kind == "window" else max_seq
+
+
+def attn_prefill_cache(p, x_normed_kv: Tuple[torch.Tensor, torch.Tensor],
+                       mixer: str, cfg: ModelConfig, max_seq: int):
+    """A ring cache from full-sequence K, V (RoPE applied): the last
+    min(S, W) rows, row s in slot s % W, in ``cfg.kv_cache_dtype``."""
+    k, v = x_normed_kv
+    B, S, KH, Hd = k.shape
+    W = attn_cache_len(mixer, cfg, max_seq)
+    cdt = getattr(torch, cfg.kv_cache_dtype)
+    ck = torch.zeros((B, W, KH, Hd), dtype=cdt, device=k.device)
+    cv = torch.zeros((B, W, KH, Hd), dtype=cdt, device=k.device)
+    take = min(S, W)
+    slots = (torch.arange(take, device=k.device) + (S - take)) % W
+    ck[:, slots] = k[:, S - take:].to(cdt)
+    cv[:, slots] = v[:, S - take:].to(cdt)
+    return {"k": ck, "v": cv}
+
+
+def _grouped_decode_attention(q, ck, cv, index: int, window: int):
+    """The reference's `attn_decode` arithmetic (grouped-GQA einsum over
+    the ring, no KV repeat): q (B, 1, H, D), ck and cv (B, W, KH, D)."""
+    B, _, H, Hd = q.shape
+    W, KH = ck.shape[1], ck.shape[2]
+    G = H // KH
+    valid = ring_validity(W, index, window, device=q.device) != 0
+    qg = q.reshape(B, 1, KH, G, Hd)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
+                     ck.to(q.dtype).float()) * (Hd ** -0.5)
+    s = torch.where(valid, s, torch.tensor(NEG_INF, dtype=s.dtype,
+                                           device=s.device))
+    pattn = torch.softmax(s, dim=-1)
+    return torch.einsum("bhgqk,bkhd->bqhgd", pattn.to(q.dtype),
+                        cv.to(q.dtype))
+
+
+def attn_decode(p, x, cache, mixer: str, cfg: ModelConfig, index: int,
+                enc_out: Optional[torch.Tensor] = None):
+    """One-token decode.  x: (B, 1, D); cache: {"k", "v"} (B, W, KH, Hd)
+    ring buffers (RoPE applied at write); ``index`` the token's absolute
+    position (a Python int).  The token's K/V row is written into slot
+    ``index % W`` in place; returns ``(x, cache)``."""
+    if enc_out is not None:
+        raise not_ported("cross")
+    mask_kind, window, theta = _mixer_spec(mixer, cfg)
+    ck, cv = cache["k"], cache["v"]
+    W = ck.shape[1]
+    h = rms_norm(x, p["norm"], cfg.norm_eps)
+    q, k, v = _proj_qkv(h, p, cfg)
+    pos = torch.full((1,), index, dtype=torch.int32, device=x.device)
+    q = rope(q, pos, theta)
+    k = rope(k, pos, theta)
+    slot = index % W
+    ck[:, slot] = k[:, 0].to(ck.dtype)
+    cv[:, slot] = v[:, 0].to(cv.dtype)
+    win = window if mask_kind == "window" else 0
+    impl = cfg.attn_impl
+    B = x.shape[0]
+    if impl in FLASH_IMPLS:
+        o = decode_attention(q, ck, cv, index, window=win)
+    elif impl == "dense":
+        o = _grouped_decode_attention(q, ck, cv, index, win)
+    else:
+        raise ValueError(f"attn_impl {impl!r}; the port has "
+                         f"{FLASH_IMPLS + ('dense',)}")
+    x = x + o.reshape(B, 1, -1) @ p["wo"].to(x.dtype)
+    return x, cache
 
 
 # ---------------------------------------------------------------------------
@@ -225,23 +315,144 @@ def ffn_apply(p, x, kind: str, cfg: ModelConfig) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Mamba2 SSD block
+# ---------------------------------------------------------------------------
+def _causal_conv(x, w, state=None):
+    """Depthwise causal conv.  x: (B, S, W); w: (K, W).  Returns y and the
+    new conv state (the last K - 1 inputs)."""
+    K = w.shape[0]
+    if state is None:
+        xp = F.pad(x, (0, 0, K - 1, 0))
+    else:
+        xp = torch.cat([state.to(x.dtype), x], dim=1)
+    S = x.shape[1]
+    y = sum(xp[:, i:i + S] * w[i].to(x.dtype) for i in range(K))
+    return y, xp[:, -(K - 1):]
+
+
+def ssd_param_defs(cfg: ModelConfig) -> Shapes:
+    D = cfg.d_model
+    di = cfg.d_inner
+    N, H = cfg.ssm_state, cfg.ssm_heads
+    conv_dim = di + 2 * N
+    return {"norm": (D,), "in_proj": (D, 2 * di + 2 * N + H),
+            "conv_w": (cfg.conv_width, conv_dim), "A_log": (H,),
+            "D_skip": (H,), "dt_bias": (H,), "gnorm": (di,),
+            "out_proj": (di, D)}
+
+
+def _ssd_inputs(p, x, cfg: ModelConfig, conv_state=None):
+    """Shared in-proj + conv + split for prefill, forward and decode."""
+    di, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    P = di // H
+    h = rms_norm(x, p["norm"], cfg.norm_eps)
+    zxbcdt = h @ p["in_proj"].to(x.dtype)
+    z, xbc, dt = torch.split(zxbcdt, [di, di + 2 * N, H], dim=-1)
+    xbc, new_conv = _causal_conv(xbc, p["conv_w"], state=conv_state)
+    xbc = F.silu(xbc)
+    xs, B_, C_ = torch.split(xbc, [di, N, N], dim=-1)
+    B, S = x.shape[0], x.shape[1]
+    xs = xs.reshape(B, S, H, P)
+    dt = F.softplus(dt.float() + p["dt_bias"].float())
+    A = -torch.exp(p["A_log"].float())                    # (H,)
+    return z, xs, B_, C_, dt, A, new_conv
+
+
+def ssd_scan_chunked(xs, dt, A, B_, C_, chunk: int):
+    """Chunked SSD (Mamba2 Alg. 1) in plain PyTorch, model layout.
+
+    xs: (B, S, H, P); dt: (B, S, H); A: (H,); B_, C_: (B, S, N) (a single
+    group).  Returns y (B, S, H, P) and the final state (B, H, P, N), both
+    float32: `kernels.ssd_scan.ref.ssd_chunked_ref` in head-major rows."""
+    Bb, S, H, P = xs.shape
+    x = xs.transpose(1, 2).reshape(Bb * H, S, P)
+    d = dt.transpose(1, 2).reshape(Bb * H, S)
+    a = A[None].expand(Bb, H).reshape(Bb * H)
+    y, state = ssd_chunked_ref(x, d, a, B_, C_, chunk)
+    return (y.view(Bb, H, S, P).transpose(1, 2),
+            state.view(Bb, H, P, state.shape[-1]))
+
+
+def ssd_apply(p, x, cfg: ModelConfig, impl: str = "pallas",
+              want_cache: bool = False):
+    """Full-sequence SSD block (pre-norm, residual).  ``impl="pallas"``
+    runs the scan kernel, ``"jnp"`` the chunked plain path.  Returns
+    ``(x, cache)``; the cache holds the final state and the conv state."""
+    z, xs, B_, C_, dt, A, conv_state = _ssd_inputs(p, x, cfg)
+    if impl == "pallas":
+        y, final_state = ssd_scan(xs, dt, A, B_, C_, cfg.ssm_chunk)
+    elif impl == "jnp":
+        y, final_state = ssd_scan_chunked(xs, dt, A, B_, C_, cfg.ssm_chunk)
+    else:
+        raise ValueError(f"impl {impl!r}; the port has {SSD_IMPLS}")
+    y = y + xs.float() * p["D_skip"].float()[:, None]
+    y = y.reshape(x.shape[0], x.shape[1], cfg.d_inner)
+    y = rms_norm(y.to(x.dtype) * F.silu(z), p["gnorm"], cfg.norm_eps)
+    cache = ({"state": final_state, "conv": conv_state}
+             if want_cache else None)
+    return x + y @ p["out_proj"].to(x.dtype), cache
+
+
+def ssd_decode(p, x, cache, cfg: ModelConfig, index: int):
+    """One-token SSD step.  cache: {"state": (B, H, P, N) float32, "conv":
+    (B, K - 1, conv_dim)}.  Returns ``(x, new cache)``."""
+    z, xs, B_, C_, dt, A, conv_state = _ssd_inputs(
+        p, x, cfg, conv_state=cache["conv"])
+    Bb = x.shape[0]
+    xs1 = xs[:, 0].float()                                # (B, H, P)
+    dt1 = dt[:, 0]                                        # (B, H)
+    B1 = B_[:, 0].float()                                 # (B, N)
+    C1 = C_[:, 0].float()
+    dA = torch.exp(dt1 * A)                               # (B, H)
+    dBx = torch.einsum("bh,bn,bhp->bhpn", dt1, B1, xs1)
+    state = cache["state"] * dA[..., None, None] + dBx
+    y = torch.einsum("bhpn,bn->bhp", state, C1)
+    y = y + xs1 * p["D_skip"].float()[:, None]
+    y = y.reshape(Bb, 1, cfg.d_inner)
+    y = rms_norm(y.to(x.dtype) * F.silu(z), p["gnorm"], cfg.norm_eps)
+    return (x + y @ p["out_proj"].to(x.dtype),
+            {"state": state, "conv": conv_state})
+
+
+# ---------------------------------------------------------------------------
 # block dispatcher
 # ---------------------------------------------------------------------------
 def block_param_defs(cfg: ModelConfig, mixer: str, ffn: str) -> Shapes:
-    if mixer in ("rglru", "ssd"):
-        raise not_ported(mixer)
-    defs = dict(attn_param_defs(cfg, cross=(mixer == "dec")))
+    if mixer == "rglru":
+        raise not_ported("rglru")
+    if mixer == "ssd":
+        defs = dict(ssd_param_defs(cfg))
+    else:
+        defs = dict(attn_param_defs(cfg, cross=(mixer == "dec")))
     defs.update(ffn_param_defs(cfg, ffn))
     return defs
 
 
 def block_apply(p, x, mixer: str, ffn: str, cfg: ModelConfig, positions,
-                enc_out=None, want_cache: bool = False) -> torch.Tensor:
-    """One layer: the mixer, then the FFN.  Returns the new residual
-    stream (the reference also returns a cache, which only prefill
-    builds)."""
-    if mixer in ("rglru", "ssd"):
-        raise not_ported(mixer)
-    x = attn_apply(p, x, mixer, cfg, positions, enc_out=enc_out,
-                   want_cache=want_cache)
-    return ffn_apply(p, x, ffn, cfg)
+                enc_out=None, impl: str = "pallas", want_cache: bool = False,
+                max_seq: int = 0):
+    """One layer: the mixer, then the FFN.  Returns ``(x, cache)`` — the
+    cache is None unless ``want_cache`` (prefill).  ``impl`` chooses the
+    SSD scan (attention follows ``cfg.attn_impl``)."""
+    if mixer == "rglru":
+        raise not_ported("rglru")
+    if mixer == "ssd":
+        x, cache = ssd_apply(p, x, cfg, impl=impl, want_cache=want_cache)
+    else:
+        x, cache = attn_apply(p, x, mixer, cfg, positions, enc_out=enc_out,
+                              want_cache=want_cache, max_seq=max_seq)
+    return ffn_apply(p, x, ffn, cfg), cache
+
+
+def block_decode(p, x, cache, mixer: str, ffn: str, cfg: ModelConfig,
+                 index: int, enc_out=None):
+    """One layer of one-token decode: ``(x, cache)`` after the mixer and
+    the FFN."""
+    if mixer == "rglru":
+        raise not_ported("rglru")
+    if mixer == "ssd":
+        x, cache = ssd_decode(p, x, cache, cfg, index)
+    else:
+        x, cache = attn_decode(p, x, cache, mixer, cfg, index,
+                               enc_out=enc_out)
+    return ffn_apply(p, x, ffn, cfg), cache

@@ -1,29 +1,35 @@
-"""Dense LM forward of the port (`repro.models.model`'s `init_params`,
-`forward` and `logits_from_h`).
+"""The LM of the port (`repro.models.model`): `init_params`, `forward`,
+`logits_from_h`, and the generation path `init_cache`, `prefill` and
+`decode_step`.
 
 Layout: ``num_layers = n_cycles * len(pattern) + tail``.  The parameters
 keep the reference's pytree: ``embed`` (V, D), ``unembed`` (D, V),
 ``final_norm`` (D,), ``blocks`` — one dict per pattern position, each leaf
 stacked over the cycles — and ``tail``, one unstacked dict per tail layer.
-Where the reference scans over the stacked cycles (`lax.scan`), `forward`
-runs a Python loop over them and then over the tail.  A plain large
-matrix product (the projections, ``h @ unembed``) stays `torch.matmul`;
-attention is the flash kernel (`layers.attention`).
+The cache keeps the reference's layout too: ``blocks[k][name]`` stacked
+over the cycles, ``tail[t][name]``, then ``index``, the absolute position
+of the next token — a Python int here (a device scalar would cost a host
+sync in every layer to find the ring slot).  Where the reference scans
+over the stacked cycles (`lax.scan`), the port runs a Python loop over
+them and then over the tail.  A plain large matrix product (the
+projections, ``h @ unembed``) stays `torch.matmul`; attention and the SSD
+scan are the hand-written kernels (`layers`).
 
-Prefill, decoding, the loss and the encoder are not ported yet
+MoE, RG-LRU, the encoder, the loss and training are not ported yet
 (ROADMAP §1 item 12).
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Union
+from typing import Any, Dict, Tuple, Union
 
 import numpy as np
 import torch
 
 from .._device import DeviceLike, resolve_device
 from .config import ModelConfig
-from .layers import NEG_INF, block_apply, block_param_defs, rms_norm
+from .layers import (NEG_INF, attn_cache_len, block_apply, block_decode,
+                     block_param_defs, not_ported, rms_norm)
 
 Params = Dict[str, Any]
 
@@ -100,20 +106,40 @@ def _embed_inputs(params: Params, batch, cfg: ModelConfig) -> torch.Tensor:
     return table[tokens.long()].to(torch_dtype(cfg.dtype))
 
 
-def forward(params: Params, batch, cfg: ModelConfig) -> torch.Tensor:
+def forward(params: Params, batch, cfg: ModelConfig, *,
+            impl: str = "pallas") -> torch.Tensor:
     """Final hidden states (B, S, D) in the compute dtype — logits via
-    `logits_from_h`.  ``batch["tokens"]`` is (B, S) integers."""
+    `logits_from_h`.  ``batch["tokens"]`` is (B, S) integers.
+
+    ``impl`` chooses the SSD scan, with the reference's values: ``"pallas"``
+    is the hand-written kernel (its plain version on a CPU tensor),
+    ``"jnp"`` the chunked plain path.  The port defaults to the kernel, as
+    its ``attn_impl="auto"`` does for attention; the reference defaults to
+    ``"jnp"``.  Attention follows ``cfg.attn_impl``."""
+    x, positions = _start(params, batch, cfg)
+    for (mixer, ffn), layer in _layers(params, cfg):
+        x, _ = block_apply(layer, x, mixer, ffn, cfg, positions, impl=impl)
+    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+def _start(params: Params, batch, cfg: ModelConfig):
+    """Embedded tokens and their positions 0 .. S-1."""
+    if cfg.is_encdec:
+        raise not_ported("cross")
     x = _embed_inputs(params, batch, cfg)
-    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    return x, torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+
+
+def _layers(tree: Params, cfg: ModelConfig):
+    """((mixer, ffn), the layer's dict) of every layer in order — the
+    cycles' pattern positions (views into the stacked leaves), then the
+    tail — for the parameters or a cache alike."""
     n_cycles, tail = cfg.cycles_and_tail
     for c in range(n_cycles):
-        for k, (mixer, ffn) in enumerate(cfg.pattern):
-            layer = {n: t[c] for n, t in params["blocks"][k].items()}
-            x = block_apply(layer, x, mixer, ffn, cfg, positions)
+        for k, kind in enumerate(cfg.pattern):
+            yield kind, {n: t[c] for n, t in tree["blocks"][k].items()}
     for t in range(tail):
-        mixer, ffn = cfg.pattern[t]
-        x = block_apply(params["tail"][t], x, mixer, ffn, cfg, positions)
-    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+        yield cfg.pattern[t], tree["tail"][t]
 
 
 def logits_from_h(params: Params, h: torch.Tensor, cfg: ModelConfig
@@ -125,3 +151,100 @@ def logits_from_h(params: Params, h: torch.Tensor, cfg: ModelConfig
     if pad:
         logits[..., cfg.vocab_size:] = NEG_INF
     return logits
+
+
+# ---------------------------------------------------------------------------
+# cache
+# ---------------------------------------------------------------------------
+def _block_cache_shape(cfg: ModelConfig, mixer: str, B: int, max_seq: int):
+    """{name: (shape, dtype)} of one layer's cache."""
+    if mixer == "rglru":
+        raise not_ported("rglru")
+    if mixer == "ssd":
+        H = cfg.ssm_heads
+        P = cfg.d_inner // H
+        return {"state": ((B, H, P, cfg.ssm_state), torch.float32),
+                "conv": ((B, cfg.conv_width - 1,
+                          cfg.d_inner + 2 * cfg.ssm_state),
+                         torch_dtype(cfg.dtype))}
+    W = attn_cache_len(mixer, cfg, max_seq)
+    shape = (B, W, cfg.num_kv_heads, cfg.head_dim)
+    cdt = torch_dtype(cfg.kv_cache_dtype)
+    return {"k": (shape, cdt), "v": (shape, cdt)}
+
+
+def init_cache(cfg: ModelConfig, B: int, max_seq: int,
+               device: DeviceLike = None) -> Params:
+    """A zero cache for ``B`` sequences of up to ``max_seq`` tokens on
+    ``device``, in the reference's layout (``blocks`` stacked over the
+    cycles, ``tail``, ``index`` = 0)."""
+    if cfg.is_encdec:
+        raise not_ported("cross")
+    dev = resolve_device(device)
+    n_cycles, tail = cfg.cycles_and_tail
+
+    def zeros(shapes, stack):
+        return {name: torch.zeros(stack + shp, dtype=dt, device=dev)
+                for name, (shp, dt) in shapes.items()}
+
+    return {"blocks": tuple(
+                zeros(_block_cache_shape(cfg, mixer, B, max_seq),
+                      (n_cycles,))
+                for mixer, _f in cfg.pattern),
+            "tail": tuple(
+                zeros(_block_cache_shape(cfg, cfg.pattern[t][0], B,
+                                         max_seq), ())
+                for t in range(tail)),
+            "index": 0}
+
+
+# ---------------------------------------------------------------------------
+# prefill / decode
+# ---------------------------------------------------------------------------
+def prefill(params: Params, batch, cfg: ModelConfig, max_seq: int, *,
+            impl: str = "pallas") -> Tuple[Params, torch.Tensor]:
+    """Run the whole prompt and build the cache.  Returns ``(cache,
+    logits of the last position (B, 1, V_padded))``; ``impl`` as in
+    `forward`."""
+    x, positions = _start(params, batch, cfg)
+    n_cycles, _tail = cfg.cycles_and_tail
+    P = len(cfg.pattern)
+    caches = []
+    for (mixer, ffn), layer in _layers(params, cfg):
+        x, c = block_apply(layer, x, mixer, ffn, cfg, positions, impl=impl,
+                           want_cache=True, max_seq=max_seq)
+        caches.append(c)
+    blocks = tuple({name: torch.stack([caches[c * P + k][name]
+                                       for c in range(n_cycles)])
+                    for name in caches[k]}
+                   for k in range(P)) if n_cycles else ()
+    h = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = logits_from_h(params, h[:, -1:], cfg)
+    cache = {"blocks": blocks, "tail": tuple(caches[n_cycles * P:]),
+             "index": x.shape[1]}
+    return cache, logits
+
+
+def decode_step(params: Params, tokens, cache: Params, cfg: ModelConfig
+                ) -> Tuple[torch.Tensor, Params]:
+    """One new token per sequence.  ``tokens`` (B, 1) -> ``(logits (B, 1,
+    V_padded), cache)``.
+
+    Unlike the reference, which returns a new cache, this updates the
+    cache in place — the K/V rows are written into their ring slots and
+    the SSD states and conv windows overwritten — and returns it with
+    ``index`` advanced: a cache decoded from no longer holds the state it
+    had before the call."""
+    table = params["embed"]
+    tok = torch.as_tensor(tokens, device=table.device).long()
+    x = table[tok].to(torch_dtype(cfg.dtype))
+    index = int(cache["index"])
+    for ((mixer, ffn), layer), (_kind, views) in zip(_layers(params, cfg),
+                                                     _layers(cache, cfg)):
+        x, new = block_decode(layer, x, views, mixer, ffn, cfg, index)
+        for name, t in new.items():       # the SSD state and conv window
+            if t is not views[name]:
+                views[name].copy_(t)
+    h = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = logits_from_h(params, h, cfg)
+    return logits, dict(cache, index=index + 1)

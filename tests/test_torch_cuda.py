@@ -18,7 +18,17 @@ card sums scores and the PV product in another order) and 2^-7
 relative and absolute in bfloat16 (p is rounded to bfloat16 against a
 running max per 32-key block instead of the row's max; one bfloat16
 ulp is 2^-8); the LM forward's float32 logits to 1e-4 (matrix products
-of 64-wide rows summed in other orders on the card).
+of 64-wide rows summed in other orders on the card).  The SSD scan
+kernel, y and state alike, to 1e-5 plus twice its plain version's own
+error against the float64 recurrence, and so to 1e-5 plus three times it
+against the plain version: both are the chunked form in float32, whose
+error grows with the chunk's cumulative decay, and the kernel sums the
+decays in another order (a warp scan; emulated on the CPU, that order
+alone gives the card's difference from the plain version to the last
+bit); the flash-decode kernel
+as the flash kernel (1e-5 in float32, 2^-7 in bfloat16: p is rounded
+against a running max per 32-key block); the small generation run's
+float32 logits to 1e-4, as the forward's.
 """
 import dataclasses
 
@@ -29,9 +39,14 @@ import torch
 from repro_torch import configs, convert
 from repro_torch.api import engine as E
 from repro_torch.kernels.cckp_dp import ops as cckp_ops
+from repro_torch.kernels.decode_attention import ops as da_ops
+from repro_torch.kernels.decode_attention import ref as da_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
-from repro_torch.models import forward, init_params, logits_from_h
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan import ref as ssd_ref
+from repro_torch.models import (decode_step, forward, init_params,
+                                logits_from_h, prefill)
 from repro_torch.kernels.cckp_dp import ref as cckp_ref
 from repro_torch.kernels.simplex_pivot import ops, ref
 from repro_torch.serving.fleet import FleetEngine, make_fleet
@@ -356,3 +371,185 @@ def _numpy_tree(tree):
     if isinstance(tree, tuple):
         return tuple(_numpy_tree(v) for v in tree)
     return tree.numpy()
+
+
+# ---------------------------------------------------------------------------
+# generation: the SSD scan and flash-decode kernels
+# ---------------------------------------------------------------------------
+SSD_CASES = [  # (B, S, H, P, N, chunk, dt scale)
+    (2, 1000, 3, 64, 128, 256, 1.0),     # mamba2-130m's P, N, Q; S % Q != 0
+    (1, 300, 2, 64, 128, 256, 1.0),      # one sequence
+    (2, 96, 2, 4, 8, 64, 8.0),           # cumulative decay past -88
+    (2, 40, 3, 32, 16, 8, 1.0),          # the SMOKE model's P, N, chunk
+]
+
+
+def _ssd_case(B, S, H, P, N, scale, seed=0):
+    g = torch.Generator().manual_seed(seed + S)
+    x = torch.randn(B, S, H, P, generator=g)
+    dt = scale * torch.nn.functional.softplus(torch.randn(B, S, H,
+                                                          generator=g))
+    A = -torch.exp(0.2 * torch.randn(H, generator=g))
+    B_ = torch.randn(B, S, N, generator=g)
+    C_ = torch.randn(B, S, N, generator=g)
+    return x, dt, A, B_, C_
+
+
+def _ssd_exact(x, dt, A, B_, C_):
+    """The recurrence in float64 on the CPU: (y, final state)."""
+    x, dt, A, B_, C_ = (t.double() for t in (x, dt, A, B_, C_))
+    h = torch.zeros(x.shape[0], x.shape[2], x.shape[3], B_.shape[-1],
+                    dtype=torch.float64)
+    ys = []
+    for t in range(x.shape[1]):
+        h = h * torch.exp(dt[:, t] * A)[..., None, None] + torch.einsum(
+            "bh,bn,bhp->bhpn", dt[:, t], B_[:, t], x[:, t])
+        ys.append(torch.einsum("bhpn,bn->bhp", h, C_[:, t]))
+    return torch.stack(ys, dim=1), h
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_cuda_ssd_kernel_matches_plain_version(cuda_device, monkeypatch,
+                                               case, dtype):
+    B, S, H, P, N, chunk, scale = case
+    x, dt, A, B_, C_ = _ssd_case(B, S, H, P, N, scale)
+    x, B_, C_ = (t.to(dtype) for t in (x, B_, C_))
+    want = ssd_ops.ssd_scan(x, dt, A, B_, C_, chunk)        # plain, CPU
+    exact = _ssd_exact(x.float(), dt, A, B_.float(), C_.float())
+    monkeypatch.setattr(ssd_ops, "ssd_chunked_ref", _fail_if_called)
+    ssd_ops.reset_launches()
+    got = ssd_ops.ssd_scan(*(t.to(cuda_device) for t in (x, dt, A, B_, C_)),
+                           chunk)
+    torch.cuda.synchronize()
+    assert ssd_ops.ssd_scan_fwd.launches == 1
+    for g, w, e in zip(got, want, exact):
+        g = g.cpu()
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        assert torch.isfinite(g).all()
+        own = (w.double() - e).abs().max().item()
+        assert (g.double() - e).abs().max().item() <= 1e-5 + 2.0 * own
+        assert (g - w).abs().max().item() <= 1e-5 + 3.0 * own
+
+
+@pytest.mark.gpu
+def test_cuda_ssd_wrapper_checks_its_inputs(cuda_device):
+    x, dt, A, B_, C_ = (t.to(cuda_device) for t in _ssd_case(1, 16, 2, 8,
+                                                             4, 1.0))
+    xf, d, a = ssd_ops.kernel_layout(x, dt, A)
+    with pytest.raises(TypeError, match="takes"):
+        ssd_ops.ssd_scan_fwd(xf.double(), d, a, B_.double(), C_.double(),
+                             heads=2)
+    with pytest.raises(ValueError, match="P <= 64"):
+        big = torch.zeros(2, 16, 65, device=cuda_device)
+        ssd_ops.ssd_scan_fwd(big, d, a, B_, C_, heads=2)
+    with pytest.raises(ValueError, match="expected"):
+        ssd_ops.ssd_scan_fwd(xf, d.cpu(), a, B_, C_, heads=2)
+
+
+DECODE_CASES = [  # (rows, W, G, D, q dtype, kv dtype)
+    (4, 512, 4, 256, torch.bfloat16, torch.bfloat16),   # gemma3-1b local
+    (4, 1032, 4, 256, torch.float32, torch.float32),    # gemma3-1b global
+    (4, 1032, 4, 256, torch.float32, torch.bfloat16),   # f32 model, bf16 KV
+    (3, 100, 6, 16, torch.bfloat16, torch.float32),
+    (3, 64, 1, 64, torch.float32, torch.float32),
+    (1, 7, 9, 96, torch.bfloat16, torch.bfloat16),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", DECODE_CASES)
+def test_cuda_decode_kernel_matches_plain_version(cuda_device, monkeypatch,
+                                                  case):
+    rows, W, G, D, qdt, kvdt = case
+    g = torch.Generator().manual_seed(W + D)
+    q = torch.randn(rows, G, D, generator=g).to(qdt)
+    k, v = (torch.randn(rows, W, D, generator=g).to(kvdt) for _ in range(2))
+    valid = (torch.rand(rows, W, generator=g) > 0.3).to(torch.int32)
+    valid[:, -1] = 1
+    want = da_ref.decode_attention_ref(q, k, v, valid)
+    monkeypatch.setattr(da_ops, "decode_attention_ref", _fail_if_called)
+    da_ops.reset_launches()
+    got = da_ops.decode_attention_fwd(*(t.to(cuda_device)
+                                        for t in (q, k, v, valid)))
+    torch.cuda.synchronize()
+    assert da_ops.decode_attention_fwd.launches == 1
+    assert got.dtype == qdt and got.shape == q.shape
+    tol = 1e-5 if qdt == torch.float32 else 2.0 ** -7
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().numpy(),
+                               rtol=0 if qdt == torch.float32 else tol,
+                               atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,KH,G", [(1, 1, 4), (2, 2, 2)])
+def test_cuda_decode_model_entry_reads_the_cache_in_place(cuda_device,
+                                                         monkeypatch, B,
+                                                         KH, G):
+    """(B, W, KH, D) ring caches read where they lie, before and after the
+    ring wraps and with a window, against the CPU entry."""
+    W, D = 40, 32
+    g = torch.Generator().manual_seed(B * KH)
+    q = torch.randn(B, 1, KH * G, D, generator=g)
+    ck, cv = (torch.randn(B, W, KH, D, generator=g) for _ in range(2))
+    cases = ((7, 0), (45, 0), (45, 16), (99, 40))
+    want = [da_ops.decode_attention(q, ck, cv, i, window=w)
+            for i, w in cases]
+    monkeypatch.setattr(da_ops, "decode_attention_ref", _fail_if_called)
+    da_ops.reset_launches()
+    dq, dk, dv = (t.to(cuda_device) for t in (q, ck, cv))
+    for (i, w), ref_o in zip(cases, want):
+        got = da_ops.decode_attention(dq, dk, dv, i, window=w).cpu()
+        torch.testing.assert_close(got, ref_o, rtol=0, atol=1e-5)
+    assert da_ops.decode_attention_fwd.launches == len(cases)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["gemma3_1b", "mamba2_130m"])
+def test_cuda_generate_matches_cpu_generate(cuda_device, monkeypatch, arch):
+    """The SMOKE model's prefill of 12 tokens and 4 decode steps on the
+    card (the flash, flash-decode and SSD kernels) against the same on
+    the CPU (their plain versions), float32 with a float32 KV cache: one
+    flash-decode launch per attention layer and step, one SSD launch per
+    SSD layer and prefill, none per decode step."""
+    cfg = dataclasses.replace(configs.get_smoke_config(arch),
+                              dtype="float32", kv_cache_dtype="float32",
+                              attn_impl="auto")
+    cpu_params = init_params(cfg, 3, device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 16),
+                           generator=torch.Generator().manual_seed(3))
+
+    def run(params, device):
+        toks = tokens.to(device)
+        cache, lg = prefill(params, {"tokens": toks[:, :12]}, cfg,
+                            max_seq=16)
+        out = [lg.cpu()]
+        counts = [(da_ops.decode_attention_fwd.launches,
+                   ssd_ops.ssd_scan_fwd.launches)]
+        for t in range(4):
+            lg, cache = decode_step(params, toks[:, 12 + t:13 + t], cache,
+                                    cfg)
+            out.append(lg.cpu())
+            counts.append((da_ops.decode_attention_fwd.launches,
+                           ssd_ops.ssd_scan_fwd.launches))
+        return out, counts
+
+    want, _ = run(cpu_params, "cpu")
+    for mod, name in ((da_ops, "decode_attention_ref"),
+                      (ssd_ops, "ssd_chunked_ref"),
+                      (fa_ops, "attention_ref")):
+        monkeypatch.setattr(mod, name, _fail_if_called)
+    params = convert.model_params_from_numpy(_numpy_tree(cpu_params),
+                                             cuda_device)
+    da_ops.reset_launches()
+    ssd_ops.reset_launches()
+    got, counts = run(params, cuda_device)
+    n_ssd = sum(m == "ssd" for m, _f in (cfg.layer_kind(i)
+                                         for i in range(cfg.num_layers)))
+    n_attn = cfg.num_layers - n_ssd
+    assert counts == [(n_attn * t, n_ssd) for t in range(5)]
+    V = cfg.vocab_size
+    for g, w in zip(got, want):
+        assert (g[..., :V] - w[..., :V]).abs().max().item() <= 1e-4

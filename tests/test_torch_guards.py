@@ -43,7 +43,13 @@ def test_port_imports_neither_jax_nor_the_reference():
             "repro_torch.models.model", "repro_torch.configs.paper_edge",
             "repro_torch.configs.gemma3_1b", "repro_torch.data.pipeline",
             "repro_torch.serving.executor", "repro_torch.serving.runtime",
-            "repro_torch.launch.serve"} <= walked
+            "repro_torch.launch.serve",
+            # generation: the SSD scan, flash-decode, mamba2
+            "repro_torch.kernels.ssd_scan.ops",
+            "repro_torch.kernels.ssd_scan.ref",
+            "repro_torch.kernels.decode_attention.ops",
+            "repro_torch.kernels.decode_attention.ref",
+            "repro_torch.configs.mamba2_130m"} <= walked
 
 
 def test_chip_smoke_imports_neither_jax_nor_the_reference():

@@ -104,7 +104,7 @@ def test_get_config_ports_dense_archs_and_names_the_rest():
                             configs.get_config(arch.replace("_", "-")))
         _assert_same_config(ref_configs.get_smoke_config(arch),
                             configs.get_smoke_config(arch))
-    for arch in set(configs.ARCHS) - set(ARCHS):
+    for arch in set(configs.ARCHS) - set(configs.PORTED):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             configs.get_config(arch)
     with pytest.raises(ValueError, match="unknown architecture"):
@@ -229,7 +229,6 @@ def test_unported_parts_raise_not_implemented():
                       vocab_size=64, pattern=(("full", "moe"),),
                       num_experts=4, experts_per_token=2, moe_d_ff=16)
     for cfg in (moe,
-                dataclasses.replace(moe, pattern=(("ssd", "none"),)),
                 dataclasses.replace(moe, pattern=(("rglru", "gelu"),)),
                 dataclasses.replace(moe, pattern=(("dec", "gelu"),)),
                 dataclasses.replace(moe, pattern=(("full", "gelu"),),
@@ -241,8 +240,8 @@ def test_unported_parts_raise_not_implemented():
     layer = {k: v[0] for k, v in p["blocks"][0].items()}
     x = torch.zeros((1, 4, cfg.d_model))
     pos = torch.arange(4)
-    with pytest.raises(NotImplementedError, match="decode_attention"):
-        layers.block_apply(layer, x, "full", "swiglu", cfg, pos,
+    with pytest.raises(NotImplementedError, match="rglru_scan"):
+        layers.block_apply(layer, x, "rglru", "swiglu", cfg, pos,
                            want_cache=True)
     with pytest.raises(NotImplementedError, match="enc-dec"):
         layers.attn_apply(layer, x, "dec", cfg, pos, enc_out=x)
