@@ -32,8 +32,17 @@ Phases, each printing JSON lines; any failure exits non-zero:
               version to the float64 recurrence; the flash-decode kernel
               through the model's entry at gemma3-1b's decode shapes (4
               sequences, 4 q heads on 1, head_dim 256, rings of 512 and
-              1032 slots), in bfloat16 and float32, with SDPA timed
-              beside it.
+              1032 slots; recurrentgemma-9b: 16 q heads on 1, a ring of
+              2048 slots), in bfloat16 and float32, with SDPA timed beside
+              it.  Flash attention also at recurrentgemma-9b's shape (2 x
+              4096 tokens, 16 heads on 1 KV head, head_dim 256, window
+              2048).  The RG-LRU recurrence kernel at recurrentgemma-9b's
+              forward and prefill shapes (2 x 4096 and 4 x 2100 tokens x
+              4096 channels, a and b from the model's gates) and a ragged
+              one (1 x 2085 x 999, a in (0.9, 1)), with its plain log-step
+              scan, both held to the float64 recurrence; its library
+              column is null (no single PyTorch call computes a linear
+              recurrence).
   4. rollout  the tensor engine's path: `EngineParams.from_fleet` ->
               `init_state` -> `rollout` of a 16384-device fleet for 8
               periods, once per LP method, with every kernel's launch
@@ -83,11 +92,25 @@ Phases, each printing JSON lines; any failure exits non-zero:
               flash-decode per step; mamba2-130m: 24 SSD per prefill, none
               per step) and every logit against `forward` of all 1032
               tokens (`GEN_*`); a profile of one gemma3-1b decode step.
+     recurrentgemma  recurrentgemma-9b at full width and depth (38 layers:
+              26 RG-LRU, 12 local attention of window 2048; d 4096, 16 q
+              heads on 1 KV head, vocabulary 256000; 38.5 GB of float32
+              parameters from a seed).  lm_forward: 2 requests of 4096
+              tokens in bfloat16, exactly 26 RG-LRU and 12 flash launches
+              a forward, tokens/s, peak memory and a profile; hidden states
+              and every logit (in slices of 1024 positions) against the
+              plain path (`impl="jnp"`, `attn_impl="dense"`) in bfloat16
+              and float32 (`LM_*`).  lm_generate as above with 4 prompts of
+              2100 tokens (max_seq 2132; the 2048-slot rings wrap in
+              prefill and decode): 26 RG-LRU and 12 flash launches per
+              prefill, 12 flash-decode (group 16) and no RG-LRU launch per
+              step; a profile of one decode step.
   9. parity   the card-marked tests (`pytest -m gpu tests/test_torch_cuda.py`,
               in a child process): each kernel against its plain version,
-              a 32-device rollout, a 64-device `FleetEngine` run and a
-              2-layer LM forward on the card against the same runs on the
-              CPU.
+              a 32-device rollout, a 64-device `FleetEngine` run, a
+              2-layer LM forward, recurrentgemma's 2-cycle SMOKE forward
+              and the SMOKE models' generation on the card against the
+              same runs on the CPU.
  10. timing   the 16384-device rollout again, in turns (tableau, revised,
               revised, tableau), for steady-state devices/s.
  11. profile  one rollout per LP method and one serve run under
@@ -134,6 +157,7 @@ FLASH_SHAPES = (
     ("gemma3_local", 2, 2048, 2048, 4, 1, 256, "window", 512),
     ("gemma3_global", 2, 2048, 2048, 4, 1, 256, "causal", 0),
     ("ragged_none", 3, 1000, 777, 4, 2, 128, "none", 0),
+    ("recurrentgemma_local", 2, 4096, 4096, 16, 1, 256, "window", 2048),
 )
 FLASH_LINE = ("gemma3_local", "bfloat16")    # the kernels line's shape
 FLASH_SRC = ("src/repro_torch/kernels/flash_attention/csrc/"
@@ -154,6 +178,29 @@ DECODE_SRC = ("src/repro_torch/kernels/decode_attention/csrc/"
               "decode_attention.cu")
 DECODE_TPU = ("src/repro/kernels/decode_attention/decode_attention.py:60")
 DECODE_LINE = ("gemma3_local", "bfloat16")  # the kernels line's shape
+# recurrentgemma-9b: a forward of 2 requests of 4096 tokens (past the local
+# window of 2048, so the window masks) and generation from 4 prompts of
+# 2100 tokens (the 2048-slot local rings wrap at prefill), 32 steps
+RG_ARCH = "recurrentgemma_9b"
+RG_BATCH, RG_SEQ, RG_PROMPT = 2, 4096, 2100
+RGLRU_SRC = "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu"
+RGLRU_TPU = "src/repro/kernels/rglru_scan/rglru_scan.py:43"
+# the RG-LRU recurrence at the path's shapes: (name, B, S, W, slow decay);
+# the forward's and the prefill's a and b as the model's gates make them,
+# and a ragged shape with a in (0.9, 1)
+RGLRU_SHAPES = (
+    ("recurrentgemma_forward", RG_BATCH, RG_SEQ, 4096, False),
+    ("recurrentgemma_prefill", GEN_BATCH, RG_PROMPT, 4096, False),
+    ("ragged_slow", 1, 2085, 999, True),
+)
+RGLRU_LINE = "recurrentgemma_forward"       # the kernels line's shape
+# flash-decode through the model's entry at the generation runs' shapes:
+# (name, ring slots, window, q heads per KV head, decoded position)
+DECODE_SHAPES = (
+    ("gemma3_local", 512, 512, 4, GEN_PROMPT + GEN_STEPS // 2),
+    ("gemma3_global", GEN_MAX_SEQ, 0, 4, GEN_PROMPT + GEN_STEPS // 2),
+    ("recurrentgemma_local", 2048, 2048, 16, RG_PROMPT + GEN_STEPS // 2),
+)
 
 
 def emit(phase: str, **fields) -> None:
@@ -568,6 +615,7 @@ def kernel_launches():
     from repro_torch.kernels.cckp_dp import ops as cckp_ops
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rglru_scan import ops as rg_ops
     from repro_torch.kernels.simplex_pivot import ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     return {"simplex_pivot": ops.pivot_update.launches,
@@ -576,13 +624,15 @@ def kernel_launches():
             "flash_attention_fwd": fa_ops.flash_attention_fwd.launches,
             "ssd_scan_fwd": ssd_ops.ssd_scan_fwd.launches,
             "decode_attention_fwd":
-                da_ops.decode_attention_fwd.launches}
+                da_ops.decode_attention_fwd.launches,
+            "rglru_scan_fwd": rg_ops.rglru_scan_fwd.launches}
 
 
 def reset_launches():
     from repro_torch.kernels.cckp_dp import ops as cckp_ops
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rglru_scan import ops as rg_ops
     from repro_torch.kernels.simplex_pivot import ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     ops.reset_launches()
@@ -590,6 +640,7 @@ def reset_launches():
     fa_ops.reset_launches()
     ssd_ops.reset_launches()
     da_ops.reset_launches()
+    rg_ops.reset_launches()
 
 
 def front_problem():
@@ -957,23 +1008,24 @@ def decode_work(rows, G, D, n_valid, itemsize, W):
 def phase_decode_kernel(torch, dev):
     """The flash-decode kernel through the model's entry
     (`decode_attention`, the caches read in place) against its plain
-    version at gemma3-1b's decode shapes: 4 sequences, 4 q heads on 1 KV
-    head, head_dim 256, decoding position 1016 of the generation run, a
-    local ring of 512 slots (window 512, all slots live) and a global one
-    of max_seq = 1032 slots (1017 live), in bfloat16 and float32 (float32
-    to 1e-5, bfloat16 to 2^-7 relative and absolute).  The library column
-    is `scaled_dot_product_attention` of (B, H, 1, D) against the KV
-    expanded to the H heads with the boolean validity mask."""
+    version at the generation runs' decode shapes (`DECODE_SHAPES`): 4
+    sequences, 1 KV head, head_dim 256; gemma3-1b's 4 q heads decoding
+    position 1016 from a local ring of 512 slots (window 512, all slots
+    live) and a global one of max_seq = 1032 slots (1017 live), and
+    recurrentgemma-9b's 16 q heads decoding position 2116 from a local
+    ring of 2048 slots (window 2048, all live); in bfloat16 and float32
+    (float32 to 1e-5, bfloat16 to 2^-7 relative and absolute).  The
+    library column is `scaled_dot_product_attention` of (B, H, 1, D)
+    against the KV expanded to the H heads with the boolean validity
+    mask."""
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.decode_attention import ref as da_ref
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    B, KH, G, D = GEN_BATCH, 1, 4, 256
-    H = KH * G
-    index = GEN_PROMPT + GEN_STEPS // 2
+    B, KH, D = GEN_BATCH, 1, 256
     g = torch.Generator(device=dev).manual_seed(23)
     rows = {}
-    for name, W, window in (("gemma3_local", 512, 512),
-                            ("gemma3_global", GEN_MAX_SEQ, 0)):
+    for name, W, window, G, index in DECODE_SHAPES:
+        H = KH * G
         ok = da_ref.ring_validity(W, index, window, device=dev)
         valid = ok[None].expand(B * KH, W).contiguous()
         n_valid = int(valid.sum())
@@ -1029,6 +1081,85 @@ def phase_decode_kernel(torch, dev):
                  **row)
             rows[(name, dname)] = row
             del q, ck, cv, kk, vv
+    return rows
+
+
+# --------------------------------------------------------------------------
+# the RG-LRU recurrence kernel
+# --------------------------------------------------------------------------
+def rglru_inputs(torch, dev, g, B, S, W, slow):
+    """(a, b) of the recurrence.  Unless ``slow``, as recurrentgemma-9b's
+    RG-LRU layer makes them at its initial scale: its gates
+    (`layers._rglru_gates`, block-diagonal over the config's 16 heads) on
+    a standard normal conv output, the gate weights and ``a_param`` drawn
+    as `init_params` draws those leaves stacked over the 12 cycles (N(0, 1)
+    / sqrt(fan_in)), so a ~ exp(-2.8).  With ``slow``, a uniform in (0.9,
+    1) and b standard normal, so a value is carried over tens of steps."""
+    import math
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers
+    if slow:
+        a = 0.9 + 0.1 * torch.rand((B, S, W), generator=g, device=dev)
+        return a, torch.randn((B, S, W), generator=g, device=dev)
+    cfg = get_config(RG_ARCH)
+    H, cycles = cfg.num_heads, cfg.cycles_and_tail[0]
+    bw = W // H
+    p = {name: torch.randn((H, bw, bw), generator=g, device=dev)
+         / math.sqrt(cycles * H * bw) for name in ("gate_a", "gate_x")}
+    p["a_param"] = torch.randn((W,), generator=g, device=dev) \
+        / math.sqrt(cycles)
+    u = torch.randn((B, S, W), generator=g, device=dev)
+    return layers._rglru_gates(p, u)
+
+
+def phase_rglru_kernel(torch, dev):
+    """The RG-LRU recurrence kernel against its plain log-step scan at
+    `RGLRU_SHAPES`, both held to the recurrence in float64 within 1e-5
+    max(1, max |h|) (the recurrence is contractive, 0 < a < 1), and to
+    each other within the same.  Kernel and plain times by CUDA events;
+    the bound is 12 bytes per (token, channel); no single PyTorch call
+    computes a linear recurrence, so the library column is null."""
+    from repro_torch.kernels.rglru_scan import ops as rg_ops
+    from repro_torch.kernels.rglru_scan import ref as rg_ref
+    g = torch.Generator(device=dev).manual_seed(29)
+    rows = {}
+    for name, B, S, W, slow in RGLRU_SHAPES:
+        a, b = rglru_inputs(torch, dev, g, B, S, W, slow)
+        a_range = [a.min().item(), a.max().item()]
+        check(0.0 < a_range[0] and a_range[1] < 1.0,
+              f"rglru {name}: a outside (0, 1): {a_range}")
+        got = rg_ops.rglru_scan_fwd(a, b)
+        want = rg_ref.rglru_scan_ref(a, b)
+        exact = rg_ref.rglru_sequential_ref(a, b)
+        torch.cuda.synchronize()
+        scale = exact.abs().max().item()
+        tol = 1e-5 * max(1.0, scale)
+        err = (got - want).abs().max().item()
+        err_exact = (got.double() - exact).abs().max().item()
+        own = (want.double() - exact).abs().max().item()
+        check(bool(torch.isfinite(got).all()) and max(err, err_exact, own)
+              <= tol, f"rglru_scan_fwd {name}: {err} from the plain "
+                      f"version, {err_exact} from float64 (plain's own "
+                      f"{own}; bound {tol})")
+        del got, want, exact
+        ms = cuda_ms(lambda: rg_ops.rglru_scan_fwd(a, b), [()] * 20, torch)
+        plain_ms = cuda_ms(lambda: rg_ref.rglru_scan_ref(a, b), [()] * 3,
+                           torch)
+        # a and b read once, h written once (float32); an FMA per element
+        nbytes, flops = 12 * B * S * W, 2 * B * S * W
+        bound_ms, bound_by = bound_of(nbytes, flops, FP32_FLOPS)
+        row = dict(max_abs_err=err, err_vs_float64=err_exact,
+                   plain_err_vs_float64=own, scale=scale, ms=ms,
+                   plain_ms=plain_ms, library_ms=None,
+                   library_note="no single PyTorch call computes a linear "
+                                "recurrence",
+                   bytes=nbytes, flops=flops, bound_ms=bound_ms,
+                   bound_by=bound_by)
+        emit("kernels", kernel="rglru_scan_fwd", shape=name,
+             dims=dict(B=B, S=S, W=W), a_range=a_range, **row)
+        rows[name] = row
+        del a, b
     return rows
 
 
@@ -1139,6 +1270,154 @@ def phase_lm_forward_ssm(torch, dev):
     torch.cuda.empty_cache()
 
 
+# recurrentgemma-9b's forward through the RG-LRU and flash kernels against
+# the plain path (the log-step scan, dense attention) on the card.
+# float32: the same products in full float32 (TF32 off), the recurrence and
+# attention summed in other orders over 38 layers; bfloat16: those
+# differences flip roundings of the bfloat16 activations, as in gemma3-1b's
+# forward.  Bounds on logits of scale ~1-5: `LM_F32_ATOL` and `LM_BF16_*`.
+
+
+def expected_launches(cfg):
+    """{kernel: launches} of one forward or prefill of ``cfg``: one per
+    layer of each mixer that has a kernel."""
+    mixers = [cfg.layer_kind(i)[0] for i in range(cfg.num_layers)]
+    want = {"rglru_scan_fwd": mixers.count("rglru"),
+            "ssd_scan_fwd": mixers.count("ssd")}
+    want["flash_attention_fwd"] = (cfg.num_layers - want["rglru_scan_fwd"]
+                                   - want["ssd_scan_fwd"])
+    return {k: v for k, v in want.items() if v}
+
+
+def compare_sliced(torch, params, cfg, ha, hb, rows=1024):
+    """`compare_logits` of the logits of the hidden states ``ha`` and
+    ``hb`` (B, S, D), ``rows`` positions at a time, so that no more than
+    one slice of each float32 logit tensor lives at once; also the larger
+    |logit| of ``ha``."""
+    from repro_torch.models import logits_from_h
+    V = cfg.vocab_size
+    fa, fb = ha.reshape(-1, ha.shape[-1]), hb.reshape(-1, hb.shape[-1])
+    dmax = dsum = scale = 0.0
+    same = 0
+    for i in range(0, fa.shape[0], rows):
+        la = logits_from_h(params, fa[i:i + rows], cfg)[:, :V]
+        lb = logits_from_h(params, fb[i:i + rows], cfg)[:, :V]
+        d = (la - lb).abs()
+        dmax = max(dmax, d.max().item())
+        dsum += d.double().sum().item()
+        same += int((la.argmax(-1) == lb.argmax(-1)).sum())
+        scale = max(scale, la.abs().max().item())
+        del la, lb, d
+    n = fa.shape[0]
+    return (dmax, dsum / (n * V), same / n), scale
+
+
+def phase_lm_forward_rg(torch, dev, params):
+    """recurrentgemma-9b at full width and depth (38 layers: 26 RG-LRU and
+    12 local-attention layers of window 2048, d 4096, 16 q heads on 1 KV
+    head of head_dim 256, vocabulary 256000), random weights from a seed,
+    2 requests of 4096 `TokenPipeline` tokens, bfloat16: exactly 26
+    RG-LRU and 12 flash launches a forward, tokens/s, peak memory and a
+    profile; then the hidden states and every logit (in slices) against
+    the plain path (``impl="jnp"``, ``attn_impl="dense"``) in bfloat16
+    and float32."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward, logits_from_h
+    t_phase = time.perf_counter()
+    cfg = get_config(RG_ARCH)
+    tokens = lm_tokens(torch, dev, cfg, RG_BATCH, RG_SEQ)
+
+    @torch.inference_mode()
+    def run(c, impl="pallas"):
+        return forward(params, {"tokens": tokens}, c, impl=impl)
+
+    @torch.inference_mode()
+    def run_logits():
+        return logits_from_h(params, run(cfg), cfg)
+
+    run_logits()                                 # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    logits = run_logits()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: v for k, v in kernel_launches().items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    want = expected_launches(cfg)
+    check(launches == want == {"rglru_scan_fwd": 26,
+                               "flash_attention_fwd": 12},
+          f"lm_forward recurrentgemma: launches {launches}, expected "
+          f"{want}")
+    V = cfg.vocab_size
+    check(tuple(logits.shape) == (RG_BATCH, RG_SEQ, cfg.padded_vocab)
+          and bool(torch.isfinite(logits[..., :V]).all()),
+          f"lm_forward recurrentgemma: bad logits {tuple(logits.shape)}")
+    del logits
+    steady = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run_logits()
+        torch.cuda.synchronize()
+        steady.append(time.perf_counter() - t0)
+    device_s, n_launch, top = profiled(torch, run_logits)
+    emit("profile", path="lm_forward recurrentgemma",
+         device_seconds=device_s, wall_seconds=min(steady),
+         busy_share=device_s / min(steady), n_kernel_launches=n_launch,
+         top=top)
+    out = {}
+    for dname in ("bfloat16", "float32"):
+        c = cfg if dname == "bfloat16" else dataclasses.replace(
+            cfg, dtype="float32")
+        hk = run(c)
+        hp = run(dataclasses.replace(c, attn_impl="dense"), "jnp")
+        h_err = (hk.float() - hp.float()).abs().max().item()
+        with torch.inference_mode():
+            cmp, scale = compare_sliced(torch, params, c, hk, hp)
+        del hk, hp
+        out[dname] = dict(max_abs=cmp[0], mean_abs=cmp[1], top1_agree=cmp[2],
+                          hidden_max_abs=h_err, logit_scale=scale)
+    emit("lm_forward", model=cfg.name, params=cfg.param_count(),
+         batch=RG_BATCH, seq=RG_SEQ, seconds=seconds, steady_seconds=steady,
+         tokens_per_s=RG_BATCH * RG_SEQ / min(steady),
+         peak_mem_bytes=peak, launches=launches,
+         bf16_vs_plain=out["bfloat16"], f32_vs_plain=out["float32"],
+         phase_seconds=time.perf_counter() - t_phase)
+    f32, bf16 = out["float32"], out["bfloat16"]
+    check(f32["max_abs"] <= LM_F32_ATOL,
+          f"lm_forward recurrentgemma: float32 kernel vs plain logits "
+          f"differ by {f32['max_abs']}")
+    check(bf16["max_abs"] <= LM_BF16_ATOL and bf16["mean_abs"] <= LM_BF16_MEAN
+          and bf16["top1_agree"] >= LM_BF16_TOP1,
+          f"lm_forward recurrentgemma: bfloat16 kernel vs plain logits "
+          f"{bf16}")
+
+
+def phase_recurrentgemma(torch, dev):
+    """recurrentgemma-9b's parameters on the card from a seed (38.5 GB in
+    float32), its forward (`phase_lm_forward_rg`) and its generation
+    (`phase_lm_generate`: prompts of 2100 tokens, max_seq 2132); returns
+    the generation's bfloat16 launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = init_params(get_config(RG_ARCH), LM_SEED, device=dev)
+    torch.cuda.synchronize()
+    emit("lm_init", model=RG_ARCH, seconds=time.perf_counter() - t0,
+         param_bytes=torch.cuda.memory_allocated() - before)
+    phase_lm_forward_rg(torch, dev, params)
+    launches = phase_lm_generate(torch, dev, RG_ARCH, params=params,
+                                 n_prompt=RG_PROMPT)
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
 def cache_leaves(cache):
     """{path: (shape, dtype)} of a cache's tensors."""
     out = {}
@@ -1149,46 +1428,50 @@ def cache_leaves(cache):
     return out
 
 
-def phase_lm_generate(torch, dev, arch):
-    """``arch`` at full width and depth, random weights from a seed:
-    `init_cache`, then `prefill` of 4 prompts of 1000 `TokenPipeline`
-    tokens (max_seq 1032) and 32 `decode_step` calls fed the next 32
-    tokens of the same stream, in bfloat16 and in float32 (float32 KV
-    cache).  Prints prefill and decode tokens/s and peak memory; checks
-    the launch counts (gemma3-1b: one flash launch per layer in prefill,
-    one flash-decode launch per layer and step; mamba2-130m: one SSD
-    launch per layer in prefill, none in decode) and every logit against
-    `forward` of all 1032 tokens at the same position.  Returns the
-    bfloat16 run's launches (prefill and decode together)."""
+def phase_lm_generate(torch, dev, arch, params=None, n_prompt=GEN_PROMPT):
+    """``arch`` at full width and depth, random weights from a seed (or
+    ``params``): `init_cache`, then `prefill` of 4 prompts of ``n_prompt``
+    `TokenPipeline` tokens (max_seq ``n_prompt`` + 32) and 32 `decode_step`
+    calls fed the next 32 tokens of the same stream, in bfloat16 and in
+    float32 (float32 KV cache).  Prints prefill and decode tokens/s and
+    peak memory; checks the launch counts (in prefill one flash, SSD or
+    RG-LRU launch per layer of that mixer; in decode one flash-decode
+    launch per attention layer and step, nothing else) and every logit
+    against `forward` of all ``n_prompt`` + 32 tokens at the same
+    position.
+    Returns the bfloat16 run's launches (prefill and decode together)."""
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.models import (decode_step, forward, init_cache,
                                     init_params, logits_from_h, prefill)
+    t_phase = time.perf_counter()
     cfg = get_config(arch)
-    params = init_params(cfg, LM_SEED, device=dev)
-    tokens = lm_tokens(torch, dev, cfg, GEN_BATCH, GEN_MAX_SEQ)
-    prompt = {"tokens": tokens[:, :GEN_PROMPT]}
-    n_layers = cfg.num_layers
-    ssm = cfg.pattern[0][0] == "ssd"
-    want_pre = {"ssd_scan_fwd" if ssm else "flash_attention_fwd": n_layers}
-    want_dec = {} if ssm else {"decode_attention_fwd": n_layers * GEN_STEPS}
+    own = params is None
+    if own:
+        params = init_params(cfg, LM_SEED, device=dev)
+    max_seq = n_prompt + GEN_STEPS
+    tokens = lm_tokens(torch, dev, cfg, GEN_BATCH, max_seq)
+    prompt = {"tokens": tokens[:, :n_prompt]}
+    want_pre = expected_launches(cfg)
+    n_attn = want_pre.get("flash_attention_fwd", 0)
+    want_dec = ({"decode_attention_fwd": n_attn * GEN_STEPS} if n_attn
+                else {})
     V = cfg.vocab_size
     out = {}
     for dname in ("bfloat16", "float32"):
         c = cfg if dname == "bfloat16" else dataclasses.replace(
             cfg, dtype="float32", kv_cache_dtype="float32")
         with torch.inference_mode():
-            warm, _ = prefill(params, prompt, c, GEN_MAX_SEQ)
-            decode_step(params, tokens[:, GEN_PROMPT:GEN_PROMPT + 1], warm,
-                        c)
+            warm, _ = prefill(params, prompt, c, max_seq)
+            decode_step(params, tokens[:, n_prompt:n_prompt + 1], warm, c)
             del warm
-            empty = init_cache(c, GEN_BATCH, GEN_MAX_SEQ, device=dev)
+            empty = init_cache(c, GEN_BATCH, max_seq, device=dev)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             reset_launches()
             t0 = time.perf_counter()
-            cache, lg = prefill(params, prompt, c, GEN_MAX_SEQ)
+            cache, lg = prefill(params, prompt, c, max_seq)
             torch.cuda.synchronize()
             t_prefill = time.perf_counter() - t0
             pre = {k: v for k, v in kernel_launches().items() if v}
@@ -1198,8 +1481,8 @@ def phase_lm_generate(torch, dev, arch):
             for t in range(GEN_STEPS):
                 t0 = time.perf_counter()
                 lg, cache = decode_step(
-                    params, tokens[:, GEN_PROMPT + t:GEN_PROMPT + t + 1],
-                    cache, c)
+                    params, tokens[:, n_prompt + t:n_prompt + t + 1], cache,
+                    c)
                 torch.cuda.synchronize()
                 walls.append(time.perf_counter() - t0)
                 got.append(lg)
@@ -1209,30 +1492,30 @@ def phase_lm_generate(torch, dev, arch):
             check(cache_leaves(empty) == cache_leaves(cache),
                   f"lm_generate {arch}: init_cache and prefill disagree on "
                   f"the cache layout")
-            check(cache["index"] == GEN_MAX_SEQ,
+            check(cache["index"] == max_seq,
                   f"lm_generate {arch}: index {cache['index']}")
             check(pre == want_pre and dec == want_dec,
                   f"lm_generate {arch} {dname}: launches prefill {pre}, "
                   f"decode {dec}; expected {want_pre}, {want_dec}")
             h = forward(params, {"tokens": tokens}, c)
-            ref = logits_from_h(params, h[:, GEN_PROMPT - 1:], c)
+            ref = logits_from_h(params, h[:, n_prompt - 1:], c)
             del h
             got = torch.cat(got, dim=1)
             check(bool(torch.isfinite(got[..., :V]).all()),
                   f"lm_generate {arch} {dname}: logits not finite")
             cmp = compare_logits(got, ref, V)
-            if arch == "gemma3_1b" and dname == "bfloat16":
+            if arch in ("gemma3_1b", RG_ARCH) and dname == "bfloat16":
                 device_s, n_launch, top = profiled(torch, lambda: (
                     decode_step(params, tokens[:, -1:], cache, c)))
-                emit("profile", path="lm_generate gemma3-1b decode_step",
+                emit("profile", path=f"lm_generate {cfg.name} decode_step",
                      device_seconds=device_s, wall_seconds=min(walls),
                      busy_share=device_s / min(walls),
                      n_kernel_launches=n_launch, top=top)
             del cache, empty, got, ref
         emit("lm_generate", model=cfg.name, dtype=dname, batch=GEN_BATCH,
-             prompt=GEN_PROMPT, steps=GEN_STEPS, max_seq=GEN_MAX_SEQ,
+             prompt=n_prompt, steps=GEN_STEPS, max_seq=max_seq,
              prefill_seconds=t_prefill,
-             prefill_tokens_per_s=GEN_BATCH * GEN_PROMPT / t_prefill,
+             prefill_tokens_per_s=GEN_BATCH * n_prompt / t_prefill,
              decode_seconds=t_decode,
              decode_tokens_per_s=GEN_BATCH * GEN_STEPS / t_decode,
              step_ms=dict(first=walls[0] * 1e3,
@@ -1250,8 +1533,11 @@ def phase_lm_generate(torch, dev, arch):
             check_bf16(f"lm_generate {arch} vs forward", cmp)
             out = {k: pre.get(k, 0) + dec.get(k, 0)
                    for k in set(pre) | set(dec)}
-    del params
-    torch.cuda.empty_cache()
+    emit("lm_generate", model=cfg.name,
+         phase_seconds=time.perf_counter() - t_phase)
+    if own:
+        del params
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1381,6 +1667,7 @@ def main() -> int:
     from repro_torch.kernels.cckp_dp import ops as cckp_ops
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rglru_scan import ops as rg_ops
     from repro_torch.kernels.simplex_pivot import ops, ref
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
 
@@ -1393,7 +1680,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     libs = [ops.LIBRARY, cckp_ops.LIBRARY, fa_ops.LIBRARY, ssd_ops.LIBRARY,
-            da_ops.LIBRARY]
+            da_ops.LIBRARY, rg_ops.LIBRARY]
     built = _build.build_many(libs)
     for lib in libs:
         lib.load()
@@ -1404,10 +1691,13 @@ def main() -> int:
              library=os.path.relpath(path, ROOT), ptxas=ptxas)
     emit("build", seconds=time.perf_counter() - t0)
 
+    t_kernels = time.perf_counter()
     rows = phase_kernels(torch, ops, ref, dev)
     flash_rows = phase_flash_kernel(torch, dev)
     ssd_rows = phase_ssd_kernel(torch, dev)
     decode_rows = phase_decode_kernel(torch, dev)
+    rglru_rows = phase_rglru_kernel(torch, dev)
+    emit("kernels", phase_seconds=time.perf_counter() - t_kernels)
     params = build_params(dev)
     launches = phase_rollout(torch, ops, dev, params)
     phase_front(torch, dev)
@@ -1423,6 +1713,9 @@ def main() -> int:
         torch, dev, "mamba2_130m")["ssd_scan_fwd"]
     rows["ssd_scan_fwd"] = ssd_rows["bfloat16"]
     rows["decode_attention_fwd"] = decode_rows[DECODE_LINE]
+    launches["rglru_scan_fwd"] = phase_recurrentgemma(
+        torch, dev)["rglru_scan_fwd"]
+    rows["rglru_scan_fwd"] = rglru_rows[RGLRU_LINE]
     phase_parity()
     seconds = phase_timing(torch, dev, params)
     phase_profile(torch, dev, params, seconds, serve_seconds)
@@ -1433,12 +1726,14 @@ def main() -> int:
               "cckp_model_dp":
                   "src/repro_torch/kernels/cckp_dp/csrc/cckp_dp.cu",
               "flash_attention_fwd": FLASH_SRC, "ssd_scan_fwd": SSD_SRC,
-              "decode_attention_fwd": DECODE_SRC}
+              "decode_attention_fwd": DECODE_SRC,
+              "rglru_scan_fwd": RGLRU_SRC}
     replaces = {"simplex_pivot": f"{simplex_tpu}:57",
                 "reduced_pivot": f"{simplex_tpu}:146",
                 "cckp_model_dp": "src/repro/kernels/cckp_dp/cckp_dp.py:57",
                 "flash_attention_fwd": FLASH_TPU, "ssd_scan_fwd": SSD_TPU,
-                "decode_attention_fwd": DECODE_TPU}
+                "decode_attention_fwd": DECODE_TPU,
+                "rglru_scan_fwd": RGLRU_TPU}
     kernels = [dict(name=name, route="cuda", source=source[name],
                     replaces=replaces[name], launches=launches[name],
                     max_abs_err=row["max_abs_err"], ms=row["ms"],

@@ -3,10 +3,10 @@
 The port of `repro.configs`.  Each ported module defines CONFIG (full
 size) and SMOKE (reduced, same family), field for field the reference's.
 Ported so far: the dense LMs the serving path runs, `paper_edge` (the
-paper's MobileNet-ladder analogue) and `gemma3_1b`, and the SSM
-`mamba2_130m`.  Asking for another
-architecture of the reference raises `NotImplementedError` naming the
-ROADMAP item that ports it.
+paper's MobileNet-ladder analogue) and `gemma3_1b`, the SSM
+`mamba2_130m` and the hybrid `recurrentgemma_9b` (RG-LRU and local
+attention).  Asking for another architecture of the reference raises
+`NotImplementedError` naming the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -27,11 +27,10 @@ ARCHS: List[str] = [
     "paper_edge",          # the paper's own MobileNet-ladder analogue
 ]
 
-PORTED = ("gemma3_1b", "paper_edge", "mamba2_130m")
+PORTED = ("gemma3_1b", "paper_edge", "mamba2_130m", "recurrentgemma_9b")
 
 _ITEM = "ROADMAP §1 item 12"
 _NOT_PORTED = {
-    "recurrentgemma_9b": f"{_ITEM}: recurrentgemma with rglru_scan",
     "granite_moe_3b_a800m": f"{_ITEM}: moe",
     "granite_moe_1b_a400m": f"{_ITEM}: moe",
     "whisper_base": f"{_ITEM}: enc-dec",

@@ -1,10 +1,11 @@
-"""Layers of the LM: the port of `repro.models.layers` up to the SSD
-mixer and the KV cache (forward, prefill and one-token decode).
+"""Layers of the LM: the port of `repro.models.layers` up to the SSD and
+RG-LRU mixers and the KV cache (forward, prefill and one-token decode).
 
 Numerics follow the reference: parameters live in ``param_dtype``
 (float32) and are cast to the compute ``dtype`` (bfloat16 by default) at
 each use; norms accumulate in float32, attention scores and softmax run in
-float32, the SSD scan and its state in float32.
+float32, the SSD scan, the RG-LRU gates and recurrence and their states
+in float32.
 
 Attention (`attention`, and `attn_decode` on the KV cache) has two
 implementations, chosen by ``cfg.attn_impl``:
@@ -20,21 +21,27 @@ implementations, chosen by ``cfg.attn_impl``:
 
 The SSD mixer (`ssd_apply`) takes ``impl``: ``"pallas"`` runs the SSD
 scan kernel (`kernels.ssd_scan`; its plain version on a CPU tensor),
-``"jnp"`` the chunked plain path (`ssd_scan_chunked`).  One-token decode
-(`ssd_decode`) is a plain state update in both packages.
+``"jnp"`` the chunked plain path (`ssd_scan_chunked`).  The RG-LRU mixer
+(`rglru_apply`) takes ``impl`` the same way: ``"pallas"`` runs the
+recurrence kernel (`kernels.rglru_scan`; its plain version on a CPU
+tensor), ``"jnp"`` the plain log-step scan (`rglru_scan_ref`); the
+reference inlines its scan (`jax.lax.associative_scan`) and reaches its
+Pallas kernel only through `kernels/rglru_scan/ops.py`.  One-token decode
+(`ssd_decode`, `rglru_decode`) is a plain state update in both packages.
 
 Block functions return ``(x, cache)`` as the reference's do; the cache is
 None unless ``want_cache`` (prefill).  The one-token decode functions
 write the new K/V row into the ring cache in place (PyTorch's idiom; the
 reference rewrites the whole ring with a one-hot select only for the
-TPU's SPMD partitioner) and return the cache dict with the new SSD state.
+TPU's SPMD partitioner) and return the cache dict with the new SSD or
+RG-LRU state.
 
 The reference's sharding constraints (`shard_activation`) and backward
 dtype barrier (`grad_dtype_barrier`) are no-ops in a forward pass on one
 card and are not ported.  Parameter definitions map names to shapes (the
-reference's logical sharding axes are dropped).  MoE FFNs, the RG-LRU
-mixer and cross-attention raise `NotImplementedError` naming the ROADMAP
-item that ports them.
+reference's logical sharding axes are dropped).  MoE FFNs and
+cross-attention raise `NotImplementedError` naming the ROADMAP item that
+ports them.
 """
 from __future__ import annotations
 
@@ -46,6 +53,8 @@ import torch.nn.functional as F
 from ..kernels.decode_attention.ops import decode_attention
 from ..kernels.decode_attention.ref import ring_validity
 from ..kernels.flash_attention.ops import flash_attention
+from ..kernels.rglru_scan.ops import rglru_scan
+from ..kernels.rglru_scan.ref import rglru_scan_ref
 from ..kernels.ssd_scan.ops import ssd_scan
 from ..kernels.ssd_scan.ref import ssd_chunked_ref
 from .config import ModelConfig
@@ -56,10 +65,9 @@ FLASH_IMPLS = ("auto", "chunked", "pallas")
 _ITEM = "ROADMAP §1 item 12"
 NOT_PORTED = {
     "moe": f"{_ITEM}: moe",
-    "rglru": f"{_ITEM}: recurrentgemma with rglru_scan",
     "cross": f"{_ITEM}: enc-dec",
 }
-SSD_IMPLS = ("pallas", "jnp")
+SCAN_IMPLS = ("pallas", "jnp")
 
 
 def not_ported(what: str) -> NotImplementedError:
@@ -384,7 +392,7 @@ def ssd_apply(p, x, cfg: ModelConfig, impl: str = "pallas",
     elif impl == "jnp":
         y, final_state = ssd_scan_chunked(xs, dt, A, B_, C_, cfg.ssm_chunk)
     else:
-        raise ValueError(f"impl {impl!r}; the port has {SSD_IMPLS}")
+        raise ValueError(f"impl {impl!r}; the port has {SCAN_IMPLS}")
     y = y + xs.float() * p["D_skip"].float()[:, None]
     y = y.reshape(x.shape[0], x.shape[1], cfg.d_inner)
     y = rms_norm(y.to(x.dtype) * F.silu(z), p["gnorm"], cfg.norm_eps)
@@ -415,12 +423,92 @@ def ssd_decode(p, x, cache, cfg: ModelConfig, index: int):
 
 
 # ---------------------------------------------------------------------------
+# RG-LRU block (RecurrentGemma recurrent block)
+# ---------------------------------------------------------------------------
+def rglru_param_defs(cfg: ModelConfig) -> Shapes:
+    D, W, H = cfg.d_model, cfg.lru_width, cfg.num_heads
+    bw = W // H
+    return {"norm": (D,), "wx": (D, W), "wy": (D, W),
+            "conv_w": (cfg.conv_width, W), "gate_a": (H, bw, bw),
+            "gate_x": (H, bw, bw), "a_param": (W,), "wout": (W, D)}
+
+
+_LRU_C = 8.0
+
+
+def _rglru_gates(p, x):
+    """x (..., W) -> (a, gated input), both float32: the recurrence
+    coefficient a = exp(log_a) and sqrt(1 - a^2) i x, with the gates r and
+    i block-diagonal per head."""
+    H, bw, _ = p["gate_a"].shape
+    xs = x.reshape(x.shape[:-1] + (H, bw)).float()
+    r = torch.sigmoid(torch.einsum("...hb,hbc->...hc", xs,
+                                   p["gate_a"].float()))
+    i = torch.sigmoid(torch.einsum("...hb,hbc->...hc", xs,
+                                   p["gate_x"].float()))
+    r = r.reshape(x.shape)
+    i = i.reshape(x.shape)
+    a_param = p["a_param"].float()
+    # jax.nn.softplus is logaddexp(x, 0)
+    log_a = -_LRU_C * torch.logaddexp(a_param, torch.zeros_like(a_param)) * r
+    a = torch.exp(log_a)
+    mult = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
+    gated = mult * (i * x.float())
+    return a, gated
+
+
+def _rglru_inputs(p, x, cfg: ModelConfig, conv_state=None):
+    """Shared norm + projections + conv + gates of forward and decode:
+    (a, gated input, the output gate, the new conv state)."""
+    h = rms_norm(x, p["norm"], cfg.norm_eps)
+    dt = x.dtype
+    u = h @ p["wx"].to(dt)                                 # (B, S, W)
+    # jax.nn.gelu defaults to the tanh approximation
+    ygate = F.gelu(h @ p["wy"].to(dt), approximate="tanh")
+    u, new_conv = _causal_conv(u, p["conv_w"], state=conv_state)
+    a, b = _rglru_gates(p, u)                              # float32
+    return a, b, ygate, new_conv
+
+
+def rglru_apply(p, x, cfg: ModelConfig, impl: str = "pallas",
+                want_cache: bool = False):
+    """Full-sequence recurrent block (pre-norm, residual).
+    ``impl="pallas"`` runs the recurrence kernel, ``"jnp"`` the plain
+    log-step scan.  Returns ``(x, cache)``; the cache holds the last
+    hidden state (B, W) float32 and the conv state (B, K - 1, W)."""
+    a, b, ygate, conv_state = _rglru_inputs(p, x, cfg)
+    if impl == "pallas":
+        hseq = rglru_scan(a, b)
+    elif impl == "jnp":
+        hseq = rglru_scan_ref(a, b)
+    else:
+        raise ValueError(f"impl {impl!r}; the port has {SCAN_IMPLS}")
+    dt = x.dtype
+    y = (hseq.to(dt) * ygate) @ p["wout"].to(dt)
+    # copies, so the cache does not keep the whole sequence alive
+    cache = ({"state": hseq[:, -1].contiguous(),
+              "conv": conv_state.contiguous()} if want_cache else None)
+    return x + y, cache
+
+
+def rglru_decode(p, x, cache, cfg: ModelConfig, index: int):
+    """One-token RG-LRU step.  cache: {"state": (B, W) float32, "conv":
+    (B, K - 1, W)}.  Returns ``(x, new cache)``."""
+    a, b, ygate, conv_state = _rglru_inputs(p, x, cfg,
+                                            conv_state=cache["conv"])
+    state = a[:, 0] * cache["state"] + b[:, 0]
+    dt = x.dtype
+    y = (state[:, None].to(dt) * ygate) @ p["wout"].to(dt)
+    return x + y, {"state": state, "conv": conv_state}
+
+
+# ---------------------------------------------------------------------------
 # block dispatcher
 # ---------------------------------------------------------------------------
 def block_param_defs(cfg: ModelConfig, mixer: str, ffn: str) -> Shapes:
     if mixer == "rglru":
-        raise not_ported("rglru")
-    if mixer == "ssd":
+        defs = dict(rglru_param_defs(cfg))
+    elif mixer == "ssd":
         defs = dict(ssd_param_defs(cfg))
     else:
         defs = dict(attn_param_defs(cfg, cross=(mixer == "dec")))
@@ -433,10 +521,11 @@ def block_apply(p, x, mixer: str, ffn: str, cfg: ModelConfig, positions,
                 max_seq: int = 0):
     """One layer: the mixer, then the FFN.  Returns ``(x, cache)`` — the
     cache is None unless ``want_cache`` (prefill).  ``impl`` chooses the
-    SSD scan (attention follows ``cfg.attn_impl``)."""
+    SSD scan and the RG-LRU recurrence (attention follows
+    ``cfg.attn_impl``)."""
     if mixer == "rglru":
-        raise not_ported("rglru")
-    if mixer == "ssd":
+        x, cache = rglru_apply(p, x, cfg, impl=impl, want_cache=want_cache)
+    elif mixer == "ssd":
         x, cache = ssd_apply(p, x, cfg, impl=impl, want_cache=want_cache)
     else:
         x, cache = attn_apply(p, x, mixer, cfg, positions, enc_out=enc_out,
@@ -449,8 +538,8 @@ def block_decode(p, x, cache, mixer: str, ffn: str, cfg: ModelConfig,
     """One layer of one-token decode: ``(x, cache)`` after the mixer and
     the FFN."""
     if mixer == "rglru":
-        raise not_ported("rglru")
-    if mixer == "ssd":
+        x, cache = rglru_decode(p, x, cache, cfg, index)
+    elif mixer == "ssd":
         x, cache = ssd_decode(p, x, cache, cfg, index)
     else:
         x, cache = attn_decode(p, x, cache, mixer, cfg, index,

@@ -12,11 +12,11 @@ of the next token — a Python int here (a device scalar would cost a host
 sync in every layer to find the ring slot).  Where the reference scans
 over the stacked cycles (`lax.scan`), the port runs a Python loop over
 them and then over the tail.  A plain large matrix product (the
-projections, ``h @ unembed``) stays `torch.matmul`; attention and the SSD
-scan are the hand-written kernels (`layers`).
+projections, ``h @ unembed``) stays `torch.matmul`; attention, the SSD
+scan and the RG-LRU recurrence are the hand-written kernels (`layers`).
 
-MoE, RG-LRU, the encoder, the loss and training are not ported yet
-(ROADMAP §1 item 12).
+MoE, the encoder, the loss and training are not ported yet (ROADMAP §1
+item 12).
 """
 from __future__ import annotations
 
@@ -111,11 +111,13 @@ def forward(params: Params, batch, cfg: ModelConfig, *,
     """Final hidden states (B, S, D) in the compute dtype — logits via
     `logits_from_h`.  ``batch["tokens"]`` is (B, S) integers.
 
-    ``impl`` chooses the SSD scan, with the reference's values: ``"pallas"``
-    is the hand-written kernel (its plain version on a CPU tensor),
-    ``"jnp"`` the chunked plain path.  The port defaults to the kernel, as
+    ``impl`` chooses the SSD scan and the RG-LRU recurrence, with the
+    reference's values: ``"pallas"`` is the hand-written kernel (its plain
+    version on a CPU tensor), ``"jnp"`` the plain path (the chunked SSD
+    scan, the log-step RG-LRU scan).  The port defaults to the kernel, as
     its ``attn_impl="auto"`` does for attention; the reference defaults to
-    ``"jnp"``.  Attention follows ``cfg.attn_impl``."""
+    ``"jnp"`` (and always inlines its RG-LRU scan).  Attention follows
+    ``cfg.attn_impl``."""
     x, positions = _start(params, batch, cfg)
     for (mixer, ffn), layer in _layers(params, cfg):
         x, _ = block_apply(layer, x, mixer, ffn, cfg, positions, impl=impl)
@@ -159,7 +161,9 @@ def logits_from_h(params: Params, h: torch.Tensor, cfg: ModelConfig
 def _block_cache_shape(cfg: ModelConfig, mixer: str, B: int, max_seq: int):
     """{name: (shape, dtype)} of one layer's cache."""
     if mixer == "rglru":
-        raise not_ported("rglru")
+        W = cfg.lru_width
+        return {"state": ((B, W), torch.float32),
+                "conv": ((B, cfg.conv_width - 1, W), torch_dtype(cfg.dtype))}
     if mixer == "ssd":
         H = cfg.ssm_heads
         P = cfg.d_inner // H
@@ -232,9 +236,9 @@ def decode_step(params: Params, tokens, cache: Params, cfg: ModelConfig
 
     Unlike the reference, which returns a new cache, this updates the
     cache in place — the K/V rows are written into their ring slots and
-    the SSD states and conv windows overwritten — and returns it with
-    ``index`` advanced: a cache decoded from no longer holds the state it
-    had before the call."""
+    the SSD and RG-LRU states and conv windows overwritten — and returns
+    it with ``index`` advanced: a cache decoded from no longer holds the
+    state it had before the call."""
     table = params["embed"]
     tok = torch.as_tensor(tokens, device=table.device).long()
     x = table[tok].to(torch_dtype(cfg.dtype))
@@ -242,7 +246,7 @@ def decode_step(params: Params, tokens, cache: Params, cfg: ModelConfig
     for ((mixer, ffn), layer), (_kind, views) in zip(_layers(params, cfg),
                                                      _layers(cache, cfg)):
         x, new = block_decode(layer, x, views, mixer, ffn, cfg, index)
-        for name, t in new.items():       # the SSD state and conv window
+        for name, t in new.items():       # recurrent states, conv windows
             if t is not views[name]:
                 views[name].copy_(t)
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)

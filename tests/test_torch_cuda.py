@@ -1,6 +1,7 @@
 """The port on a CUDA card: each kernel against its plain version, a
-small rollout, a small host `FleetEngine` run and a 2-layer LM forward on
-the card against the same runs on the CPU.
+small rollout, a small host `FleetEngine` run, a 2-layer LM forward,
+recurrentgemma's 2-cycle SMOKE forward and the SMOKE models' generation
+on the card against the same runs on the CPU.
 
 Every test here is marked ``gpu`` and skips (with the reason) where no
 card is visible.  The file imports no JAX — it compares the port with
@@ -28,7 +29,10 @@ alone gives the card's difference from the plain version to the last
 bit); the flash-decode kernel
 as the flash kernel (1e-5 in float32, 2^-7 in bfloat16: p is rounded
 against a running max per 32-key block); the small generation run's
-float32 logits to 1e-4, as the forward's.
+float32 logits to 1e-4, as the forward's; the RG-LRU recurrence kernel
+and its plain log-step scan each to 1e-5 max(1, max |h|) of the float64
+recurrence, and to that of each other (0 < a < 1: the recurrence is
+contractive, so float32 stays within a few roundings of |h|).
 """
 import dataclasses
 
@@ -43,6 +47,8 @@ from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.decode_attention import ref as da_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
+from repro_torch.kernels.rglru_scan import ops as rg_ops
+from repro_torch.kernels.rglru_scan import ref as rg_ref
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan import ref as ssd_ref
 from repro_torch.models import (decode_step, forward, init_params,
@@ -281,6 +287,8 @@ FLASH_CASES = [  # (B*KH, G, Sq, Sk, D, mask_kind, window)
     (2, 4, 130, 130, 256, "window", 33),
     (3, 1, 70, 45, 16, "none", 0),
     (2, 2, 96, 96, 128, "window", 200),
+    (2, 16, 200, 200, 256, "window", 64),    # recurrentgemma: 16 q on 1 KV
+    (1, 16, 130, 130, 256, "causal", 0),
 ]
 
 
@@ -455,6 +463,8 @@ DECODE_CASES = [  # (rows, W, G, D, q dtype, kv dtype)
     (3, 100, 6, 16, torch.bfloat16, torch.float32),
     (3, 64, 1, 64, torch.float32, torch.float32),
     (1, 7, 9, 96, torch.bfloat16, torch.bfloat16),
+    (4, 2048, 16, 256, torch.bfloat16, torch.bfloat16),  # recurrentgemma
+    (4, 2048, 16, 256, torch.float32, torch.float32),    # local, group 16
 ]
 
 
@@ -484,7 +494,7 @@ def test_cuda_decode_kernel_matches_plain_version(cuda_device, monkeypatch,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,KH,G", [(1, 1, 4), (2, 2, 2)])
+@pytest.mark.parametrize("B,KH,G", [(1, 1, 4), (2, 2, 2), (2, 1, 16)])
 def test_cuda_decode_model_entry_reads_the_cache_in_place(cuda_device,
                                                          monkeypatch, B,
                                                          KH, G):
@@ -507,13 +517,14 @@ def test_cuda_decode_model_entry_reads_the_cache_in_place(cuda_device,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["gemma3_1b", "mamba2_130m"])
+@pytest.mark.parametrize("arch", ["gemma3_1b", "mamba2_130m",
+                                  "recurrentgemma_9b"])
 def test_cuda_generate_matches_cpu_generate(cuda_device, monkeypatch, arch):
     """The SMOKE model's prefill of 12 tokens and 4 decode steps on the
-    card (the flash, flash-decode and SSD kernels) against the same on
-    the CPU (their plain versions), float32 with a float32 KV cache: one
-    flash-decode launch per attention layer and step, one SSD launch per
-    SSD layer and prefill, none per decode step."""
+    card (the flash, flash-decode, SSD and RG-LRU kernels) against the
+    same on the CPU (their plain versions), float32 with a float32 KV
+    cache: one flash-decode launch per attention layer and step, one SSD
+    or RG-LRU launch per such layer and prefill, none per decode step."""
     cfg = dataclasses.replace(configs.get_smoke_config(arch),
                               dtype="float32", kv_cache_dtype="float32",
                               attn_impl="auto")
@@ -526,30 +537,136 @@ def test_cuda_generate_matches_cpu_generate(cuda_device, monkeypatch, arch):
         cache, lg = prefill(params, {"tokens": toks[:, :12]}, cfg,
                             max_seq=16)
         out = [lg.cpu()]
-        counts = [(da_ops.decode_attention_fwd.launches,
-                   ssd_ops.ssd_scan_fwd.launches)]
+        counts = [_generate_launches()]
         for t in range(4):
             lg, cache = decode_step(params, toks[:, 12 + t:13 + t], cache,
                                     cfg)
             out.append(lg.cpu())
-            counts.append((da_ops.decode_attention_fwd.launches,
-                           ssd_ops.ssd_scan_fwd.launches))
+            counts.append(_generate_launches())
         return out, counts
 
     want, _ = run(cpu_params, "cpu")
     for mod, name in ((da_ops, "decode_attention_ref"),
                       (ssd_ops, "ssd_chunked_ref"),
-                      (fa_ops, "attention_ref")):
+                      (fa_ops, "attention_ref"),
+                      (rg_ops, "rglru_scan_ref")):
         monkeypatch.setattr(mod, name, _fail_if_called)
     params = convert.model_params_from_numpy(_numpy_tree(cpu_params),
                                              cuda_device)
-    da_ops.reset_launches()
-    ssd_ops.reset_launches()
+    for mod in (da_ops, ssd_ops, rg_ops):
+        mod.reset_launches()
     got, counts = run(params, cuda_device)
-    n_ssd = sum(m == "ssd" for m, _f in (cfg.layer_kind(i)
-                                         for i in range(cfg.num_layers)))
-    n_attn = cfg.num_layers - n_ssd
-    assert counts == [(n_attn * t, n_ssd) for t in range(5)]
+    mixers = [cfg.layer_kind(i)[0] for i in range(cfg.num_layers)]
+    n_ssd, n_rg = mixers.count("ssd"), mixers.count("rglru")
+    n_attn = cfg.num_layers - n_ssd - n_rg
+    assert counts == [(n_attn * t, n_ssd, n_rg) for t in range(5)]
     V = cfg.vocab_size
     for g, w in zip(got, want):
         assert (g[..., :V] - w[..., :V]).abs().max().item() <= 1e-4
+
+
+def _generate_launches():
+    return (da_ops.decode_attention_fwd.launches,
+            ssd_ops.ssd_scan_fwd.launches, rg_ops.rglru_scan_fwd.launches)
+
+
+# ---------------------------------------------------------------------------
+# recurrentgemma: the RG-LRU recurrence kernel
+# ---------------------------------------------------------------------------
+RGLRU_CASES = [  # (B, S, W, a's lower end)
+    (2, 1000, 256, 0.0),
+    (1, 1, 64, 0.0),                     # one step
+    (1, 333, 77, 0.9),                   # ragged S and W, slow decay
+    (3, 40, 4096, 0.0),                  # recurrentgemma-9b's width
+    (1, 2100, 33, 0.99),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", RGLRU_CASES)
+def test_cuda_rglru_kernel_matches_plain_version(cuda_device, monkeypatch,
+                                                 case):
+    """The kernel against the plain log-step scan (on the CPU) and the
+    float64 recurrence, both within 1e-5 max(1, max |h|): one launch."""
+    B, S, W, lo = case
+    g = torch.Generator().manual_seed(S + W)
+    a = lo + (1.0 - lo) * torch.rand(B, S, W, generator=g)
+    b = torch.randn(B, S, W, generator=g)
+    want = rg_ops.rglru_scan_fwd(a, b)
+    exact = rg_ref.rglru_sequential_ref(a, b)
+    monkeypatch.setattr(rg_ops, "rglru_scan_ref", _fail_if_called)
+    rg_ops.reset_launches()
+    got = rg_ops.rglru_scan_fwd(a.to(cuda_device), b.to(cuda_device))
+    torch.cuda.synchronize()
+    assert rg_ops.rglru_scan_fwd.launches == 1
+    got = got.cpu()
+    assert got.dtype == torch.float32 and got.shape == (B, S, W)
+    tol = 1e-5 * max(1.0, exact.abs().max().item())
+    assert (got.double() - exact).abs().max().item() <= tol
+    assert (got - want).abs().max().item() <= tol
+
+
+@pytest.mark.gpu
+def test_cuda_rglru_wrapper_checks_its_inputs(cuda_device, monkeypatch):
+    """Refused inputs raise before a launch; a launcher error raises and
+    leaves the counter as it was."""
+    a = torch.rand(2, 8, 4, device=cuda_device)
+    rg_ops.reset_launches()
+    with pytest.raises(TypeError, match="float32"):
+        rg_ops.rglru_scan_fwd(a.bfloat16(), a.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        rg_ops.rglru_scan_fwd(a.transpose(1, 2).contiguous()
+                              .transpose(1, 2), a)
+    with pytest.raises(ValueError, match="expected"):
+        rg_ops.rglru_scan_fwd(a, a.cpu())
+    assert rg_ops.rglru_scan_fwd(a[:, :0], a[:, :0]).shape == (2, 0, 4)
+    assert rg_ops.rglru_scan_fwd.launches == 0
+    rg_ops.rglru_scan_fwd(a, a)
+    assert rg_ops.rglru_scan_fwd.launches == 1
+
+    class Refusing:
+        @staticmethod
+        def rglru_scan_fwd_launch(*_args):
+            return 1                              # cudaErrorInvalidValue
+
+    monkeypatch.setattr(rg_ops, "library", lambda: Refusing)
+    with pytest.raises(RuntimeError, match="rglru_scan_fwd launch failed"):
+        rg_ops.rglru_scan_fwd(a, a)
+    assert rg_ops.rglru_scan_fwd.launches == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_recurrentgemma_forward_matches_cpu_forward(cuda_device,
+                                                         monkeypatch, dtype):
+    """recurrentgemma's 2-cycle SMOKE model (6 RG-LRU and 2 local
+    attention layers, 4 q heads on 1 KV head) through the RG-LRU and flash
+    kernels on the card against the plain versions on the CPU: one launch
+    per layer of each kind.  float32 logits to 1e-4 as the other forwards;
+    bfloat16 (scale ~4) to 0.25 and top-1 on 85% of positions."""
+    cfg = dataclasses.replace(configs.get_smoke_config("recurrentgemma_9b"),
+                              dtype=dtype, attn_impl="auto")
+    cpu_params = init_params(cfg, 3, device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 40),
+                           generator=torch.Generator().manual_seed(3))
+    want = logits_from_h(cpu_params, forward(cpu_params, {"tokens": tokens},
+                                             cfg), cfg)
+    monkeypatch.setattr(fa_ops, "attention_ref", _fail_if_called)
+    monkeypatch.setattr(rg_ops, "rglru_scan_ref", _fail_if_called)
+    params = convert.model_params_from_numpy(_numpy_tree(cpu_params),
+                                             cuda_device)
+    fa_ops.reset_launches()
+    rg_ops.reset_launches()
+    got = logits_from_h(params, forward(params, {"tokens": tokens}, cfg),
+                        cfg).cpu()
+    assert (rg_ops.rglru_scan_fwd.launches,
+            fa_ops.flash_attention_fwd.launches) == (6, 2)
+    V = cfg.vocab_size
+    err = (got[..., :V] - want[..., :V]).abs()
+    if dtype == "float32":
+        assert err.max().item() <= 1e-4, err.max().item()
+    else:
+        top1 = (got[..., :V].argmax(-1) == want[..., :V].argmax(-1))
+        assert err.max().item() <= 0.25 and \
+            top1.float().mean().item() >= 0.85
+    assert torch.equal(got[..., V:], want[..., V:])

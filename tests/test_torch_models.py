@@ -229,7 +229,7 @@ def test_unported_parts_raise_not_implemented():
                       vocab_size=64, pattern=(("full", "moe"),),
                       num_experts=4, experts_per_token=2, moe_d_ff=16)
     for cfg in (moe,
-                dataclasses.replace(moe, pattern=(("rglru", "gelu"),)),
+                dataclasses.replace(moe, pattern=(("rglru", "moe"),)),
                 dataclasses.replace(moe, pattern=(("dec", "gelu"),)),
                 dataclasses.replace(moe, pattern=(("full", "gelu"),),
                                     encoder_layers=1)):
@@ -240,8 +240,8 @@ def test_unported_parts_raise_not_implemented():
     layer = {k: v[0] for k, v in p["blocks"][0].items()}
     x = torch.zeros((1, 4, cfg.d_model))
     pos = torch.arange(4)
-    with pytest.raises(NotImplementedError, match="rglru_scan"):
-        layers.block_apply(layer, x, "rglru", "swiglu", cfg, pos,
+    with pytest.raises(NotImplementedError, match="enc-dec"):
+        layers.block_apply(layer, x, "dec", "swiglu", cfg, pos, enc_out=x,
                            want_cache=True)
     with pytest.raises(NotImplementedError, match="enc-dec"):
         layers.attn_apply(layer, x, "dec", cfg, pos, enc_out=x)
