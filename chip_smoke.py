@@ -25,7 +25,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
               relative and absolute).  Kernel and plain times (CUDA
               events) beside each bound; for flash attention also the
               time of `scaled_dot_product_attention` on the same inputs
-              (the library column, never on the port's path).  The SSD
+              (the library column, never on the port's path), and for
+              flash attention and flash-decode each row's TFLOP/s and
+              bound share (bound ms / ms).  The SSD
               scan kernel at mamba2-130m's shapes (8 x 2048 tokens, 24
               heads, P 64, N 128, chunk 256, decays past exp's float32
               overflow) in bfloat16 and float32, held with its plain
@@ -231,11 +233,14 @@ def bound_of(nbytes, flops, peak=FP64_FLOPS):
                                  else "operations")
 
 
-def cuda_ms(fn, inputs, torch) -> float:
+def cuda_ms(fn, inputs, torch, warm_up=False) -> float:
     """Mean milliseconds of ``fn(*args)`` over ``inputs`` (one argument
-    tuple per call, so in-place kernels never see their own output)."""
+    tuple per call, so in-place kernels never see their own output), after
+    one untimed call with the first tuple where ``warm_up`` is set."""
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    if warm_up:
+        fn(*inputs[0])
     torch.cuda.synchronize()
     start.record()
     for args in inputs:
@@ -469,7 +474,7 @@ def phase_flash_kernel(torch, dev):
                   f"plain version (max {err})")
             del got, want
             ms = cuda_ms(lambda: fa_ops.flash_attention_fwd(q, k, v, **kw),
-                         [()] * 10, torch)
+                         [()] * 10, torch, warm_up=True)
             plain_ms = cuda_ms(lambda: fa_ref.attention_ref(q, k, v, **kw),
                                [()] * 3, torch)
             # the library's call on the same inputs: (B, H, S, D) views,
@@ -486,7 +491,7 @@ def phase_flash_kernel(torch, dev):
             lib_err = (library().reshape(q.shape).float()
                        - fa_ref.attention_ref(q, k, v, **kw).float()
                        ).abs().max().item()
-            library_ms = cuda_ms(library, [()] * 10, torch)
+            library_ms = cuda_ms(library, [()] * 10, torch, warm_up=True)
             nbytes, flops = flash_work(B, Sq, Sk, H, KH, D, mask, window,
                                        q.element_size())
             bound_ms, bound_by = bound_of(
@@ -495,7 +500,8 @@ def phase_flash_kernel(torch, dev):
             row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                        library_ms=library_ms, library_max_abs_err=lib_err,
                        bytes=nbytes, flops=flops, bound_ms=bound_ms,
-                       bound_by=bound_by)
+                       bound_by=bound_by, tflops=flops / ms * 1e-9,
+                       bound_share=bound_ms / ms)
             emit("kernels", kernel="flash_attention_fwd", shape=name,
                  dtype=dname, dims=dict(B=B, Sq=Sq, Sk=Sk, H=H, KH=KH, D=D,
                                         mask=mask, window=window), **row)
@@ -1048,7 +1054,8 @@ def phase_decode_kernel(torch, dev):
                   f"decode_attention_fwd {name} {dname} disagrees with its "
                   f"plain version (max {err})")
             ms = cuda_ms(lambda: da_ops.decode_attention(
-                q, ck, cv, index, window=window), [()] * 50, torch)
+                q, ck, cv, index, window=window), [()] * 50, torch,
+                warm_up=True)
             plain_ms = cuda_ms(lambda: da_ref.decode_attention_ref(
                 qg, kf, vf, valid), [()] * 10, torch)
             qq = q.transpose(1, 2)                          # (B, H, 1, D)
@@ -1061,7 +1068,7 @@ def phase_decode_kernel(torch, dev):
 
             lib_err = (library().transpose(1, 2).float()
                        - got.float()).abs().max().item()
-            library_ms = cuda_ms(library, [()] * 50, torch)
+            library_ms = cuda_ms(library, [()] * 50, torch, warm_up=True)
             nbytes, flops = decode_work(B * KH, G, D, n_valid,
                                         q.element_size(), W)
             bound_ms, bound_by = bound_of(
@@ -1070,7 +1077,8 @@ def phase_decode_kernel(torch, dev):
             row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                        library_ms=library_ms, library_max_abs_err=lib_err,
                        bytes=nbytes, flops=flops, bound_ms=bound_ms,
-                       bound_by=bound_by)
+                       bound_by=bound_by, tflops=flops / ms * 1e-9,
+                       bound_share=bound_ms / ms)
             emit("kernels", kernel="decode_attention_fwd", shape=name,
                  dtype=dname, dims=dict(B=B, W=W, KH=KH, G=G, D=D,
                                         index=index, window=window,

@@ -121,6 +121,20 @@ def raise_on(err: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel} launch failed with cudaError {err}")
 
 
+def copy_width(row_bytes: int, *tensors: torch.Tensor) -> int:
+    """Bytes of one ``cp.async`` copy (16, 8 or 4) that divide a row of
+    ``row_bytes`` and every tensor's address, so that each copy is
+    aligned; 0 when none does (the kernel then loads element by
+    element)."""
+    for width in (16, 8, 4):
+        if row_bytes % width == 0 and all(t.data_ptr() % width == 0
+                                          for t in tensors):
+            return width
+    return 0
+
+
 def stream_of(device: torch.device) -> int:
-    """The current CUDA stream of ``device`` as an integer handle."""
-    return torch.cuda.current_stream(device).cuda_stream
+    """The current CUDA stream of ``device`` as an integer handle: the raw
+    handle PyTorch's own generated kernels launch on, read without building
+    a `torch.cuda.Stream` object, which costs more than some launches."""
+    return torch._C._cuda_getCurrentRawStream(device.index)

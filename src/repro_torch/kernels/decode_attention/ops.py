@@ -16,11 +16,13 @@
 K and V may be float32 or bfloat16; they are taken in q's type, as the
 reference's wrapper casts the cache.  The output is in q's type.  On a
 CUDA tensor the hand-written kernel runs, built at first use with
-``nvcc`` into ``build/kernels/`` of the checkout and bound with `ctypes`;
-a call is two CUDA launches (the split partials, then their combine) and
-adds one to ``decode_attention_fwd.launches``.  On a CPU tensor the plain
-version in `ref.py` runs and nothing is counted.  There is no fallback: a
-CUDA tensor gets the kernel or an exception.
+``nvcc`` into ``build/kernels/`` of the checkout and bound with `ctypes`:
+the cache is cut into `splits` of whole 64-key blocks, one CTA per
+(row, split, 16 q heads).  A call is two CUDA launches (the split
+partials, then their combine, one CTA per (row, q head)) and adds one to
+``decode_attention_fwd.launches``.  On a CPU tensor the plain version in
+`ref.py` runs and nothing is counted.  There is no fallback: a CUDA
+tensor gets the kernel or an exception.
 """
 from __future__ import annotations
 
@@ -30,19 +32,19 @@ from pathlib import Path
 
 import torch
 
-from .._build import Library, check_tensor, raise_on, stream_of
+from .._build import Library, check_tensor, copy_width, raise_on, stream_of
 from .ref import decode_attention_ref, ring_validity
 
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 256
-SPLIT_KEYS = 32                         # keys of one warp's block
+SPLIT_KEYS = 64                         # a split is whole blocks of these
 
 
 def _declare(lib: ctypes.CDLL) -> None:
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.decode_attention_launch.argtypes = [
         P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, ctypes.c_float, I, I,
-        P]
+        I, P]
     lib.decode_attention_launch.restype = I
 
 
@@ -64,12 +66,28 @@ def sm_count(device: torch.device) -> int:
 
 def splits(rows: int, W: int, sms: int):
     """(number of splits, keys per split) of a W-slot cache over ``rows``
-    (batch, kv-head) rows: whole 32-key blocks, about four splits per SM
-    in all, at most one split per block."""
+    (batch, kv-head) rows: whole 64-key blocks, about one split per SM in
+    all (a CTA of the partial kernel takes ~150 KB of shared memory at
+    D = 256, so one fits an SM), at most one split per block."""
     blocks = -(-W // SPLIT_KEYS)
-    nsplit = max(1, min(blocks, -(-4 * sms // max(rows, 1))))
+    nsplit = max(1, min(blocks, -(-sms // max(rows, 1))))
     per = -(-blocks // nsplit)
     return -(-blocks // per), per * SPLIT_KEYS
+
+
+_SCRATCH = {}                           # (device index, stream) -> buffer
+
+
+def _scratch(n: int, dev: torch.device, stream: int) -> torch.Tensor:
+    """A float32 buffer of at least ``n`` elements for the partials of
+    launches on ``stream``.  Launches on one stream run in order, so a
+    call's combine has read the buffer before the next call's partials
+    write it; each stream has its own."""
+    buf = _SCRATCH.get((dev.index, stream))
+    if buf is None or buf.numel() < n:
+        buf = torch.empty(n, dtype=torch.float32, device=dev)
+        _SCRATCH[(dev.index, stream)] = buf
+    return buf
 
 
 def _launch(q, k, v, valid, valid_stride: int, kh: int, W: int):
@@ -78,17 +96,20 @@ def _launch(q, k, v, valid, valid_stride: int, kh: int, W: int):
     valid row r at ``valid_stride * r``."""
     rows, G, D = q.shape
     dev = q.device
+    stream = stream_of(dev)
     nsplit, per = splits(rows, W, sm_count(dev))
-    part = torch.empty((rows, nsplit, G, D), dtype=torch.float32,
-                       device=dev)
-    ml = torch.empty((rows, nsplit, G, 2), dtype=torch.float32, device=dev)
+    # float32 scratch: the partials (rows, nsplit, G, D), then their
+    # (m, l) pairs (rows, nsplit, G, 2)
+    n_part = rows * nsplit * G * D
+    scratch = _scratch(n_part + rows * nsplit * G * 2, dev, stream)
     out = torch.empty_like(q)
     err = library().decode_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
-        part.data_ptr(), ml.data_ptr(), out.data_ptr(), rows, G, W, D, kh,
+        scratch.data_ptr(), scratch.data_ptr() + 4 * n_part,
+        out.data_ptr(), rows, G, W, D, kh,
         valid_stride, nsplit, per, float(D ** -0.5),
         int(q.dtype == torch.bfloat16), int(k.dtype == torch.bfloat16),
-        stream_of(dev))
+        copy_width(D * k.element_size(), k, v), stream)
     raise_on(err, "decode_attention_fwd")
     decode_attention_fwd.launches += 1
     return out
@@ -155,7 +176,7 @@ def grouped_rows(q: torch.Tensor, KH: int) -> torch.Tensor:
     """(B, 1, H, D) -> contiguous (B·KH, G, D), G = H // KH: row b·KH + h
     holds the q heads h·G .. h·G + G - 1 of batch b."""
     B, _, H, D = q.shape
-    return q.reshape(B, H, D).contiguous().view(B * KH, H // KH, D)
+    return q.reshape(B * KH, H // KH, D).contiguous()
 
 
 def decode_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
@@ -176,16 +197,18 @@ def decode_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
     for name, t in (("ck", ck), ("cv", cv)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    ok = _validity(W, index, window, q.device)
-    if q.device.type == "cpu":
+    dev = q.device
+    ok = _validity(W, index, window, dev)
+    if dev.type == "cpu":
         kf = ck.transpose(1, 2).reshape(B * KH, W, D)
         vf = cv.transpose(1, 2).reshape(B * KH, W, D)
         o = decode_attention_ref(qg, kf, vf, ok[None].expand(B * KH, W))
-    elif q.device.type == "cuda":
-        _check_types(qg, ck, cv)
-        check_tensor("ck", ck, ck.dtype, (B, W, KH, D), q.device)
-        check_tensor("cv", cv, ck.dtype, (B, W, KH, D), q.device)
+    elif dev.type == "cuda":
+        _check_types(qg, ck, cv)        # shapes and layout checked above
+        if ck.device != dev or cv.device != dev:
+            raise ValueError(f"caches on {ck.device}, {cv.device}, "
+                             f"expected {dev}")
         o = _launch(qg, ck, cv, ok, 0, KH, W)
     else:
-        raise ValueError(f"no decode_attention kernel for {q.device}")
+        raise ValueError(f"no decode_attention kernel for {dev}")
     return o.view(B, 1, H, D)

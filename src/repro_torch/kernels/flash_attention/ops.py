@@ -1,4 +1,4 @@
-"""Wrappers around the CUDA flash attention kernel
+"""Wrappers around the CUDA flash attention kernels
 (`csrc/flash_attention.cu`).
 
 * `flash_attention_fwd(q, k, v, *, mask_kind, window, group)` takes the
@@ -13,11 +13,15 @@ Masks are derived from indices, exactly as in the reference's
 match those lengths.  Inputs where some query row would have no live key
 (a window with Sq >= Sk + window) are refused on every device.
 
-On a CUDA tensor the hand-written kernel runs, built at first use with
-``nvcc`` into ``build/kernels/`` of the checkout and bound with `ctypes`;
-on a CPU tensor the plain PyTorch version in `ref.py` runs.  There is no
-fallback: a CUDA tensor gets the kernel or an exception.  Only a kernel
-launch adds one to ``flash_attention_fwd.launches``.
+On a CUDA tensor a hand-written kernel runs, built at first use with
+``nvcc`` into ``build/kernels/`` of the checkout and bound with `ctypes`:
+bfloat16 on the tensor cores, float32 on the FP32 cores.  The wrapper
+computes the launch geometry (`launch_plan`: tiles of 64 queries, the
+heaviest first under a mask; D padded for the tensor cores; the width of
+one asynchronous copy).  On a CPU tensor the plain PyTorch version in
+`ref.py` runs.  There is no fallback: a CUDA tensor gets the kernel or an
+exception.  A call is one CUDA launch and adds one to
+``flash_attention_fwd.launches``; nothing else does.
 """
 from __future__ import annotations
 
@@ -26,18 +30,21 @@ from pathlib import Path
 
 import torch
 
-from .._build import Library, check_tensor, raise_on, stream_of
+from .._build import Library, check_tensor, copy_width, raise_on, stream_of
 from .ref import MASK_KINDS, attention_ref
 
 _MASK_CODE = {"none": 0, "causal": 1, "window": 2}
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 256
+Q_TILE = 64                             # queries of one CTA
+PADDED_DIMS = (32, 64, 128, 256)        # D in shared memory (bfloat16)
 
 
 def _declare(lib: ctypes.CDLL) -> None:
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.flash_attention_fwd_launch.argtypes = [
-        P, P, P, P, I, I, I, I, I, I, I, ctypes.c_float, I, P]
+        P, P, P, P, I, I, I, I, I, I, I, ctypes.c_float, I, I, I, I, I, I,
+        P]
     lib.flash_attention_fwd_launch.restype = I
 
 
@@ -61,6 +68,30 @@ def _check_mask(mask_kind: str, window: int, Sq: int, Sk: int) -> None:
         raise ValueError(
             f"window {window} with Sq {Sq}, Sk {Sk} leaves query rows with "
             f"no live key")
+
+
+def launch_plan(Sq: int, D: int, mask_kind: str, group: int):
+    """(q tiles, padded D, reverse, split) of a launch: ``ceil(Sq / 64)``
+    tiles of 64 queries, grid row y running tile ``q_tile(y, ...)``; D
+    padded with zeros to the smallest of `PADDED_DIMS` that holds it (the
+    tensor cores' k-steps are 16 wide); under a causal or window mask the
+    tiles go last first, so the longest start first.  ``split`` (bfloat16):
+    a CTA's two warp groups take the even and the odd kv tiles of one q
+    head, which halves the longest CTA of a causal launch; else they take
+    two q heads of one kv head (``group`` even) and share each K and V
+    tile."""
+    dp = next((p for p in PADDED_DIMS if p >= D), None)
+    if dp is None:
+        raise ValueError(f"head_dim must be at most {MAX_HEAD_DIM}, got {D}")
+    split = mask_kind == "causal" or group % 2 == 1
+    return -(-Sq // Q_TILE), dp, mask_kind != "none", split
+
+
+def q_tile(y: int, n_qtiles: int, reverse: bool) -> range:
+    """The query rows grid row ``y`` of a launch owns (rows past Sq are
+    padding the kernel never stores)."""
+    tile = n_qtiles - 1 - y if reverse else y
+    return range(tile * Q_TILE, (tile + 1) * Q_TILE)
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -92,10 +123,13 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check_tensor("k", k, q.dtype, (BKH, Sk, D), dev)
     check_tensor("v", v, q.dtype, (BKH, Sk, D), dev)
     out = torch.empty_like(q)
+    n_qtiles, dp, reverse, split = launch_plan(Sq, D, mask_kind, group)
+    vec = copy_width(D * q.element_size(), q, k, v)
     err = library().flash_attention_fwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH, Sq,
         Sk, D, group, _MASK_CODE[mask_kind], int(window), float(D ** -0.5),
-        int(q.dtype == torch.bfloat16), stream_of(dev))
+        int(q.dtype == torch.bfloat16), n_qtiles, dp, vec, int(reverse),
+        int(split), stream_of(dev))
     raise_on(err, "flash_attention_fwd")
     flash_attention_fwd.launches += 1
     return out

@@ -289,6 +289,15 @@ FLASH_CASES = [  # (B*KH, G, Sq, Sk, D, mask_kind, window)
     (2, 2, 96, 96, 128, "window", 200),
     (2, 16, 200, 200, 256, "window", 64),    # recurrentgemma: 16 q on 1 KV
     (1, 16, 130, 130, 256, "causal", 0),
+    # the 64 x 64 tiles' edges: ragged Sq and Sk, D padded to 32 and 128,
+    # a window straddling two kv tiles, group 16 causal, Sq > Sk unmasked
+    (2, 2, 129, 191, 64, "none", 0),
+    (2, 2, 129, 191, 128, "causal", 0),
+    (2, 1, 77, 77, 20, "causal", 0),
+    (1, 4, 150, 150, 100, "window", 40),
+    (2, 2, 200, 200, 64, "window", 65),
+    (1, 16, 300, 300, 256, "causal", 0),
+    (2, 2, 191, 129, 64, "none", 0),
 ]
 
 
@@ -465,6 +474,14 @@ DECODE_CASES = [  # (rows, W, G, D, q dtype, kv dtype)
     (1, 7, 9, 96, torch.bfloat16, torch.bfloat16),
     (4, 2048, 16, 256, torch.bfloat16, torch.bfloat16),  # recurrentgemma
     (4, 2048, 16, 256, torch.float32, torch.float32),    # local, group 16
+    # groups 1, 5, 16 and 32, W no multiple of the 64-key split, bfloat16
+    # q over a float32 cache
+    (2, 1000, 1, 256, torch.bfloat16, torch.bfloat16),
+    (3, 300, 5, 128, torch.bfloat16, torch.float32),
+    (4, 777, 16, 256, torch.bfloat16, torch.float32),
+    (2, 130, 32, 64, torch.bfloat16, torch.bfloat16),
+    (2, 130, 32, 64, torch.float32, torch.float32),
+    (1, 4100, 5, 256, torch.float32, torch.bfloat16),
 ]
 
 

@@ -170,10 +170,38 @@ def test_wrapper_checks_shapes_types_and_devices():
 
 @pytest.mark.parametrize("rows,W,sms", [(4, 512, 132), (4, 1032, 132),
                                         (1, 7, 132), (64, 40000, 132),
-                                        (3, 100, 8)])
+                                        (3, 100, 8), (4, 2048, 132),
+                                        (1, 1, 132), (2, 130, 132),
+                                        (200, 5000, 132)])
 def test_splits_cover_the_cache(rows, W, sms):
-    """Whole 32-key blocks, every slot in exactly one split, no empty
-    split."""
+    """Whole 64-key blocks, every slot in exactly one split, no empty
+    split, and at most one split per block and about one CTA per SM in
+    all (ceil(sms / rows) splits a row)."""
     nsplit, per = ops.splits(rows, W, sms)
+    assert ops.SPLIT_KEYS == 64
     assert per % ops.SPLIT_KEYS == 0 and nsplit >= 1
     assert nsplit * per >= W and (nsplit - 1) * per < W
+    covered = np.zeros(W, dtype=int)
+    for s in range(nsplit):
+        lo, hi = s * per, min(W, (s + 1) * per)
+        assert hi > lo                          # no empty split
+        covered[lo:hi] += 1
+    np.testing.assert_array_equal(covered, 1)
+    assert nsplit <= -(-W // ops.SPLIT_KEYS)
+    assert nsplit <= max(1, -(-sms // rows))
+
+
+def test_scratch_is_kept_per_stream_and_grows():
+    """The partials' float32 scratch is one buffer per (device, stream):
+    reused while it is large enough, replaced by a larger one when not,
+    and never shared between two streams."""
+    dev = torch.device("cpu")
+    a = ops._scratch(100, dev, 11)
+    assert a.dtype == torch.float32 and a.numel() >= 100
+    assert ops._scratch(50, dev, 11).data_ptr() == a.data_ptr()
+    b = ops._scratch(1000, dev, 11)
+    assert b.numel() >= 1000
+    assert ops._scratch(100, dev, 11).data_ptr() == b.data_ptr()
+    c = ops._scratch(100, dev, 12)
+    assert c.data_ptr() != b.data_ptr()
+    ops._SCRATCH.pop((None, 11)), ops._SCRATCH.pop((None, 12))

@@ -127,6 +127,33 @@ def test_layer_layout_is_contiguous_and_heads_major(B, H):
             assert torch.equal(got[b * H + h], x[b, :, h])
 
 
+@pytest.mark.parametrize("Sq", [1, 63, 64, 65, 129, 2048, 4097])
+@pytest.mark.parametrize("mask_kind", ["none", "causal", "window"])
+@pytest.mark.parametrize("group", [1, 2, 16])
+def test_launch_plan_covers_every_query_row_once(Sq, mask_kind, group):
+    """The CUDA launch's geometry, computed on every device: the grid rows'
+    q tiles cover rows 0 .. Sq-1 exactly once; under a mask the last tile
+    (the longest kv band) goes first; D is padded to a multiple of 16; the
+    warp groups split the kv tiles under a causal mask or an odd group
+    (else they take two q heads of one kv head)."""
+    n_qtiles, dp, reverse, split = ops.launch_plan(Sq, 100, mask_kind, group)
+    covered = np.zeros(n_qtiles * ops.Q_TILE, dtype=int)
+    for y in range(n_qtiles):
+        covered[list(ops.q_tile(y, n_qtiles, reverse))] += 1
+    np.testing.assert_array_equal(covered[:Sq], 1)
+    assert n_qtiles * ops.Q_TILE - Sq < ops.Q_TILE  # padding < one tile
+    assert reverse == (mask_kind != "none")
+    if reverse:
+        assert ops.q_tile(0, n_qtiles, reverse)[-1] >= Sq - 1
+    assert dp == 128 and dp % 16 == 0
+    assert split == (mask_kind == "causal" or group % 2 == 1)
+    for D, want in ((4, 32), (20, 32), (32, 32), (36, 64), (100, 128),
+                    (128, 128), (132, 256), (256, 256)):
+        assert ops.launch_plan(Sq, D, mask_kind, group)[1] == want
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.launch_plan(Sq, 260, mask_kind, group)
+
+
 def test_plain_version_reads_kv_head_b_over_group():
     """Head b of q reads kv head b // group: with one distinct constant V
     per kv head, every output row equals its kv head's constant."""

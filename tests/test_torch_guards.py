@@ -83,3 +83,43 @@ def test_build_helper_names_libraries_by_content(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build(src)
     assert not list((tmp_path / "kernels").glob("*.so"))
+
+
+def test_port_calls_no_library_attention_or_compiler():
+    """No module of `repro_torch` calls `scaled_dot_product_attention` or
+    `torch.compile`, or imports a `flash_attn` package: attention on the
+    card is the port's own kernels (the smoke script may time SDPA beside
+    them; the port never calls it)."""
+    import ast
+    root = os.path.join(REPO, "src", "repro_torch")
+    found = []
+    for dirpath, _dirs, files in os.walk(root):
+        for name in files:
+            if not name.endswith(".py"):
+                continue
+            path = os.path.join(dirpath, name)
+            with open(path) as f:
+                tree = ast.parse(f.read(), path)
+            for node in ast.walk(tree):
+                where = f"{os.path.relpath(path, REPO)}:{node.lineno}" \
+                    if hasattr(node, "lineno") else path
+                if isinstance(node, ast.Attribute):
+                    if node.attr == "scaled_dot_product_attention" or (
+                            node.attr == "compile"
+                            and isinstance(node.value, ast.Name)
+                            and node.value.id == "torch"):
+                        found.append((where, node.attr))
+                elif isinstance(node, ast.Name) \
+                        and node.id == "scaled_dot_product_attention":
+                    found.append((where, node.id))
+                elif isinstance(node, ast.Import):
+                    found += [(where, a.name) for a in node.names
+                              if a.name.split(".")[0] == "flash_attn"]
+                elif isinstance(node, ast.ImportFrom):
+                    mod = node.module or ""
+                    if mod.split(".")[0] == "flash_attn" or any(
+                            a.name in ("scaled_dot_product_attention",
+                                       "compile") and mod.startswith("torch")
+                            for a in node.names):
+                        found.append((where, mod))
+    assert not found, found
