@@ -8,15 +8,22 @@ Phases, each printing JSON lines; any failure exits non-zero:
   1. env      torch / CUDA / nvcc versions and the card (nvidia-smi).
   2. build    compiles every kernel source under
               `src/repro_torch/kernels/*/csrc` (one nvcc each, all at once)
-              and prints what ptxas reports (registers, shared memory,
-              spills) for each.
+              and prints what ptxas reports (registers, static shared
+              memory, stack and spills) for each kernel instance, failing
+              on a spill in the SSD or CCKP kernels; then each SSD kernel's
+              and the CCKP instances' dynamic shared memory and CTAs per
+              SM (the occupancy calculator).
   3. kernels  each kernel against its plain PyTorch version at the shapes
               its main path gives it: the simplex kernels at 16384 lanes,
               R = 14 rows, C0 = 38 columns (random, masked, degenerate and
               Bland lanes; integer outputs exact, floats to rtol/atol
               1e-12); the CCKP kernel on 16384 grids of 1201 x 13 cells,
-              p and accuracies from the fleet's profiles, the grids from a
-              real first-model pass (bitwise); the flash attention kernel
+              p and accuracies from the fleet's profiles: both models of
+              an AMDP call in one `models_dp` launch from the start grid,
+              and one model (`model_dp`'s m = 1) on the first model's
+              output, then 4 grids of 4001 x 301 (the global-memory
+              instance), each bitwise against its plain version, with
+              its bound (bytes: 8 + 4 m a cell); the flash attention kernel
               at the LM path's shapes (paper_edge's ES model: 32 jobs x 64
               tokens, 8 heads on 4 KV heads, head_dim 64, causal;
               gemma3-1b: 2 x 2048 tokens, 4 heads on 1, head_dim 256,
@@ -27,11 +34,15 @@ Phases, each printing JSON lines; any failure exits non-zero:
               time of `scaled_dot_product_attention` on the same inputs
               (the library column, never on the port's path), and for
               flash attention and flash-decode each row's TFLOP/s and
-              bound share (bound ms / ms).  The SSD
-              scan kernel at mamba2-130m's shapes (8 x 2048 tokens, 24
+              bound share (bound ms / ms); the first float32 case of the
+              card tests 20 times, every repeat within 1e-5.  The SSD
+              scan kernels at mamba2-130m's shapes (8 x 2048 tokens, 24
               heads, P 64, N 128, chunk 256, decays past exp's float32
-              overflow) in bfloat16 and float32, held with its plain
-              version to the float64 recurrence; the flash-decode kernel
+              overflow) in bfloat16 and float32, held with their plain
+              version to the float64 recurrence (errors beside their
+              bars), the bound priced at the TF32 tensor rate, the
+              kernels one call launches with each one's device time and
+              CTAs per SM; the flash-decode kernel
               through the model's entry at gemma3-1b's decode shapes (4
               sequences, 4 q heads on 1, head_dim 256, rings of 512 and
               1032 slots; recurrentgemma-9b: 16 q heads on 1, a ring of
@@ -59,9 +70,13 @@ Phases, each printing JSON lines; any failure exits non-zero:
   6. serve    the host `FleetEngine` (`policy="auto"`) on 16384 devices of
               one job class for 8 periods, counters set to 0 before and
               read after: per period the AMDP and AMR^2 device counts
-              (both > 0), backpressured devices and seconds; launches per
-              kernel and peak memory over the run.  The engine's solves
-              are strict: an unsolved lane raises.
+              (both > 0), backpressured devices, AMDP's DP calls and
+              seconds; launches per kernel and peak memory over the run,
+              one CCKP launch per AMDP call (its two models in it).  The
+              engine's solves are strict: an unsolved lane raises.  Then
+              each recorded DP call (the plan over every AMDP lane, the
+              replans over the bumped lanes) again from the start grid:
+              the kernel bitwise against its plain version, and its time.
   7. lm_forward  gemma3-1b at full width (26 layers, d 1152, GQA 4:1 at
               head_dim 256, vocabulary 262144): `init_params` on the card
               from a seed, 2 requests of 2048 `TokenPipeline` tokens,
@@ -142,6 +157,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_S = 3.35e12
 FP64_FLOPS = 34e12
 FP32_FLOPS = 67e12
+TF32_FLOPS = 495e12
 ES_PEAK_FLOPS = 989e12
 D_FLEET, PERIODS, R, N_JOBS = 16384, 8, 14, 12
 C0 = N_JOBS * 3 + 2
@@ -150,6 +166,10 @@ RTOL = ATOL = 1e-12
 # 1200 + 1) and 12 local jobs (K1 = 12 + 1: a device in outage or in the
 # ES-disabled replan offloads none)
 T_BUDGET, DP_T1, DP_K1 = 1.2, 1201, 13
+# a grid too large for a block's shared memory (the reference docstring's
+# 4001 x 301), on a few lanes: the CCKP kernel's global-memory instance
+DP_GLOBAL = (4, 4001, 301)
+CCKP_SRC = "src/repro_torch/kernels/cckp_dp/csrc/cckp_dp.cu"
 N_SERVERS = D_FLEET // 16
 BF16_FLOPS = ES_PEAK_FLOPS
 # flash attention at the LM path's shapes:
@@ -217,6 +237,44 @@ def fail(msg: str) -> None:
 def check(cond, msg: str) -> None:
     if not cond:
         fail(msg)
+
+
+def ptxas_instances(log):
+    """ptxas's report of each kernel instance in an ``nvcc -Xptxas -v``
+    log: name (demangled where c++filt is found), registers, static shared
+    memory, stack frame and spill bytes."""
+    out, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = dict(kernel=m.group(1), registers=None, smem=0,
+                       stack=0, spill_stores=0, spill_loads=0)
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            cur["stack"], cur["spill_stores"], cur["spill_loads"] = (
+                int(v) for v in m.groups())
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", ln)
+        if m:
+            cur["smem"] = int(m.group(1))
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(
+            i["kernel"] for i in out), capture_output=True, text=True,
+            timeout=60, check=True).stdout.splitlines()
+        if len(names) == len(out):
+            for i, name in zip(out, names):
+                name = name.replace("(anonymous namespace)::", "")
+                i["kernel"] = re.sub(r"^void ", "", name.split("(")[0])
+    except (OSError, subprocess.SubprocessError):
+        pass
+    return out
 
 
 def run(cmd) -> str:
@@ -356,14 +414,12 @@ def phase_kernels(torch, ops, ref, dev):
 
 
 def cckp_case(torch, dev):
-    """AMDP's second-model step as the serve path meets it: per-lane p and
-    accuracies of the fleet's class-512 profiles (p = ceil(p_ed / 1 ms)),
-    and grids that came out of the first model's pass."""
+    """AMDP's DP as the serve path meets it: per-lane p (D, 2) and
+    accuracies (D, 2) of the fleet's class-512 profiles (p = ceil(p_ed / 1
+    ms)), and the DP's start grid (0 in column 0, NEG elsewhere)."""
     import numpy as np
 
     from repro_torch.core.amdp import _integerize
-    from repro_torch.kernels.cckp_dp import ops as cckp_ops
-    from repro_torch.kernels.cckp_dp.ref import NEG
     from repro_torch.serving.fleet import make_fleet
     specs = make_fleet(D_FLEET, classes=(512,), seed=11, horizon=1,
                        es_peak_flops=ES_PEAK_FLOPS, es_hbm_bw=HBM_BYTES_S)
@@ -372,55 +428,132 @@ def cckp_case(torch, dev):
     acc = np.stack([d.profile.acc[:2] for d in specs])
     p = torch.as_tensor(p_int.astype(np.int32), device=dev)
     a = torch.as_tensor(acc.astype(np.float32), device=dev)
-    y0 = torch.full((D_FLEET, DP_T1, DP_K1), NEG, dtype=torch.float32,
-                    device=dev)
-    y0[:, :, 0] = 0.0
-    y1, _ = cckp_ops.model_dp(y0, p[:, 0].contiguous(),
-                              a[:, 0].contiguous(), DP_K1)
-    del y0
-    return y1, p[:, 1].contiguous(), a[:, 1].contiguous()
+    return start_grid(torch, dev, D_FLEET, DP_T1, DP_K1), p, a
+
+
+def start_grid(torch, dev, B, T1, K1):
+    """The DP's start grid, as `cckp_counts` builds it."""
+    from repro_torch.kernels.cckp_dp.ref import NEG
+    y = torch.full((B, T1, K1), NEG, dtype=torch.float32, device=dev)
+    y[:, :, 0] = 0.0
+    return y
 
 
 def cckp_work(torch, p, T1, K1, n_steps):
-    """Bytes and float32 operations one `cckp_model_dp` call needs: each
-    cell reads its grid value and writes its value and count (12 bytes);
-    cell (t, k) of lane b evaluates the q whose source cell lies inside
-    the grid, min(k + 1, c) of them with c = min(t // p_b + 1, n_steps),
-    one multiply, one add and one compare each.  Summed over k < K1 that
-    is c (c + 1) / 2 + c (K1 - c) per (b, t)."""
+    """Bytes and float32 operations of the CCKP kernel over the models of
+    ``p`` (B, m) in one call: it reads each grid cell once and writes the
+    final value and one count per model (4 + 4 + 4 m bytes a cell); cell
+    (t, k) of lane b evaluates the q whose source cell lies inside the
+    grid, min(k + 1, c) of them with c = min(t // p_b + 1, n_steps), one
+    multiply, one add and one compare each.  Summed over k < K1 that is
+    c (c + 1) / 2 + c (K1 - c) per (b, t)."""
+    B, m = p.shape
     t = torch.arange(T1, device=p.device, dtype=torch.int64)
-    p64 = p.to(torch.int64)[:, None]
-    c = torch.where(p64 > 0, t[None, :] // p64.clamp_min(1) + 1,
-                    torch.full_like(p64, n_steps)).clamp_max(
-                        min(n_steps, K1))                      # (B, T1)
-    n_q = (c * (c + 1) // 2 + c * (K1 - c)).sum()
-    return 12 * p.shape[0] * T1 * K1, 3 * int(n_q)
+    n_q = 0
+    for i in range(m):
+        p64 = p[:, i].to(torch.int64)[:, None]
+        c = torch.where(p64 > 0, t[None, :] // p64.clamp_min(1) + 1,
+                        torch.full_like(p64, n_steps)).clamp_max(
+                            min(n_steps, K1))                  # (B, T1)
+        n_q += int((c * (c + 1) // 2 + c * (K1 - c)).sum())
+    return (8 + 4 * m) * B * T1 * K1, 3 * n_q
 
 
-def phase_cckp_kernel(torch, dev):
+def cckp_row(torch, dev, name, y, p, a, n_steps, reps, plain_reps):
+    """`models_dp` on (y, p (B, m), a (B, m)) against its plain version on
+    the card (values and every table bitwise), with its times and bound;
+    emitted as a kernels line and returned."""
     from repro_torch.kernels.cckp_dp import ops as cckp_ops
     from repro_torch.kernels.cckp_dp import ref as cckp_ref
-    y, p, a = cckp_case(torch, dev)
-    got_y, got_q = cckp_ops.model_dp(y, p, a, DP_K1)
-    want_y, want_q = cckp_ref.cckp_model_dp_ref(y, p, a, DP_K1)
+    B, T1, K1 = y.shape
+    got_y, got_q = cckp_ops.models_dp(y, p, a, n_steps)
+    want_y, want_q = cckp_ref.cckp_models_dp_ref(y, p, a, n_steps)
     torch.cuda.synchronize()
     err = (got_y - want_y).abs().max().item()
     check(torch.equal(got_y, want_y) and torch.equal(got_q, want_q),
-          f"cckp_model_dp disagrees with its plain version (max {err})")
+          f"cckp {name}: the kernel disagrees with its plain version "
+          f"(max {err})")
     check(bool((got_q > 0).any()) and bool((got_y > cckp_ref.NEG).any()),
-          "cckp_model_dp inputs give no non-trivial cell")
+          f"cckp {name}: the inputs give no non-trivial cell")
     del got_y, got_q, want_y, want_q
-    ms = cuda_ms(lambda: cckp_ops.model_dp(y, p, a, DP_K1), [()] * 5,
-                 torch)
-    plain_ms = cuda_ms(
-        lambda: cckp_ref.cckp_model_dp_ref(y, p, a, DP_K1), [()] * 2, torch)
-    nbytes, flops = cckp_work(torch, p, DP_T1, DP_K1, DP_K1)
+    ms = cuda_ms(lambda: cckp_ops.models_dp(y, p, a, n_steps), [()] * reps,
+                 torch, warm_up=True)
+    plain_ms = cuda_ms(lambda: cckp_ref.cckp_models_dp_ref(y, p, a, n_steps),
+                       [()] * plain_reps, torch)
+    nbytes, flops = cckp_work(torch, p, T1, K1, n_steps)
     bound_ms, bound_by = bound_of(nbytes, flops, FP32_FLOPS)
-    row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes=nbytes,
-               flops=flops, bound_ms=bound_ms, bound_by=bound_by,
-               shape=[D_FLEET, DP_T1, DP_K1])
-    emit("kernels", kernel="cckp_model_dp", **row)
+    shared = cckp_ops.uses_shared(T1, K1, n_steps, dev)
+    row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+               bytes=nbytes, flops=flops, bound_ms=bound_ms,
+               bound_by=bound_by, shape=[B, T1, K1], models=p.shape[1],
+               instance="shared" if shared else "global",
+               ctas_per_sm=cckp_ops.occupancy(T1, K1, n_steps, shared))
+    emit("kernels", kernel="cckp_model_dp", case=name, **row)
     return row
+
+
+def phase_cckp_kernel(torch, dev):
+    """The CCKP kernel at the serve path's largest grids (16384 lanes of
+    1201 x 13): `models_dp` with both models of an AMDP call in one launch
+    from the start grid, and `model_dp` (one model, m = 1) on the first
+    model's output; then a grid that takes the global-memory instance.
+    Returns the m = 2 row (the kernels line's)."""
+    from repro_torch.kernels.cckp_dp import ops as cckp_ops
+    y0, p, a = cckp_case(torch, dev)
+    both = cckp_row(torch, dev, "models_dp m=2, serve shape", y0, p, a,
+                    DP_K1, 5, 2)
+    check(both["instance"] == "shared",
+          "cckp: the serve shape did not take the shared instance")
+    y1, _ = cckp_ops.models_dp(y0, p[:, :1].contiguous(),
+                               a[:, :1].contiguous(), DP_K1)
+    del y0
+    cckp_row(torch, dev, "m=1 (model_dp), second model", y1,
+             p[:, 1:].contiguous(), a[:, 1:].contiguous(), DP_K1, 5, 2)
+    del y1
+    B, T1, K1 = DP_GLOBAL
+    g = torch.Generator(device=dev).manual_seed(19)
+    y = torch.randn((B, T1, K1), generator=g, device=dev)
+    pg = torch.tensor([[3, 7], [0, 40], [1, T1 + 99], [13, 2]],
+                      dtype=torch.int32, device=dev)[:B].contiguous()
+    ag = 0.3 + 0.69 * torch.rand((B, 2), generator=g, device=dev)
+    row = cckp_row(torch, dev, "models_dp m=2, global instance", y, pg, ag,
+                   K1, 2, 1)
+    check(row["instance"] == "global",
+          f"cckp: a {T1} x {K1} grid did not take the global instance")
+    return both
+
+
+def record_dp_calls(cckp_ops, calls):
+    """A stand-in for the kernel module as AMDP sees it
+    (`repro_torch.core.amdp.cckp_ops`): its `models_dp` records each
+    call's lanes, grid, models and inputs (p, a, n_steps; AMDP always
+    starts from the start grid) in ``calls`` and runs the real wrapper,
+    which counts its launch as always."""
+    import types
+
+    def recording(y, p, a, n_steps):
+        calls.append(dict(shape=list(y.shape), models=p.shape[1],
+                          p=p.clone(), a=a.clone(), n_steps=n_steps))
+        return cckp_ops.models_dp(y, p, a, n_steps)
+    return types.SimpleNamespace(models_dp=recording)
+
+
+def phase_cckp_serve_calls(torch, dev, calls):
+    """Serve's own AMDP calls again (the plan over every AMDP lane, the
+    replans over the bumped lanes), each from the start grid: the kernel
+    against its plain version (bitwise) and its time."""
+    rows = []
+    for n, call in enumerate(calls):
+        B, T1, K1 = call["shape"]
+        y = start_grid(torch, dev, B, T1, K1)
+        row = cckp_row(torch, dev, f"serve call {n}", y, call["p"],
+                       call["a"], call["n_steps"], 3, 1)
+        rows.append(dict(call=n, shape=call["shape"], ms=row["ms"],
+                         bound_ms=row["bound_ms"], plain_ms=row["plain_ms"]))
+        del y
+    emit("cckp_serve_calls", calls=rows,
+         kernel_ms_total=sum(r["ms"] for r in rows))
+    return rows
 
 
 # --------------------------------------------------------------------------
@@ -508,6 +641,38 @@ def phase_flash_kernel(torch, dev):
             rows[(name, dname)] = row
             del q, k, v, qq, kk, vv
     return rows
+
+
+# the first case of the card tests' flash cases (B*KH, G, Sq, Sk, D, mask,
+# window) in float32, repeated: one earlier run of those tests failed it
+# once at 4.9e-5 against 1e-5
+FLASH_REPEAT_CASE, FLASH_REPEATS = (4, 2, 100, 100, 64, "causal", 0), 20
+
+
+def phase_flash_repeat(torch, dev):
+    """`FLASH_REPEAT_CASE` in float32 on the inputs the card test makes
+    (a CPU generator seeded with Sq + D), the kernel called
+    `FLASH_REPEATS` times against the plain version on the CPU: every
+    repeat within the test's 1e-5."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    BKH, G, Sq, Sk, D, mask, window = FLASH_REPEAT_CASE
+    g = torch.Generator().manual_seed(Sq + D)
+    q, k, v = (torch.randn(shape, generator=g)
+               for shape in ((BKH * G, Sq, D), (BKH, Sk, D), (BKH, Sk, D)))
+    kw = dict(mask_kind=mask, window=window, group=G)
+    want = fa_ref.attention_ref(q, k, v, **kw)
+    qd, kd, vd = (t.to(dev) for t in (q, k, v))
+    errs = []
+    for _ in range(FLASH_REPEATS):
+        got = fa_ops.flash_attention_fwd(qd, kd, vd, **kw)
+        torch.cuda.synchronize()
+        errs.append((got.cpu() - want).abs().max().item())
+    emit("kernels", kernel="flash_attention_fwd", case="repeat float32",
+         dims=dict(BKH=BKH, G=G, Sq=Sq, Sk=Sk, D=D, mask=mask),
+         repeats=FLASH_REPEATS, max_abs_err=max(errs), errors=errs)
+    check(max(errs) <= 1e-5, f"flash_attention_fwd float32 repeat: "
+                             f"errors {errs} (bound 1e-5)")
 
 
 def reduced_pivot_work(torch, ref, case, want):
@@ -626,7 +791,7 @@ def kernel_launches():
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     return {"simplex_pivot": ops.pivot_update.launches,
             "reduced_pivot": ops.reduced_pivot.launches,
-            "cckp_model_dp": cckp_ops.model_dp.launches,
+            "cckp_model_dp": cckp_ops.models_dp.launches,
             "flash_attention_fwd": fa_ops.flash_attention_fwd.launches,
             "ssd_scan_fwd": ssd_ops.ssd_scan_fwd.launches,
             "decode_attention_fwd":
@@ -729,22 +894,58 @@ def serve_engine(dev):
 
 
 def phase_serve(torch, dev):
-    import math
+    """The serve run, with AMDP's DP calls recorded (`record_dp_calls`):
+    returns (launches, seconds, the calls)."""
+    from repro_torch.core import amdp
+    from repro_torch.kernels.cckp_dp import ops as cckp_ops
     engine = serve_engine(dev)
+    calls = []
+    amdp.cckp_ops = record_dp_calls(cckp_ops, calls)
+    try:
+        seconds = serve_periods(torch, engine, calls)
+    finally:
+        amdp.cckp_ops = cckp_ops
+    launches = kernel_launches()
+    for name in ("cckp_model_dp", "simplex_pivot"):
+        check(launches[name] > 0, f"serve: {name} never launched")
+    # one DP launch per AMDP call, all of the call's models in it
+    check(launches["cckp_model_dp"] == len(calls)
+          and all(c["models"] == 2 for c in calls),
+          f"serve: {launches['cckp_model_dp']} DP launches for "
+          f"{len(calls)} AMDP calls of {[c['models'] for c in calls]} models")
+    emit("serve", devices=D_FLEET, periods=PERIODS, seconds=seconds,
+         devices_per_s=D_FLEET * PERIODS / seconds, launches=launches,
+         launches_per_period={k: v / PERIODS for k, v in launches.items()},
+         dp_calls=[dict(period=c["period"], lanes=c["shape"][0],
+                        grid=c["shape"][1:], models=c["models"])
+                   for c in calls],
+         peak_mem_bytes=torch.cuda.max_memory_allocated(),
+         summary=engine.summary())
+    return launches, seconds, calls
+
+
+def serve_periods(torch, engine, calls):
+    """`PERIODS` periods of ``engine`` with every counter set to 0 first;
+    each recorded DP call is tagged with its period.  Returns the run's
+    seconds."""
+    import math
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    periods = []
     t_all = time.perf_counter()
     for _ in range(PERIODS):
         t0 = time.perf_counter()
+        n_calls = len(calls)
         stats = engine.run_period()
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
+        for c in calls[n_calls:]:
+            c["period"] = stats.period
         log = engine.solver_log[-1]
         row = dict(period=stats.period, seconds=seconds,
                    amdp=log["plan"]["amdp"], amr2=log["plan"]["amr2"],
                    replan=dict(log["replan"]),
+                   dp_calls=len(calls) - n_calls,
                    n_backpressured=stats.n_backpressured,
                    n_jobs=stats.n_jobs, n_straggler_updates=
                    stats.n_straggler_updates,
@@ -759,18 +960,8 @@ def phase_serve(torch, dev):
              "realized_makespan")), f"serve: bad stats {stats}")
         check(0.3 < stats.mean_job_accuracy < 0.8,
               f"serve: mean job accuracy {stats.mean_job_accuracy}")
-        periods.append(row)
         emit("serve", **row)
-    seconds = time.perf_counter() - t_all
-    launches = kernel_launches()
-    for name in ("cckp_model_dp", "simplex_pivot"):
-        check(launches[name] > 0, f"serve: {name} never launched")
-    emit("serve", devices=D_FLEET, periods=PERIODS, seconds=seconds,
-         devices_per_s=D_FLEET * PERIODS / seconds, launches=launches,
-         launches_per_period={k: v / PERIODS for k, v in launches.items()},
-         peak_mem_bytes=torch.cuda.max_memory_allocated(),
-         summary=engine.summary())
-    return launches, seconds
+    return time.perf_counter() - t_all
 
 
 # --------------------------------------------------------------------------
@@ -928,7 +1119,9 @@ def ssd_work(BH, Bb, S, P, N, itemsize):
     """Bytes and operations one `ssd_scan_fwd` call needs: x, B and C in
     their type, dt and A in float32 read once, y and the state written
     once in float32; 4 P N operations per (token, head) — the
-    recurrence's state update and readout, a multiply and an add each."""
+    recurrence's state update and readout, a multiply and an add each.
+    The kernels run their products on the tensor cores in TF32, so the
+    operations are priced at the TF32 rate (`TF32_FLOPS`)."""
     nbytes = (itemsize * (BH * S * P + 2 * Bb * S * N) + 4 * (BH * S + BH)
               + 4 * (BH * S * P + BH * P * N))
     return nbytes, 4 * P * N * S * BH
@@ -942,7 +1135,11 @@ def phase_ssd_kernel(torch, dev):
     exp of the unselected upper triangle would overflow.  Both are held
     to the float64 recurrence: the kernel within 1e-5 + twice the plain
     version's own error, and within 1e-5 + three times it of the plain
-    version (the kernel sums the decays in another order)."""
+    version (the kernels sum the decays in float64 where the plain
+    version sums them in float32, and take their products on the tensor
+    cores in split TF32).  Each row also gives the
+    kernels one call launches and each one's device time (profiler) and
+    CTAs per SM."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
@@ -980,7 +1177,9 @@ def phase_ssd_kernel(torch, dev):
                   f"ssd_scan_fwd {dname} {name}: {err} from the plain "
                   f"version, {err_exact} from float64 (plain's own {own})")
             errs.append(dict(out=name, max_abs_err=err,
+                             bar_vs_plain=1e-5 + 3 * own,
                              err_vs_float64=err_exact,
+                             bar_vs_float64=1e-5 + 2 * own,
                              plain_err_vs_float64=own,
                              scale=ev.abs().max().item()))
         del got, want, exact
@@ -990,13 +1189,27 @@ def phase_ssd_kernel(torch, dev):
                                                            Q),
                            [()] * 3, torch)
         nbytes, flops = ssd_work(BH, Bb, S, P, N, x.element_size())
-        bound_ms, bound_by = bound_of(nbytes, flops, FP32_FLOPS)
+        bound_ms, bound_by = bound_of(nbytes, flops, TF32_FLOPS)
+        _s, _n, per_kernel = profiled(torch, lambda: ssd_ops.ssd_scan_fwd(
+            x, dt, A, Bm, Cm, heads=H, chunk=Q))
+        launched = sum(d["calls"] for d in per_kernel
+                       if "ssd_" in d["name"])
+        check(launched == ssd_ops.KERNELS_PER_CALL,
+              f"ssd_scan_fwd {dname}: one call launched {launched} kernels")
+        occupancy = ssd_ops.occupancy(dtype == torch.bfloat16)
+        check(all(blocks >= 2 for _smem, blocks in occupancy.values()),
+              f"ssd_scan_fwd {dname}: a kernel fits fewer than two CTAs "
+              f"per SM: {occupancy}")
         row = dict(max_abs_err=errs[0]["max_abs_err"], ms=ms,
                    plain_ms=plain_ms, library_ms=None, bytes=nbytes,
                    flops=flops, bound_ms=bound_ms, bound_by=bound_by)
         emit("kernels", kernel="ssd_scan_fwd", dtype=dname,
              dims=dict(BH=BH, B=Bb, S=S, P=P, N=N, Q=Q),
-             min_chunk_cum=min_cum, errors=errs, **row)
+             min_chunk_cum=min_cum, errors=errs,
+             kernels_per_call=ssd_ops.KERNELS_PER_CALL,
+             device_us_by_kernel={d["name"]: d["ms"] * 1e3 for d in
+                                  per_kernel},
+             smem_and_ctas_per_sm=occupancy, **row)
         rows[dname] = row
         del x, Bm, Cm
     return rows
@@ -1176,10 +1389,10 @@ def phase_rglru_kernel(torch, dev):
 # --------------------------------------------------------------------------
 # mamba2-130m's forward through the SSD kernel against the same forward on
 # the plain chunked path (impl="jnp") on the card.  float32: both run the
-# chunked form in float32 and differ by the order the kernel sums each
-# chunk's decays (|cum| ~180 at Q = 256) over 24 layers.  bfloat16: those
-# differences flip roundings of the bfloat16 activations.  Bounds on
-# logits of scale ~1-5:
+# chunked form in float32 and differ by how each sums a chunk's decays
+# (|cum| ~180 at Q = 256; the kernels in float64) over 24 layers.
+# bfloat16: those differences flip roundings of the bfloat16 activations.
+# Bounds on logits of scale ~1-5:
 SSM_F32_ATOL = 2e-3
 # generation: prefill + decode logits against `forward` of the whole
 # sequence at the same positions.  float32 (with a float32 KV cache):
@@ -1693,15 +1906,30 @@ def main() -> int:
     for lib in libs:
         lib.load()
     for lib, (path, log) in zip(libs, built):
-        ptxas = [ln.strip() for ln in log.splitlines()
-                 if re.search(r"registers|spill|Compiling entry", ln)]
-        emit("build", source=os.path.relpath(lib.src, ROOT),
-             library=os.path.relpath(path, ROOT), ptxas=ptxas)
+        source = os.path.relpath(lib.src, ROOT)
+        instances = ptxas_instances(log)
+        emit("build", source=source, library=os.path.relpath(path, ROOT),
+             instances=instances)
+        if source in (SSD_SRC, CCKP_SRC):       # redesigned: no spill
+            check(all(i["spill_stores"] == 0 and i["spill_loads"] == 0
+                      for i in instances),
+                  f"build: ptxas spills in {source}: {instances}")
     emit("build", seconds=time.perf_counter() - t0)
+    emit("build", occupancy=dict(
+        ssd_scan_bf16=ssd_ops.occupancy(True),
+        ssd_scan_f32=ssd_ops.occupancy(False),
+        cckp_shared_serve_grid=dict(
+            smem=cckp_ops.smem_bytes(DP_T1, DP_K1, DP_K1, True),
+            ctas_per_sm=cckp_ops.occupancy(DP_T1, DP_K1, DP_K1, True)),
+        cckp_global=dict(
+            smem=cckp_ops.smem_bytes(*DP_GLOBAL[1:], DP_GLOBAL[2], False),
+            ctas_per_sm=cckp_ops.occupancy(*DP_GLOBAL[1:], DP_GLOBAL[2],
+                                           False))))
 
     t_kernels = time.perf_counter()
     rows = phase_kernels(torch, ops, ref, dev)
     flash_rows = phase_flash_kernel(torch, dev)
+    phase_flash_repeat(torch, dev)
     ssd_rows = phase_ssd_kernel(torch, dev)
     decode_rows = phase_decode_kernel(torch, dev)
     rglru_rows = phase_rglru_kernel(torch, dev)
@@ -1709,8 +1937,10 @@ def main() -> int:
     params = build_params(dev)
     launches = phase_rollout(torch, ops, dev, params)
     phase_front(torch, dev)
-    serve_launches, serve_seconds = phase_serve(torch, dev)
+    serve_launches, serve_seconds, dp_calls = phase_serve(torch, dev)
     launches["cckp_model_dp"] = serve_launches["cckp_model_dp"]
+    phase_cckp_serve_calls(torch, dev, dp_calls)
+    del dp_calls
     phase_lm_forward(torch, dev)
     phase_lm_forward_ssm(torch, dev)
     launches["flash_attention_fwd"] = phase_lm_serve(torch, dev)

@@ -10,8 +10,8 @@ Port of `repro.core.amdp`.  For identical jobs (p_{ij} = p_i):
 
 The DP runs model by model as a (max,+) recurrence over the count q of
 jobs given to that model, on a (T+1) x (n_l+1) float32 value grid, with a
-per-model argmax-count table for an O(m) backtrack.  Each model's step is
-one launch of `kernels.cckp_dp.ops.model_dp` over the whole batch — the
+per-model argmax-count table for an O(m) backtrack.  All m models run in
+one launch of `kernels.cckp_dp.ops.models_dp` over the whole batch — the
 CUDA kernel on the card, its plain version on the CPU — and the backtrack
 gathers the counts on the same device, so only the (B, m) counts and the
 feasibility flags come back to the host.
@@ -46,7 +46,7 @@ def cckp_counts(p_int: np.ndarray, acc: np.ndarray, T_int: np.ndarray,
     (the recurrence is local in (t, k), so a lane's corner never sees
     cells beyond it).  The reference rounds the grid up to powers of two
     only to reuse jit traces; nothing here is traced.  One kernel launch
-    per model.
+    for all m models.
 
     Returns ``(counts (B, m) int64, feasible (B,) bool, value (B,)
     float32)``; counts of infeasible lanes are 0."""
@@ -59,13 +59,9 @@ def cckp_counts(p_int: np.ndarray, acc: np.ndarray, T_int: np.ndarray,
     K1 = int(n_l.max()) + 1
     y = torch.full((B, T1, K1), NEG, dtype=torch.float32, device=dev)
     y[:, :, 0] = 0.0
-    p_t = torch.as_tensor(np.asarray(p_int, np.int32), device=dev)
-    a_t = torch.as_tensor(np.asarray(acc, np.float32), device=dev)
-    tables = []
-    for i in range(m):
-        y, bestq = cckp_ops.model_dp(y, p_t[:, i].contiguous(),
-                                     a_t[:, i].contiguous(), K1)
-        tables.append(bestq)
+    p_t = torch.as_tensor(np.ascontiguousarray(p_int, np.int32), device=dev)
+    a_t = torch.as_tensor(np.ascontiguousarray(acc, np.float32), device=dev)
+    y, tables = cckp_ops.models_dp(y, p_t, a_t, K1)
     lanes = torch.arange(B, device=dev)
     t = torch.as_tensor(np.asarray(T_int, np.int64), device=dev)
     k = torch.as_tensor(np.asarray(n_l, np.int64), device=dev)
@@ -164,8 +160,8 @@ def amdp_batch(instances: Union[InstanceBatch, Sequence[OffloadInstance]],
                *, resolution: float = 1e-3,
                device: DeviceLike = None) -> List[Schedule]:
     """AMDP over a fleet of identical-job instances (any job counts): one
-    DP launch per model per model-count group, assignments bit-identical
-    to the scalar `amdp`."""
+    DP launch per model-count group, assignments bit-identical to the
+    scalar `amdp`."""
     if isinstance(instances, InstanceBatch):
         insts = [instances[b] for b in range(len(instances))]
     else:

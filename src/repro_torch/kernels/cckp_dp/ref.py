@@ -9,9 +9,10 @@ leading lane axis with a per-lane shift: for every lane b and cell (t, k)
 
 q = 0 .. n_steps-1, reads outside the grid count as NEG.  ``s + q*a``
 rounds twice (the product, then the sum), as every reference path does;
-a fused multiply-add would round once and flip DP ties.  The wrapper in
-`ops.py` runs this on CPU tensors; the CUDA kernel repeats it cell by
-cell.
+a fused multiply-add would round once and flip DP ties.
+`cckp_models_dp_ref` chains it over the m models of one AMDP call.  The
+wrappers in `ops.py` run these on CPU tensors; the CUDA kernel repeats
+them cell by cell.
 """
 from __future__ import annotations
 
@@ -45,3 +46,18 @@ def cckp_model_dp_ref(y: torch.Tensor, p: torch.Tensor, a: torch.Tensor,
         best = torch.where(take, val, best)
         bestq = torch.where(take, q, bestq).to(torch.int32)
     return best, bestq
+
+
+def cckp_models_dp_ref(y: torch.Tensor, p: torch.Tensor, a: torch.Tensor,
+                       n_steps: int):
+    """`cckp_model_dp_ref` over m models in turn: ``y`` (B, T1, K1)
+    float32, ``p`` (B, m) int32, ``a`` (B, m) float32.  Returns ``(y_final
+    (B, T1, K1) float32, bestq (m, B, T1, K1) int32)``."""
+    tables = []
+    for i in range(p.shape[1]):
+        y, bestq = cckp_model_dp_ref(y, p[:, i], a[:, i], n_steps)
+        tables.append(bestq)
+    if not tables:
+        return y.clone(), torch.zeros((0,) + tuple(y.shape),
+                                      dtype=torch.int32, device=y.device)
+    return y, torch.stack(tables)

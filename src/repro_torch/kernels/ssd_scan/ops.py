@@ -11,17 +11,21 @@
   (B, H, P, N), both float32.
 
 x, B_ and C_ share one type, float32 or bfloat16.  On a CUDA tensor the
-hand-written kernel runs, built at first use with ``nvcc`` into
-``build/kernels/`` of the checkout and bound with `ctypes`; on a CPU
+hand-written kernels run, built at first use with ``nvcc`` into
+``build/kernels/`` of the checkout and bound with `ctypes`: one call
+launches `KERNELS_PER_CALL` kernels (C·Bᵀ per batch row and chunk, each
+chunk's local state, the pass over the chunks' start states, and y; see
+`csrc/ssd_scan.cu`), with float32 scratch from the wrapper.  On a CPU
 tensor the chunked plain version in `ref.py` runs.  There is no
-fallback: a CUDA tensor gets the kernel or an exception.  Only a kernel
-launch adds one to ``ssd_scan_fwd.launches``.
+fallback: a CUDA tensor gets the kernels or an exception.  Only a call
+that launches the kernels adds one to ``ssd_scan_fwd.launches`` (one per
+call, however many kernels it launches).
 """
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -30,13 +34,18 @@ from .ref import ssd_chunked_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_P, MAX_N, MAX_CHUNK = 64, 128, 256   # the kernel's padded tiles
+KERNELS_PER_CALL = 4                     # CB, chunk state, pass, y
+KERNEL_NAMES = ("ssd_cb_kernel", "ssd_state_kernel", "ssd_pass_kernel",
+                "ssd_out_kernel")
 
 
 def _declare(lib: ctypes.CDLL) -> None:
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.ssd_scan_fwd_launch.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I,
-                                        I, I, P]
+    lib.ssd_scan_fwd_launch.argtypes = [P, P, P, P, P, P, P, P, P, P, I, I,
+                                        I, I, I, I, I, P]
     lib.ssd_scan_fwd_launch.restype = I
+    lib.ssd_scan_occupancy.argtypes = [I, I, P, P]
+    lib.ssd_scan_occupancy.restype = I
 
 
 LIBRARY = Library(Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu",
@@ -47,6 +56,32 @@ def library() -> ctypes.CDLL:
     """The kernel's shared library, built if needed and loaded once per
     process."""
     return LIBRARY.load()
+
+
+def occupancy(bf16: bool) -> Dict[str, Tuple[int, int]]:
+    """{kernel name: (dynamic shared memory bytes, CTAs per SM)} of the
+    kernels one call launches, for bfloat16 or float32 inputs, on the
+    current device (the CUDA occupancy calculator)."""
+    lib = library()
+    out = {}
+    for which, name in enumerate(KERNEL_NAMES):
+        smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+        raise_on(lib.ssd_scan_occupancy(which, int(bf16), ctypes.byref(smem),
+                                        ctypes.byref(blocks)),
+                 "ssd_scan_occupancy")
+        out[name] = (smem.value, blocks.value)
+    return out
+
+
+def scratch_shapes(BH: int, Bb: int, S: int, P: int, N: int, Q: int
+                   ) -> Tuple[Tuple[int, ...], ...]:
+    """Shapes of the scratch one call needs: C·Bᵀ tiles (Bb, nc, Qp, Qp)
+    float32, the chunks' cumulative decays (BH, nc, Qp) float64 and their
+    states (BH, nc, P, N) float32, with nc = ceil(S / Q) chunks and Qp = Q
+    rounded up to the kernels' 64-row tiles."""
+    nc = -(-S // Q) if S else 0
+    Qp = -(-max(Q, 1) // 64) * 64
+    return (Bb, nc, Qp, Qp), (BH, nc, Qp), (BH, nc, P, N)
 
 
 def ssd_scan_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -88,10 +123,15 @@ def ssd_scan_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     state = torch.empty((BH, P, N), dtype=torch.float32, device=dev)
     if BH == 0:
         return y, state
+    cb, cum, states = (torch.empty(shape, dtype=dtype, device=dev)
+                       for shape, dtype in zip(
+                           scratch_shapes(BH, Bb, S, P, N, Q),
+                           (torch.float32, torch.float64, torch.float32)))
     err = library().ssd_scan_fwd_launch(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_.data_ptr(),
-        C_.data_ptr(), y.data_ptr(), state.data_ptr(), BH, S, P, N, Q,
-        heads, int(x.dtype == torch.bfloat16), stream_of(dev))
+        C_.data_ptr(), y.data_ptr(), state.data_ptr(), cb.data_ptr(),
+        cum.data_ptr(), states.data_ptr(), BH, S, P, N, Q, heads,
+        int(x.dtype == torch.bfloat16), stream_of(dev))
     raise_on(err, "ssd_scan_fwd")
     ssd_scan_fwd.launches += 1
     return y, state

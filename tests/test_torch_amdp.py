@@ -140,3 +140,26 @@ def test_amdp_rejects_heterogeneous_jobs():
         PA.amdp(inst, device="cpu")
     with pytest.raises(ValueError, match="identical"):
         PA.amdp_batch([inst], device="cpu")
+
+
+def test_amdp_batch_runs_one_dp_call_per_model_count(monkeypatch):
+    """`amdp_batch` hands all m models of a model-count group to one
+    `models_dp` call (one kernel launch on the card) and its schedules
+    still equal the reference's, for groups of m = 1, 2 and 3."""
+    calls = []
+    real = PA.cckp_ops.models_dp
+
+    def spy(y, p, a, n_steps):
+        calls.append((tuple(y.shape), tuple(p.shape), n_steps))
+        return real(y, p, a, n_steps)
+
+    monkeypatch.setattr(PA.cckp_ops, "models_dp", spy)
+    insts = _instances()
+    want = RA.amdp_batch([_pair(i)[0] for i in insts])
+    got = PA.amdp_batch([_pair(i)[1] for i in insts], device="cpu")
+    for w, g in zip(want, got):
+        _same_schedule(w, g)
+    ms = sorted(p[1] for _y, p, _n in calls)
+    assert ms == [1, 2, 3]
+    for y_shape, p_shape, n_steps in calls:
+        assert y_shape[0] == p_shape[0] and n_steps == y_shape[2]

@@ -8,6 +8,10 @@ every reference path of the same DP:
 * `repro.kernels.cckp_dp.cckp_dp.cckp_model_dp` in interpret mode (the
   Pallas kernel itself).
 
+`models_dp` (all m models of one AMDP call in one launch on the card)
+runs on the CPU as `cckp_model_dp_ref` chained m times; it is held
+against `model_dp` chained and against `_batch_dp_jnp`.
+
 Tolerance: none.  Values are float32 and must be bitwise equal, ``bestq``
 exact.  The reference rounds ``s + q*a`` twice (the product, then the
 sum); the FMA-sensitive case asserts that its inputs have cells where one
@@ -149,8 +153,79 @@ def test_wrapper_runs_the_plain_version_on_cpu_and_counts_no_launch():
     ops.reset_launches()
     got = ops.model_dp(y, p, a, K1)
     want = cckp_model_dp_ref(y, p, a, K1)
-    assert ops.model_dp.launches == 0
+    assert ops.models_dp.launches == 0
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     with pytest.raises(ValueError, match="no cckp_model_dp kernel"):
         ops.model_dp(y.to("meta"), p.to("meta"), a.to("meta"), K1)
+
+
+def _models_case(seed, m, B=10, T1=48, K1=9):
+    """(y, p (B, m) int32, a (B, m) float32): lanes of the DP's start grid
+    and of random grids; lanes with p = 0, with p past the grid (only q = 0
+    reads inside it), and an infeasible lane (NEG everywhere)."""
+    rng = np.random.default_rng(seed)
+    y = np.full((B, T1, K1), NEG, np.float32)
+    y[:, :, 0] = 0.0
+    y[1::3] = rng.normal(0.0, 1.0, (len(range(1, B, 3)), T1, K1))
+    y[2] = NEG                                      # infeasible lane
+    p = rng.integers(1, 9, (B, m)).astype(np.int32)
+    p[0, :] = 0
+    p[3, -1] = T1 + 5
+    p[4, 0] = 0
+    a = rng.uniform(0.3, 0.99, (B, m)).astype(np.float32)
+    return torch.as_tensor(y), torch.as_tensor(p), torch.as_tensor(a)
+
+
+# n_steps below, at and above the grid's K1 = 9
+@pytest.mark.parametrize("n_steps", [4, 9, 14])
+@pytest.mark.parametrize("m", [1, 2, 3])
+def test_models_dp_plain_version_equals_model_dp_chained(m, n_steps):
+    y, p, a = _models_case(m * 10 + n_steps, m)
+    ops.reset_launches()
+    got_y, got_q = ops.models_dp(y, p, a, n_steps)
+    assert ops.models_dp.launches == 0              # the plain version ran
+    assert got_q.shape == (m,) + tuple(y.shape)
+    assert got_y.dtype == torch.float32 and got_q.dtype == torch.int32
+    want_y = y
+    for i in range(m):
+        want_y, want_q = ops.model_dp(want_y, p[:, i].contiguous(),
+                                      a[:, i].contiguous(), n_steps)
+        assert torch.equal(got_q[i], want_q), i
+    assert torch.equal(got_y, want_y)
+    # the infeasible lane stays infeasible, the others reach a value
+    assert (got_y[2] == NEG).all() and (got_y[0, :, 0] == 0.0).all()
+    assert (got_q > 0).any()
+
+
+@pytest.mark.parametrize("m", [1, 2, 3])
+def test_models_dp_matches_vmapped_reference(m):
+    """All m models at once against the reference's `_batch_dp_jnp`, the
+    vmapped traced-shift scan `amdp_batch` runs."""
+    y, p, a = _models_case(40 + m, m)
+    want_y, want_tables = _batch_dp_jnp(
+        jnp.asarray(y.numpy()), jnp.asarray(p.numpy()),
+        jnp.asarray(a.numpy()), n_steps=y.shape[2], m=m)
+    got_y, got_q = ops.models_dp(y, p, a, y.shape[2])
+    np.testing.assert_array_equal(got_y.numpy(), np.asarray(want_y))
+    np.testing.assert_array_equal(got_q.numpy(), np.asarray(want_tables))
+
+
+def test_models_dp_with_no_model_returns_the_grid():
+    y, p, a = _models_case(7, 1)
+    got_y, got_q = ops.models_dp(y, p[:, :0], a[:, :0], 9)
+    assert torch.equal(got_y, y) and got_y is not y
+    assert got_q.shape == (0,) + tuple(y.shape)
+
+
+def test_shared_instance_is_chosen_by_shape():
+    """The serve path's grid (1201 x 13, 13 steps) fits a block's shared
+    memory with its stage and q·a table (89,128 bytes; H100: 232,448 a
+    block), the reference docstring's 4001 x 301 does not; the global
+    instance keeps only the table, min(n_steps, K1) floats."""
+    assert ops.smem_bytes(1201, 13, 13, True) \
+        == 4 * (13 + 1201 * 13 + 2 * 256 * 13)
+    assert ops.smem_bytes(1201, 13, 13, True) <= 232448 // 2
+    assert ops.smem_bytes(4001, 301, 301, True) > 232448
+    assert ops.smem_bytes(4001, 301, 301, False) == 4 * 301
+    assert ops.smem_bytes(9, 9, 4, False) == 16

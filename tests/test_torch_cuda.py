@@ -22,12 +22,11 @@ ulp is 2^-8); the LM forward's float32 logits to 1e-4 (matrix products
 of 64-wide rows summed in other orders on the card).  The SSD scan
 kernel, y and state alike, to 1e-5 plus twice its plain version's own
 error against the float64 recurrence, and so to 1e-5 plus three times it
-against the plain version: both are the chunked form in float32, whose
-error grows with the chunk's cumulative decay, and the kernel sums the
-decays in another order (a warp scan; emulated on the CPU, that order
-alone gives the card's difference from the plain version to the last
-bit); the flash-decode kernel
-as the flash kernel (1e-5 in float32, 2^-7 in bfloat16: p is rounded
+against the plain version: the plain version's float32 error grows with
+the chunk's cumulative decay, which it sums in float32, while the kernels
+sum it in float64 and take their products on the tensor cores in split
+TF32 (~2^-22 of each product); the flash-decode kernel as the flash
+kernel (1e-5 in float32, 2^-7 in bfloat16: p is rounded
 against a running max per 32-key block); the small generation run's
 float32 logits to 1e-4, as the forward's; the RG-LRU recurrence kernel
 and its plain log-step scan each to 1e-5 max(1, max |h|) of the float64
@@ -219,11 +218,48 @@ def test_cuda_cckp_kernel_matches_plain_version_bitwise(cuda_device,
     if K1 > 1:
         assert (_single_rounding(y, p, a, K1) != want[0]).any()
     monkeypatch.setattr(cckp_ops, "cckp_model_dp_ref", _fail_if_called)
+    monkeypatch.setattr(cckp_ops, "cckp_models_dp_ref", _fail_if_called)
     cckp_ops.reset_launches()
     got = cckp_ops.model_dp(y.to(cuda_device), p.to(cuda_device),
                             a.to(cuda_device), K1)
     torch.cuda.synchronize()
-    assert cckp_ops.model_dp.launches == 1
+    assert cckp_ops.models_dp.launches == 1
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+# (T1, K1, lanes): the shared instance compiled for its K1 (K1 <= 16), the
+# shared instance for any K1, and a grid too large for shared memory
+MODELS_DP_CASES = [(257, 13, 64), (300, 21, 16), (2000, 40, 3)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 2])
+@pytest.mark.parametrize("case", MODELS_DP_CASES)
+def test_cuda_models_dp_matches_plain_version_bitwise(cuda_device,
+                                                      monkeypatch, case, m):
+    """All m models in one launch, in the shared-memory and the
+    global-memory instance, values and every table bitwise against the
+    plain version chained on the CPU."""
+    T1, K1, lanes = case
+    y, p1, a1 = _cckp_case(8 + m, T1=T1, K1=K1, lanes=lanes)
+    g = torch.Generator().manual_seed(T1 + m)
+    p = torch.randint(0, 40, (lanes, m), generator=g, dtype=torch.int32)
+    p[:, 0] = p1
+    a = 0.3 + 0.69 * torch.rand((lanes, m), generator=g)
+    a[:, 0] = a1
+    want = cckp_ref.cckp_models_dp_ref(y, p, a, K1)
+    monkeypatch.setattr(cckp_ops, "cckp_model_dp_ref", _fail_if_called)
+    monkeypatch.setattr(cckp_ops, "cckp_models_dp_ref", _fail_if_called)
+    shared = cckp_ops.uses_shared(T1, K1, K1, cuda_device)
+    assert shared == (T1 * K1 * 4 < 200_000)
+    assert cckp_ops.library().cckp_dp_smem_bytes(T1, K1, K1, int(shared)) \
+        == cckp_ops.smem_bytes(T1, K1, K1, shared)
+    cckp_ops.reset_launches()
+    got = cckp_ops.models_dp(*(t.to(cuda_device) for t in (y, p, a)), K1)
+    torch.cuda.synchronize()
+    assert cckp_ops.models_dp.launches == 1
+    assert got[1].shape == (m, lanes, T1, K1)
     assert torch.equal(got[0].cpu(), want[0])
     assert torch.equal(got[1].cpu(), want[1])
 
@@ -260,13 +296,14 @@ def test_cuda_fleet_engine_matches_cpu_run(cuda_device, monkeypatch):
 
     cpu_engine, want = run("cpu")
     for mod, name in ((cckp_ops, "cckp_model_dp_ref"),
+                      (cckp_ops, "cckp_models_dp_ref"),
                       (ops, "pivot_update_ref"),
                       (ops, "reduced_pivot_ref")):
         monkeypatch.setattr(mod, name, _fail_if_called)
     cckp_ops.reset_launches()
     ops.reset_launches()
     gpu_engine, got = run(cuda_device)
-    assert cckp_ops.model_dp.launches > 0 and ops.pivot_update.launches > 0
+    assert cckp_ops.models_dp.launches > 0 and ops.pivot_update.launches > 0
     for log in gpu_engine.solver_log:
         assert log["plan"]["amdp"] > 0 and log["plan"]["amr2"] > 0
     for w, g in zip(want, got):
@@ -398,6 +435,15 @@ SSD_CASES = [  # (B, S, H, P, N, chunk, dt scale)
     (1, 300, 2, 64, 128, 256, 1.0),      # one sequence
     (2, 96, 2, 4, 8, 64, 8.0),           # cumulative decay past -88
     (2, 40, 3, 32, 16, 8, 1.0),          # the SMOKE model's P, N, chunk
+    # the chunk-parallel kernels' structure: one head (C·Bᵀ for one row)
+    # over 32 chunks (a long start-state pass), mamba2-130m's 24 heads
+    # sharing each batch row's C·Bᵀ, a single chunk shorter than the
+    # chunk size, and P, N below the 64 x 128 tiles over a ragged chunk
+    (1, 8192, 1, 64, 128, 256, 1.0),
+    (2, 512, 24, 64, 128, 256, 1.0),
+    (1, 200, 2, 64, 128, 256, 1.0),
+    (2, 300, 3, 50, 100, 64, 1.0),
+    (1, 37, 2, 3, 5, 16, 1.0),           # P N odd: one state value a load
 ]
 
 

@@ -217,3 +217,18 @@ def test_wrapper_checks_shapes_and_devices():
     with pytest.raises(ValueError, match="no ssd_scan kernel"):
         ops.ssd_scan_fwd(*meta, heads=2)
     assert ops.ssd_scan_fwd.launches == 0
+
+
+@pytest.mark.parametrize("S,Q,nc,Qp", [(2048, 256, 8, 256),
+                                       (1000, 256, 4, 256), (40, 8, 5, 64),
+                                       (96, 64, 2, 64), (200, 200, 1, 256),
+                                       (0, 0, 0, 64)])
+def test_scratch_shapes_cover_every_chunk(S, Q, nc, Qp):
+    """The card's scratch: C·Bᵀ tiles per (batch row, chunk), padded to
+    the kernels' 64-row tiles; cumulative decays and states per (row,
+    chunk).  Q is the wrapper's min(chunk, S)."""
+    cb, cum, states = ops.scratch_shapes(6, 2, S, 4, 8, Q)
+    assert cb == (2, nc, Qp, Qp)
+    assert cum == (6, nc, Qp)
+    assert states == (6, nc, 4, 8)
+    assert ops.KERNELS_PER_CALL == len(ops.KERNEL_NAMES) == 4
