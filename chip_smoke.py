@@ -10,14 +10,20 @@ Phases, each printing JSON lines; any failure exits non-zero:
               `src/repro_torch/kernels/*/csrc` (one nvcc each, all at once)
               and prints what ptxas reports (registers, static shared
               memory, stack and spills) for each kernel instance, failing
-              on a spill in the SSD or CCKP kernels; then each SSD kernel's
-              and the CCKP instances' dynamic shared memory and CTAs per
-              SM (the occupancy calculator).
+              on a spill in the simplex, SSD or CCKP kernels; then the
+              pivot kernels' lanes per CTA at the fleet shape, each SSD
+              kernel's and the CCKP instances' dynamic shared memory and
+              CTAs per SM (the occupancy calculator).
   3. kernels  each kernel against its plain PyTorch version at the shapes
               its main path gives it: the simplex kernels at 16384 lanes,
               R = 14 rows, C0 = 38 columns (random, masked, degenerate and
               Bland lanes; integer outputs exact, floats to rtol/atol
-              1e-12); the CCKP kernel on 16384 grids of 1201 x 13 cells,
+              1e-12; timed with the launches queued behind a device sleep,
+              so that the device's time is read, and again without it,
+              where the host's launch rate may set the time), and
+              reduced_pivot also at the LP of 16 jobs (R 18, C0 50, a
+              compiled instance) and of 20 (R 22, C0 62, the generic
+              one); the CCKP kernel on 16384 grids of 1201 x 13 cells,
               p and accuracies from the fleet's profiles: both models of
               an AMDP call in one `models_dp` launch from the start grid,
               and one model (`model_dp`'s m = 1) on the first model's
@@ -61,7 +67,17 @@ Phases, each printing JSON lines; any failure exits non-zero:
               periods, once per LP method, with every kernel's launch
               counter set to 0 just before and read just after; the two
               methods must agree (integer metrics exact, float metrics to
-              1e-9) with no unsolved lane.
+              1e-9) with no unsolved lane.  Then one more rollout per
+              method with the LP's pivot calls recorded (every 16th call
+              and the last of each simplex phase), each replayed through
+              its kernel (bitwise the rollout's own call; against its
+              plain version; reduced_pivot also against its serial order
+              recomputed in float64 on the CPU on every lane, the lanes
+              its plain version decides otherwise counted, capped and
+              each held within the rounding bound of a reordered sum)
+              and timed beside its bound, and the
+              rollout's estimated kernel time and loss (launches x mean
+              ms, launches x mean (ms - bound)).
   5. front    `repro_torch.api.solve(fp, policy="auto")` on a 16384-device
               `FleetProblem`, half identical-job rows, half heterogeneous
               rows: per-solver device counts, seconds, launches per kernel;
@@ -142,6 +158,7 @@ not beside this file.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import re
@@ -170,6 +187,22 @@ T_BUDGET, DP_T1, DP_K1 = 1.2, 1201, 13
 # 4001 x 301), on a few lanes: the CCKP kernel's global-memory instance
 DP_GLOBAL = (4, 4001, 301)
 CCKP_SRC = "src/repro_torch/kernels/cckp_dp/csrc/cckp_dp.cu"
+SIMPLEX_SRC = "src/repro_torch/kernels/simplex_pivot/csrc/simplex_pivot.cu"
+SIMPLEX_TPU = "src/repro/kernels/simplex_pivot/simplex_pivot.py"
+# the rollout's own pivot calls: every PIVOT_SAMPLE-th call of a method's
+# rollout (and the last of each simplex phase) is replayed and timed
+PIVOT_SAMPLE = 16
+# device cycles of a sleep that the timed launches queue up behind, so that
+# CUDA events time the device and not the host's launch rate (~5 ms)
+AHEAD_CYCLES = 10_000_000
+# reduced_pivot beside the fleet's shape: the LP of RequestQueue's default
+# batch of 16 jobs (a compiled instance) and of 20 jobs (the generic one)
+REDUCED_SHAPES = ((18, 50), (22, 62))
+# at most this share of a rollout call's lanes may be decided otherwise by
+# reduced_pivot's plain version (each within a rounding, `explain_flips`)
+MAX_FLIP_SHARE = 1 / 16
+# float64's unit roundoff
+U64 = 2.0 ** -53
 N_SERVERS = D_FLEET // 16
 BF16_FLOPS = ES_PEAK_FLOPS
 # flash attention at the LM path's shapes:
@@ -291,19 +324,31 @@ def bound_of(nbytes, flops, peak=FP64_FLOPS):
                                  else "operations")
 
 
-def cuda_ms(fn, inputs, torch, warm_up=False) -> float:
+def cuda_ms(fn, inputs, torch, warm_up=False, ahead=False) -> float:
     """Mean milliseconds of ``fn(*args)`` over ``inputs`` (one argument
     tuple per call, so in-place kernels never see their own output), after
-    one untimed call with the first tuple where ``warm_up`` is set."""
+    one untimed call with the first tuple where ``warm_up`` is set; with
+    ``ahead`` the calls queue up behind a device sleep first, so that a
+    kernel shorter than its host launch is timed on the device.  Python's
+    garbage collector is off while the calls are queued: a collection
+    there outlasts the sleep and drains the queue."""
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     if warm_up:
         fn(*inputs[0])
     torch.cuda.synchronize()
-    start.record()
-    for args in inputs:
-        fn(*args)
-    stop.record()
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        if ahead:
+            torch.cuda._sleep(AHEAD_CYCLES)
+        start.record()
+        for args in inputs:
+            fn(*args)
+        stop.record()
+    finally:
+        if collecting:
+            gc.enable()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / len(inputs)
 
@@ -326,10 +371,10 @@ def tableau_case(torch, dev, g):
     return [t.to(dev) for t in (tabs, r, j, mask)]
 
 
-def reduced_case(torch, dev, g):
-    """Random revised-simplex lanes: a quarter degenerate (zero basic
-    levels), a third on Bland's rule, some masked or not allowed to
-    pivot."""
+def reduced_case(torch, dev, g, R=R, C0=C0):
+    """Random revised-simplex lanes of (R, C0) slabs: a quarter degenerate
+    (zero basic levels), a third on Bland's rule, some masked or not
+    allowed to pivot."""
     D = D_FLEET
     A = torch.randn((D, R, C0), generator=g, dtype=torch.float64)
     c = torch.randn((D, C0), generator=g, dtype=torch.float64)
@@ -361,21 +406,46 @@ def phase_kernels(torch, ops, ref, dev):
     err = (got - want).abs().max().item()
     check(torch.allclose(got, want, rtol=RTOL, atol=ATOL),
           f"simplex_pivot disagrees with its plain version (max {err})")
-    copies = [(tabs.clone(), r, j, mask) for _ in range(reps)]
-    ms = cuda_ms(ops.pivot_update, copies, torch)
-    del copies
+    ms, ms_unqueued = both_ms(
+        torch, ops.pivot_update,
+        lambda: [(tabs.clone(), r, j, mask) for _ in range(reps)])
     plain_ms = cuda_ms(ref.pivot_update_ref, [(tabs, r, j, mask)] * 3, torch)
-    # every lane reads its mask byte; an active lane also reads r, j and
-    # its tableau and writes the tableau back
-    active = int(mask.sum())
-    lane_bytes = (R + 1) * (C0 + 1) * 8
-    nbytes = D_FLEET + active * (2 * lane_bytes + 4 + 4)
-    flops = active * ((R + 1) * (C0 + 1) * 2 + (C0 + 1))
-    rows["simplex_pivot"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+    nbytes, flops = simplex_pivot_work(mask, R + 1, C0 + 1)
+    rows["simplex_pivot"] = dict(max_abs_err=err, ms=ms,
+                                 ms_unqueued=ms_unqueued, plain_ms=plain_ms,
                                  bytes=nbytes, flops=flops)
 
     # ---- reduced_pivot ---------------------------------------------------
-    case = reduced_case(torch, dev, g)
+    rows["reduced_pivot"] = reduced_row(torch, ops, ref, dev, g, R, C0, reps)
+    for name, row in rows.items():
+        row["bound_ms"], row["bound_by"] = bound_of(row["bytes"],
+                                                         row["flops"])
+        emit("kernels", kernel=name, **row)
+    for shape in REDUCED_SHAPES:
+        row = reduced_row(torch, ops, ref, dev, g, *shape, reps)
+        row["bound_ms"], row["bound_by"] = bound_of(row["bytes"],
+                                                     row["flops"])
+        emit("kernels", kernel="reduced_pivot", case=dict(R=shape[0],
+             C0=shape[1], instance_jobs=ops.reduced_instance(*shape)),
+             **row)
+    rows["cckp_model_dp"] = phase_cckp_kernel(torch, dev)
+    return rows
+
+
+def both_ms(torch, fn, copies):
+    """(ms, ms_unqueued) of ``fn`` over fresh ``copies()``: timed with the
+    launches queued behind a device sleep (the device's time), then
+    without it (the larger of the device's time and the host's launch
+    rate)."""
+    return (cuda_ms(fn, copies(), torch, ahead=True),
+            cuda_ms(fn, copies(), torch))
+
+
+def reduced_row(torch, ops, ref, dev, g, R, C0, reps):
+    """`reduced_pivot` on `reduced_case` lanes of (R, C0) slabs against its
+    plain version (flags and basis exact, factor to 1e-12), timed both
+    ways (`both_ms`) beside the plain version, with its work counts."""
+    case = reduced_case(torch, dev, g, R, C0)
     want = ref.reduced_pivot_ref(*case, art_cost=1.0, tol=1e-7)
     got = [t.clone() for t in case]
     flags = ops.reduced_pivot(*got, art_cost=1.0, tol=1e-7)
@@ -393,24 +463,16 @@ def phase_kernels(torch, ops, ref, dev):
     check(bool(degen[has_enter].any()) and bool((~has_enter).any())
           and bool(case[5][has_enter].any()),
           "reduced_pivot inputs miss degenerate, Bland or no-entry lanes")
-    pivoted = int((case[6] & has_enter & ~unbounded).sum())
-    copies = [tuple(t.clone() if k in (2, 3, 4) else t
-                    for k, t in enumerate(case)) for _ in range(reps)]
-    ms = cuda_ms(lambda *a: ops.reduced_pivot(*a, art_cost=1.0, tol=1e-7),
-                 copies, torch)
-    del copies
+    ms, ms_unqueued = both_ms(
+        torch, lambda *a: ops.reduced_pivot(*a, art_cost=1.0, tol=1e-7),
+        lambda: [tuple(t.clone() if k in (2, 3, 4) else t
+                       for k, t in enumerate(case)) for _ in range(reps)])
     plain_ms = cuda_ms(
         lambda *a: ref.reduced_pivot_ref(*a, art_cost=1.0, tol=1e-7),
         [tuple(case)] * 3, torch)
-    nbytes, flops = reduced_pivot_work(torch, ref, case, want)
-    rows["reduced_pivot"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                 bytes=nbytes, flops=flops)
-    for name, row in rows.items():
-        row["bound_ms"], row["bound_by"] = bound_of(row["bytes"],
-                                                         row["flops"])
-        emit("kernels", kernel=name, **row)
-    rows["cckp_model_dp"] = phase_cckp_kernel(torch, dev)
-    return rows
+    nbytes, flops = reduced_pivot_work(torch, ref, case, want, 1.0, 1e-7)
+    return dict(max_abs_err=err, ms=ms, ms_unqueued=ms_unqueued,
+                plain_ms=plain_ms, bytes=nbytes, flops=flops)
 
 
 def cckp_case(torch, dev):
@@ -653,7 +715,9 @@ def phase_flash_repeat(torch, dev):
     """`FLASH_REPEAT_CASE` in float32 on the inputs the card test makes
     (a CPU generator seeded with Sq + D), the kernel called
     `FLASH_REPEATS` times against the plain version on the CPU: every
-    repeat within the test's 1e-5."""
+    repeat within the test's 1e-5.  Both are also held beside the same
+    attention in float64 on the CPU, which tells a fault of the kernel
+    from one of the plain version on this machine."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
     BKH, G, Sq, Sk, D, mask, window = FLASH_REPEAT_CASE
@@ -662,22 +726,39 @@ def phase_flash_repeat(torch, dev):
                for shape in ((BKH * G, Sq, D), (BKH, Sk, D), (BKH, Sk, D)))
     kw = dict(mask_kind=mask, window=window, group=G)
     want = fa_ref.attention_ref(q, k, v, **kw)
+    s = torch.einsum("bgqd,bkd->bgqk", q.double().reshape(BKH, G, Sq, D),
+                     k.double()) * D ** -0.5
+    s = s.masked_fill(~fa_ref.index_mask(mask, Sq, Sk, window, "cpu"),
+                      float("-inf"))
+    exact = torch.einsum("bgqk,bkd->bgqd", torch.softmax(s, dim=-1),
+                         v.double()).reshape(BKH * G, Sq, D)
     qd, kd, vd = (t.to(dev) for t in (q, k, v))
-    errs = []
+    errs, errs64 = [], []
     for _ in range(FLASH_REPEATS):
-        got = fa_ops.flash_attention_fwd(qd, kd, vd, **kw)
-        torch.cuda.synchronize()
-        errs.append((got.cpu() - want).abs().max().item())
+        got = fa_ops.flash_attention_fwd(qd, kd, vd, **kw).cpu()
+        errs.append((got - want).abs().max().item())
+        errs64.append((got.double() - exact).abs().max().item())
     emit("kernels", kernel="flash_attention_fwd", case="repeat float32",
          dims=dict(BKH=BKH, G=G, Sq=Sq, Sk=Sk, D=D, mask=mask),
-         repeats=FLASH_REPEATS, max_abs_err=max(errs), errors=errs)
+         repeats=FLASH_REPEATS, max_abs_err=max(errs), errors=errs,
+         kernel_vs_float64=max(errs64),
+         plain_vs_float64=(want.double() - exact).abs().max().item())
     check(max(errs) <= 1e-5, f"flash_attention_fwd float32 repeat: "
                              f"errors {errs} (bound 1e-5)")
 
 
-def reduced_pivot_work(torch, ref, case, want):
+def simplex_pivot_work(mask, R1, C1):
+    """Bytes and FP64 operations one `simplex_pivot` call on (B, R1, C1)
+    tableaus needs: every lane reads its mask byte; an active lane also
+    reads r, j and its tableau and writes the tableau back."""
+    active = int(mask.sum())
+    return (mask.shape[0] + active * (2 * R1 * C1 * 8 + 4 + 4),
+            active * (R1 * C1 * 2 + C1))
+
+
+def reduced_pivot_work(torch, ref, case, want, art_cost, tol):
     """Bytes and FP64 operations one `reduced_pivot` call needs on these
-    inputs, lane by lane:
+    inputs (its plain version's result ``want``), lane by lane:
 
     * every lane reads `lane_ok`, its factor `Binv`, `xB` and `basis`,
       and writes its three flags;
@@ -692,9 +773,9 @@ def reduced_pivot_work(torch, ref, case, want):
     * a lane that pivots writes `Binv`, `xB` and one basis label."""
     A, c, Binv, xB, basis, use_bland, may_pivot, lane_ok = case
     has_enter, unbounded = want[3], want[4]
-    D = A.shape[0]
-    rc = ref.price_reduced_ref(A, c, Binv, basis, 1.0)
-    enter = (rc < -1e-7) & lane_ok[:, None]
+    D, R, C0 = A.shape
+    rc = ref.price_reduced_ref(A, c, Binv, basis, art_cost)
+    enter = (rc < -tol) & lane_ok[:, None]
     j_bland = enter.to(torch.uint8).argmax(dim=1)
     cols = torch.where(use_bland & has_enter, j_bland + 1, C0)
     cols = torch.where(lane_ok, cols, 0)
@@ -779,6 +860,322 @@ def phase_rollout(torch, ops, dev, params):
     compare_metrics(E, torch, out["revised"], out["tableau"],
                     "revised vs tableau")
     return launches
+
+
+class PivotRecorder:
+    """A stand-in for the pivot kernels' module as the LP sees it
+    (`repro_torch.core.lp.pivot_ops`): each call runs the real wrapper,
+    which counts its launch as always, with its inputs and its outputs
+    cloned.  Every `PIVOT_SAMPLE`-th call of the run (call 0, 16, ...) is
+    kept in ``calls``; `phase_done`, run after each simplex phase loop,
+    keeps the phase's last call too, marked ``phase_end``."""
+
+    def __init__(self, ops):
+        self.ops, self.calls, self.n, self.latest = ops, [], 0, None
+
+    def _run(self, kernel, fn, args, kwargs, outputs):
+        self.latest = dict(kernel=kernel, call=self.n, phase_end=False,
+                           args=[a.clone() for a in args], kwargs=kwargs)
+        if self.n % PIVOT_SAMPLE == 0:
+            self.calls.append(self.latest)
+        self.n += 1
+        out = fn(*args, **kwargs)
+        self.latest["out"] = [a.clone() for a in outputs(args, out)]
+        return out
+
+    def pivot_update(self, *args):
+        return self._run("simplex_pivot", self.ops.pivot_update, args, {},
+                         lambda a, out: [out])
+
+    def reduced_pivot(self, *args, **kwargs):
+        return self._run("reduced_pivot", self.ops.reduced_pivot, args,
+                         kwargs, lambda a, out: [*a[2:5], *out])
+
+    def phase_done(self):
+        if self.latest is not None:
+            self.latest["phase_end"] = True
+            if self.latest["call"] % PIVOT_SAMPLE:
+                self.calls.append(self.latest)
+            self.latest = None
+
+
+def record_pivot_calls(torch, ops, dev, params, method):
+    """One untimed rollout of ``method`` with its pivot calls recorded
+    (`PivotRecorder`); returns (the recorder, the launch count)."""
+    from repro_torch.api import engine as E
+    from repro_torch.core import lp
+    rec = PivotRecorder(ops)
+    phases = {"_phase_batched": lp._phase_batched,
+              "_revised_phase": lp._revised_phase}
+
+    def hooked(fn):
+        def run(*a, **k):
+            out = fn(*a, **k)
+            rec.phase_done()
+            return out
+        return run
+    lp.pivot_ops = rec
+    for name, fn in phases.items():
+        setattr(lp, name, hooked(fn))
+    try:
+        ops.reset_launches()
+        E.rollout(E.init_state(params[method], device=dev), params[method],
+                  PERIODS, device=dev)
+        torch.cuda.synchronize()
+    finally:
+        lp.pivot_ops = ops
+        for name, fn in phases.items():
+            setattr(lp, name, fn)
+    counter = ops.pivot_update if method == "tableau" else ops.reduced_pivot
+    return rec, counter.launches
+
+
+def same(torch, a, b):
+    """Bitwise equal, NaN where both are NaN."""
+    both_nan = torch.isnan(a) & torch.isnan(b) if a.is_floating_point() \
+        else torch.zeros_like(a, dtype=torch.bool)
+    return bool(((a == b) | both_nan).all())
+
+
+def gamma(n):
+    """The bound on the relative error of an n-term float64 dot product
+    summed in any order (n u / (1 - n u), u the unit roundoff)."""
+    return n * U64 / (1 - n * U64)
+
+
+def reduced_decisions(torch, rc, d_of, xB, basis, use_bland, may_pivot,
+                      lane_ok, C0, tol):
+    """reduced_pivot's decisions, written from the reference's rules, from
+    reduced costs ``rc`` (B, C0) and ``d_of(j)``, the FTRAN column (B, R)
+    of the entering index j: the first column of the least reduced cost
+    below -tol (Dantzig) or the first below -tol (Bland); ratios with the
+    artificial drive-out, NaN propagating to rmin; the smallest label in
+    the tie band, the first row on equal labels.  Returns (j, d, r, the
+    pivoting lanes, the basis after the pivot, has_enter, unbounded,
+    degenerate)."""
+    B, R = xB.shape
+    enter = (rc < -tol) & lane_ok[:, None]
+    has = enter.any(dim=1)
+    j_dantzig = torch.where(enter, rc, torch.inf).argmin(dim=1)
+    j_bland = enter.to(torch.uint8).argmax(dim=1)
+    j = torch.where(has, torch.where(use_bland, j_bland, j_dantzig), 0)
+    d = d_of(j)
+    pos = d > tol
+    ratio = torch.where(pos, xB / torch.where(pos, d, 1.0), torch.inf)
+    ratio = torch.where((basis >= C0) & (d.abs() > tol) & (xB <= tol), 0.0,
+                        ratio)
+    unbounded = ~(ratio < torch.inf).any(dim=1)
+    rmin = ratio.amin(dim=1)
+    band = rmin + torch.clamp_min(rmin.abs() * 1e-9, 1e-12)
+    r = torch.where(ratio <= band[:, None], basis, 2 ** 31 - 1).argmin(dim=1)
+    do = may_pivot & has & ~unbounded
+    at_r = torch.arange(R)[None, :] == r[:, None]
+    new_basis = torch.where(do[:, None] & at_r, j[:, None].to(basis.dtype),
+                            basis)
+    return j, d, r, do, new_basis, has, unbounded, rmin <= tol
+
+
+def serial_reduced(torch, args, art_cost, tol):
+    """reduced_pivot on the CPU in float64 in the kernel's order of
+    roundings, a second source beside its plain version: every dot
+    product a serial sum in index order, each product and each sum
+    rounded apart (PyTorch's elementwise operations do not fuse them), as
+    the kernel's `__dmul_rn` / `__dadd_rn`.  Returns (`reduced_decisions`,
+    the factor and xB after the pivot, the reduced costs, their bound on
+    how far a sum in any other order lies from them, and the FTRAN bound
+    of the entering column)."""
+    A, c, Binv, xB, basis, use_bland, may_pivot, lane_ok = args
+    B, R, C0 = A.shape
+    cB = torch.where(basis >= C0, art_cost,
+                     c.gather(1, basis.long().clamp(0, C0 - 1)))
+    y = torch.zeros((B, R), dtype=torch.float64)
+    y_abs = torch.zeros_like(y)
+    for i in range(R):                       # BTRAN, thread k: y_k
+        term = cB[:, i, None] * Binv[:, i, :]
+        y, y_abs = y + term, y_abs + term.abs()
+    y_err = 2 * gamma(R) * y_abs
+    s = torch.zeros((B, C0), dtype=torch.float64)
+    s_abs, dy = torch.zeros_like(s), torch.zeros_like(s)
+    for i in range(R):                       # pricing, thread k: column k
+        term = y[:, i, None] * A[:, i, :]
+        s, s_abs = s + term, s_abs + term.abs()
+        dy = dy + A[:, i, :].abs() * y_err[:, i, None]
+    rc = c - s
+    rc_err = 2 * gamma(R + 1) * (c.abs() + s_abs + dy) + dy
+    lanes = torch.arange(B)
+    d_err = []
+
+    def ftran(j):                            # thread i: row i
+        Aj = A[lanes, :, j]
+        d = torch.zeros((B, R), dtype=torch.float64)
+        d_abs = torch.zeros_like(d)
+        for k in range(R):
+            term = Binv[:, :, k] * Aj[:, k, None]
+            d, d_abs = d + term, d_abs + term.abs()
+        d_err.append(2 * gamma(R) * d_abs)
+        return d
+    dec = reduced_decisions(torch, rc, ftran, xB, basis, use_bland,
+                            may_pivot, lane_ok, C0, tol)
+    j, d, r, do = dec[:4]
+    F = torch.cat([Binv, xB[..., None]], dim=2)
+    piv = torch.where(do, d[lanes, r], 1.0)
+    prow = F[lanes, r] / piv[:, None]
+    Fnew = torch.addcmul(F, d[:, :, None], prow[:, None, :], value=-1)
+    at_r = (torch.arange(R)[None, :] == r[:, None])[:, :, None]
+    F = torch.where(do[:, None, None],
+                    torch.where(at_r, prow[:, None, :], Fnew), F)
+    return dec, F[:, :, :R], F[:, :, R], rc, rc_err, d_err[0]
+
+
+def within(torch, a, b, err):
+    """|a - b| <= err elementwise, equal infinities and NaN where both
+    are NaN counting as within."""
+    return (a == b) | ((a - b).abs() <= err) | (torch.isnan(a)
+                                                 & torch.isnan(b))
+
+
+def explain_flips(torch, ref, args, kw, got, flags):
+    """The kernel's result on a reduced_pivot call (``got``: its in-place
+    outputs, ``flags``) against a second source and its plain version.
+
+    The kernel must equal `serial_reduced` (its own order of roundings, on
+    the CPU) on every lane: flags and basis exactly, factor and xB to
+    1e-12.  The plain version (on the card) may decide a lane otherwise:
+    its einsums sum the dot products in another order.  Each such lane is
+    explained only if the plain version's own reduced costs and FTRAN
+    column, put through the same rules (`reduced_decisions`), give its
+    decisions, and every reduced cost and (for the same entering column)
+    every d lies within the bound of a reordered sum of the serial ones:
+    then rounding alone moved the decision, which was an exact tie or
+    within a rounding of the tolerance.  At most `MAX_FLIP_SHARE` of the
+    lanes may be decided otherwise.  Returns (lanes decided otherwise,
+    the largest share of its bound that a reduced cost's or d's
+    difference uses)."""
+    B, R, C0 = args[0].shape
+    cpu = [a.cpu() for a in args]
+    art_cost, tol = kw["art_cost"], kw["tol"]
+    want = [t.cpu() for t in ref.reduced_pivot_ref(*args, **kw)]
+    got = [t.cpu() for t in (*got[2:5], *flags)]
+    dec, Binv_s, xB_s, rc, rc_err, d_err = serial_reduced(torch, cpu,
+                                                          art_cost, tol)
+    serial = (Binv_s, xB_s, dec[4], *dec[5:])
+    check(all(torch.equal(a, b) for a, b in zip(got[2:], serial[2:]))
+          and all(torch.allclose(a, b, rtol=RTOL, atol=ATOL, equal_nan=True)
+                  for a, b in zip(got[:2], serial[:2])),
+          "reduced_pivot differs from its serial float64 order on the CPU")
+    otherwise = (got[2] != want[2]).any(dim=1)
+    for a, b in zip(got[3:], want[3:]):
+        otherwise |= a != b
+    n = int(otherwise.sum())
+    check(n <= MAX_FLIP_SHARE * B,
+          f"reduced_pivot's plain version decides {n} of {B} lanes "
+          f"otherwise (at most {MAX_FLIP_SHARE * B:.0f})")
+    A_d, Binv_d, bas_d = args[0], args[2], args[4]
+    rc_p = ref.price_reduced_ref(A_d, args[1], Binv_d, bas_d, art_cost)
+
+    def ftran_plain(j):                      # as the plain version
+        j = j.to(A_d.device)
+        Aj = torch.gather(A_d, 2, j[:, None, None].expand(B, R, 1))[..., 0]
+        return torch.einsum("brk,bk->br", Binv_d, Aj).cpu()
+    plain = reduced_decisions(torch, rc_p.cpu(), ftran_plain, *cpu[3:],
+                              C0, tol)
+    check(all(torch.equal(a, b) for a, b in zip(plain[4:], want[2:])),
+          "the reference's rules on the plain version's values do not give "
+          "its decisions")
+    rc_p = rc_p.cpu()
+    same_j = plain[0] == dec[0]
+    explained = (within(torch, rc_p, rc, rc_err).all(dim=1)
+                 & (~same_j | within(torch, plain[1], dec[1],
+                                     d_err).all(dim=1)))
+    check(bool(explained[otherwise].all()),
+          f"reduced_pivot: {int((~explained[otherwise]).sum())} lanes that "
+          f"the plain version decides otherwise differ by more than a "
+          f"rounding")
+    shares = [((rc_p - rc).abs() / rc_err)[rc_err > 0],
+              ((plain[1] - dec[1]).abs() / d_err)[same_j[:, None]
+                                                   & (d_err > 0)]]
+    share = max([float(t.nan_to_num(0.0).max()) for t in shares if t.numel()]
+                or [0.0])
+    return n, share
+
+
+def replay_pivot_call(torch, ops, ref, call, reps=5):
+    """One recorded pivot call again through its kernel: bitwise what the
+    rollout's own call gave, against its plain version, timed with the
+    launches queued behind a device sleep, and its bound from the kernels
+    phase's work counts.  simplex_pivot is held to its plain version to
+    1e-12; reduced_pivot to its serial order on the CPU and, lane by lane,
+    to its plain version or within a rounding of it (`explain_flips`)."""
+    args, kw, out = call["args"], call["kwargs"], call["out"]
+    if call["kernel"] == "simplex_pivot":
+        tabs, r, j, mask = args
+        got = tabs.clone()
+        ops.pivot_update(got, r, j, mask)
+        want = ref.pivot_update_ref(*args)
+        check(same(torch, got, out[0])
+              and torch.allclose(got, want, rtol=RTOL, atol=ATOL,
+                                 equal_nan=True),
+              f"rollout call {call['call']}: simplex_pivot disagrees")
+        ms = cuda_ms(ops.pivot_update,
+                     [(tabs.clone(), r, j, mask) for _ in range(reps)],
+                     torch, ahead=True)
+        nbytes, flops = simplex_pivot_work(mask, *tabs.shape[1:])
+        extra = dict(pivoting_lanes=int(mask.sum()))
+    else:
+        got = [a.clone() for a in args]
+        flags = ops.reduced_pivot(*got, **kw)
+        want = ref.reduced_pivot_ref(*args, **kw)
+        check(all(same(torch, a, b)
+                  for a, b in zip([*got[2:5], *flags], out)),
+              f"rollout call {call['call']}: reduced_pivot differs from "
+              f"the rollout's own call")
+        otherwise = (got[4] != want[2]).any(dim=1)
+        for a, b in zip(flags, want[3:]):
+            otherwise |= a != b
+        same_lanes = ~otherwise
+        check(all(torch.allclose(a[same_lanes], b[same_lanes], rtol=RTOL,
+                                 atol=ATOL, equal_nan=True)
+                  for a, b in zip(got[2:4], want[:2])),
+              f"rollout call {call['call']}: reduced_pivot's factor "
+              f"disagrees with its plain version on lanes of the same "
+              f"pivot")
+        n_flips, bound_share = explain_flips(torch, ref, args, kw, got,
+                                             flags)
+        copies = [tuple(a.clone() if k in (2, 3, 4) else a
+                        for k, a in enumerate(args)) for _ in range(reps)]
+        ms = cuda_ms(lambda *a: ops.reduced_pivot(*a, **kw), copies, torch,
+                     ahead=True)
+        nbytes, flops = reduced_pivot_work(torch, ref, args, want,
+                                           kw["art_cost"], kw["tol"])
+        extra = dict(
+            pivoting_lanes=int((args[6] & want[3] & ~want[4]).sum()),
+            plain_decides_otherwise=n_flips,
+            rounding_bound_share=bound_share)
+    bound_ms, bound_by = bound_of(nbytes, flops)
+    return dict(call=call["call"], phase_end=call["phase_end"], **extra,
+                ms=ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def phase_rollout_calls(torch, ops, ref, dev, params):
+    """The rollout's own pivot calls, per LP method: recorded in one
+    untimed rollout, replayed one by one (`replay_pivot_call`).  Prints
+    each call's ms beside its bound and, from the every-16th sample, the
+    rollout's estimated kernel time (launches x mean ms) and its loss
+    (launches x mean (ms - bound))."""
+    for method in ("tableau", "revised"):
+        rec, launches = record_pivot_calls(torch, ops, dev, params, method)
+        rows = []
+        while rec.calls:
+            rows.append(replay_pivot_call(torch, ops, ref, rec.calls.pop(0)))
+        sample = [r for r in rows if r["call"] % PIVOT_SAMPLE == 0]
+        mean_ms = sum(r["ms"] for r in sample) / len(sample)
+        mean_bound = sum(r["bound_ms"] for r in sample) / len(sample)
+        emit("rollout_calls", lp_method=method,
+             kernel="simplex_pivot" if method == "tableau"
+             else "reduced_pivot", launches=launches, calls=rows,
+             est_kernel_ms=launches * mean_ms,
+             est_bound_ms=launches * mean_bound,
+             est_loss_ms=launches * (mean_ms - mean_bound))
 
 
 def kernel_launches():
@@ -1910,12 +2307,14 @@ def main() -> int:
         instances = ptxas_instances(log)
         emit("build", source=source, library=os.path.relpath(path, ROOT),
              instances=instances)
-        if source in (SSD_SRC, CCKP_SRC):       # redesigned: no spill
+        if source in (SSD_SRC, CCKP_SRC, SIMPLEX_SRC):  # redesigned: no spill
             check(all(i["spill_stores"] == 0 and i["spill_loads"] == 0
                       for i in instances),
                   f"build: ptxas spills in {source}: {instances}")
     emit("build", seconds=time.perf_counter() - t0)
     emit("build", occupancy=dict(
+        simplex_pivot=ops.occupancy("simplex_pivot", R + 1, C0 + 1),
+        reduced_pivot=ops.occupancy("reduced_pivot", R, C0),
         ssd_scan_bf16=ssd_ops.occupancy(True),
         ssd_scan_f32=ssd_ops.occupancy(False),
         cckp_shared_serve_grid=dict(
@@ -1936,6 +2335,7 @@ def main() -> int:
     emit("kernels", phase_seconds=time.perf_counter() - t_kernels)
     params = build_params(dev)
     launches = phase_rollout(torch, ops, dev, params)
+    phase_rollout_calls(torch, ops, ref, dev, params)
     phase_front(torch, dev)
     serve_launches, serve_seconds, dp_calls = phase_serve(torch, dev)
     launches["cckp_model_dp"] = serve_launches["cckp_model_dp"]
@@ -1958,16 +2358,14 @@ def main() -> int:
     seconds = phase_timing(torch, dev, params)
     phase_profile(torch, dev, params, seconds, serve_seconds)
 
-    simplex_src = "src/repro_torch/kernels/simplex_pivot/csrc/simplex_pivot.cu"
-    simplex_tpu = "src/repro/kernels/simplex_pivot/simplex_pivot.py"
-    source = {"simplex_pivot": simplex_src, "reduced_pivot": simplex_src,
+    source = {"simplex_pivot": SIMPLEX_SRC, "reduced_pivot": SIMPLEX_SRC,
               "cckp_model_dp":
                   "src/repro_torch/kernels/cckp_dp/csrc/cckp_dp.cu",
               "flash_attention_fwd": FLASH_SRC, "ssd_scan_fwd": SSD_SRC,
               "decode_attention_fwd": DECODE_SRC,
               "rglru_scan_fwd": RGLRU_SRC}
-    replaces = {"simplex_pivot": f"{simplex_tpu}:57",
-                "reduced_pivot": f"{simplex_tpu}:146",
+    replaces = {"simplex_pivot": f"{SIMPLEX_TPU}:57",
+                "reduced_pivot": f"{SIMPLEX_TPU}:146",
                 "cckp_model_dp": "src/repro/kernels/cckp_dp/cckp_dp.py:57",
                 "flash_attention_fwd": FLASH_TPU, "ssd_scan_fwd": SSD_TPU,
                 "decode_attention_fwd": DECODE_TPU,

@@ -9,6 +9,10 @@ exception.
 
 Both update their state IN PLACE (the kernels skip lanes that do not
 pivot), and both wrappers keep the in-place contract on the CPU path too.
+A kernel stages each lane in shared memory (`occupancy` reports the
+launch): a lane larger than a block's opt-in shared memory (a tableau of
+~29,000 entries, a slab of about as many) is refused, and the wrapper
+raises.
 Each wrapper counts its kernel launches in a plain integer attribute
 (``pivot_update.launches``, ``reduced_pivot.launches``); only a kernel
 launch increments it.
@@ -34,6 +38,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.reduced_pivot_launch.argtypes = [P, P, P, P, P, P, P, P, P,
                                          I, I, I, D, D, P]
     lib.reduced_pivot_launch.restype = I
+    for name in ("simplex_pivot_occupancy", "reduced_pivot_occupancy"):
+        getattr(lib, name).argtypes = [I, I, P, P, P]
+        getattr(lib, name).restype = I
+    lib.reduced_pivot_instance.argtypes = [I, I]
+    lib.reduced_pivot_instance.restype = I
 
 
 LIBRARY = Library(Path(__file__).resolve().parent / "csrc" /
@@ -44,6 +53,26 @@ def library() -> ctypes.CDLL:
     """The kernels' shared library, built if needed and loaded once per
     process."""
     return LIBRARY.load()
+
+
+def occupancy(kernel: str, rows: int, cols: int) -> dict:
+    """The launch of ``kernel`` ("simplex_pivot" for (rows, cols)
+    tableaus, "reduced_pivot" for (rows, cols) column slabs) on the
+    current device: lanes (warps) per CTA, the CTA's shared memory in bytes
+    and CTAs per SM (the occupancy calculator)."""
+    warps, ctas = ctypes.c_int(0), ctypes.c_int(0)
+    smem = ctypes.c_longlong(0)
+    _raise_on(getattr(library(), f"{kernel}_occupancy")(
+        rows, cols, ctypes.byref(warps), ctypes.byref(smem),
+        ctypes.byref(ctas)), f"{kernel}_occupancy")
+    return dict(warps=warps.value, smem=smem.value, ctas_per_sm=ctas.value)
+
+
+def reduced_instance(rows: int, cols: int) -> int:
+    """The job count J of the `reduced_pivot` instance compiled for
+    (rows, cols) slabs, the LP of J jobs on two local models (rows J + 2,
+    cols 3J + 2, J <= 16); 0 where the slab takes the generic instance."""
+    return library().reduced_pivot_instance(rows, cols)
 
 
 def pivot_update(tabs: torch.Tensor, r: torch.Tensor, j: torch.Tensor,

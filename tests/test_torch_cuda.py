@@ -72,33 +72,79 @@ def _fail_if_called(*_a, **_k):
     raise AssertionError("a CUDA tensor reached the plain version")
 
 
-def _tableau_case(seed):
+def _tableau_case(seed, lanes=B, rows=R, cols=C0, kind="random"):
     g = torch.Generator().manual_seed(seed)
-    tabs = torch.randn((B, R + 1, C0 + 1), generator=g, dtype=torch.float64)
-    r = torch.randint(0, R, (B,), generator=g, dtype=torch.int32)
-    j = torch.randint(0, C0, (B,), generator=g, dtype=torch.int32)
-    mask = torch.rand((B,), generator=g) < 0.7
+    tabs = torch.randn((lanes, rows + 1, cols + 1), generator=g,
+                       dtype=torch.float64)
+    r = torch.randint(0, rows, (lanes,), generator=g, dtype=torch.int32)
+    j = torch.randint(0, cols, (lanes,), generator=g, dtype=torch.int32)
+    mask = torch.rand((lanes,), generator=g) < 0.7
+    mask[0] = kind != "all_masked"
+    if kind == "all_masked":
+        mask[:] = False
     return tabs, r, j, mask
 
 
-def _reduced_case(seed):
+def _reduced_case(seed, lanes=B, rows=R, cols=C0, kind="random"):
+    """Revised-simplex lanes: a quarter degenerate, a third on Bland's rule,
+    every tenth with lane_ok False; ``kind`` shapes the whole batch (see
+    `REDUCED_CASES`).  Lane 0 may pivot unless the kind forbids it."""
     g = torch.Generator().manual_seed(seed)
-    A = torch.randn((B, R, C0), generator=g, dtype=torch.float64)
-    c = torch.randn((B, C0), generator=g, dtype=torch.float64)
-    Binv = torch.eye(R, dtype=torch.float64) + 0.3 * torch.randn(
-        (B, R, R), generator=g, dtype=torch.float64)
-    xB = 2.0 * torch.rand((B, R), generator=g, dtype=torch.float64)
+    A = torch.randn((lanes, rows, cols), generator=g, dtype=torch.float64)
+    c = torch.randn((lanes, cols), generator=g, dtype=torch.float64)
+    Binv = torch.eye(rows, dtype=torch.float64) + 0.3 * torch.randn(
+        (lanes, rows, rows), generator=g, dtype=torch.float64)
+    xB = 2.0 * torch.rand((lanes, rows), generator=g, dtype=torch.float64)
     xB[::4, ::2] = 0.0                                  # degenerate lanes
-    basis = torch.argsort(torch.rand((B, C0 + R), generator=g),
-                          dim=1)[:, :R].to(torch.int32).contiguous()
-    lanes = torch.arange(B)
-    return [A, c, Binv, xB, basis, lanes % 3 == 0,
-            torch.rand((B,), generator=g) < 0.8, lanes % 10 != 5]
+    basis = torch.argsort(torch.rand((lanes, cols + rows), generator=g),
+                          dim=1)[:, :rows].to(torch.int32).contiguous()
+    idx = torch.arange(lanes)
+    may_pivot = torch.rand((lanes,), generator=g) < 0.8
+    lane_ok = idx % 10 != 5
+    may_pivot[0] = lane_ok[0] = True
+    if kind == "no_pivot":
+        may_pivot[:] = False
+    elif kind == "all_idle":
+        lane_ok[:] = False
+    elif kind == "identical_columns":       # pairs price to equal costs
+        A[:, :, 1::2] = A[:, :, 0:cols - 1:2]
+        c[:, 1::2] = c[:, 0:cols - 1:2]
+    elif kind == "tied_ratios":             # rows 0, 2, 4, ... tie exactly
+        Binv = torch.eye(rows, dtype=torch.float64).repeat(lanes, 1, 1)
+        A = A.abs()
+        A[:, 2::2, :] = A[:, :1, :]
+        xB = 0.5 + xB
+        xB[:, 2::2] = xB[:, :1]
+    elif kind == "nan_ratio":               # every third lane: one NaN level
+        xB[::3, 1] = float("nan")
+    return [A, c, Binv.contiguous(), xB, basis, idx % 3 == 0, may_pivot,
+            lane_ok]
+
+
+# (lanes, R, C0, kind): the fleet shape; a lane wider than a warp; a tiny
+# lane; one lane; a batch that is no multiple of a CTA's lanes
+SHAPE_CASES = [(B, R, C0, "random"), (64, 40, 70, "random"),
+               (64, 2, 3, "random"), (1, R, C0, "random"),
+               (257, R, C0, "random")]
+PIVOT_CASES = SHAPE_CASES + [(B, R, C0, "all_masked")]
+# reduced_pivot also at the LP of 1 and of 16 jobs (R = J + 2, C0 = 3J + 2),
+# the ends of its compiled instances
+REDUCED_CASES = SHAPE_CASES + [(B, 3, 5, "random"), (B, 18, 50, "random")] + [
+    (B, R, C0, kind) for kind in ("no_pivot", "all_idle",
+                                  "identical_columns", "tied_ratios",
+                                  "nan_ratio")]
+
+
+def _case_id(case):
+    return "-".join(map(str, case))
 
 
 @pytest.mark.gpu
-def test_cuda_pivot_kernel_matches_plain_version(cuda_device, monkeypatch):
-    tabs, r, j, mask = _tableau_case(3)
+@pytest.mark.parametrize("case", PIVOT_CASES, ids=_case_id)
+def test_cuda_pivot_kernel_matches_plain_version(cuda_device, monkeypatch,
+                                                 case):
+    lanes, rows, cols, kind = case
+    tabs, r, j, mask = _tableau_case(3, lanes, rows, cols, kind)
     want = ref.pivot_update_ref(tabs, r, j, mask)
     monkeypatch.setattr(ops, "pivot_update_ref", _fail_if_called)
     ops.reset_launches()
@@ -112,10 +158,15 @@ def test_cuda_pivot_kernel_matches_plain_version(cuda_device, monkeypatch):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", REDUCED_CASES, ids=_case_id)
 def test_cuda_reduced_kernel_matches_plain_version(cuda_device,
-                                                   monkeypatch):
-    case = _reduced_case(4)
+                                                   monkeypatch, case):
+    lanes, rows, cols, kind = case
+    case = _reduced_case(4, lanes, rows, cols, kind)
     want = ref.reduced_pivot_ref(*case, art_cost=1.0, tol=1e-7)
+    pivots = case[6] & want[3] & ~want[4]
+    if kind in ("random", "identical_columns", "tied_ratios", "nan_ratio"):
+        assert bool(pivots.any())           # the inputs exercise the update
     monkeypatch.setattr(ops, "reduced_pivot_ref", _fail_if_called)
     ops.reset_launches()
     dev = [x.to(cuda_device) for x in case]
@@ -131,6 +182,14 @@ def test_cuda_reduced_kernel_matches_plain_version(cuda_device,
 
 
 @pytest.mark.gpu
+def test_cuda_reduced_instances_cover_the_job_counts(cuda_device):
+    for jobs in range(1, 17):
+        assert ops.reduced_instance(jobs + 2, 3 * jobs + 2) == jobs
+    for shape in ((2, 3), (19, 53), (40, 70), (R, C0 + 1), (R + 1, C0)):
+        assert ops.reduced_instance(*shape) == 0
+
+
+@pytest.mark.gpu
 def test_cuda_wrappers_check_their_inputs(cuda_device):
     tabs, r, j, mask = (x.to(cuda_device) for x in _tableau_case(5))
     with pytest.raises(TypeError, match="int32"):
@@ -139,6 +198,10 @@ def test_cuda_wrappers_check_their_inputs(cuda_device):
         ops.pivot_update(tabs.transpose(1, 2), r, j, mask)
     with pytest.raises(ValueError, match="expected"):
         ops.pivot_update(tabs, r.cpu(), j, mask)
+    # a lane whose tile exceeds a block's shared memory is refused
+    big = torch.zeros((1, 200, 200), dtype=torch.float64, device=cuda_device)
+    with pytest.raises(RuntimeError, match="simplex_pivot"):
+        ops.pivot_update(big, r[:1], j[:1], mask[:1])
 
 
 @pytest.mark.gpu
