@@ -12,8 +12,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
               memory, stack and spills) for each kernel instance, failing
               on a spill in the simplex, SSD or CCKP kernels; then the
               pivot kernels' lanes per CTA at the fleet shape, each SSD
-              kernel's and the CCKP instances' dynamic shared memory and
-              CTAs per SM (the occupancy calculator).
+              kernel's, the CCKP instances' and the RG-LRU geometries'
+              dynamic shared memory and CTAs per SM (the occupancy
+              calculator).
   3. kernels  each kernel against its plain PyTorch version at the shapes
               its main path gives it: the simplex kernels at 16384 lanes,
               R = 14 rows, C0 = 38 columns (random, masked, degenerate and
@@ -56,10 +57,17 @@ Phases, each printing JSON lines; any failure exits non-zero:
               it.  Flash attention also at recurrentgemma-9b's shape (2 x
               4096 tokens, 16 heads on 1 KV head, head_dim 256, window
               2048).  The RG-LRU recurrence kernel at recurrentgemma-9b's
-              forward and prefill shapes (2 x 4096 and 4 x 2100 tokens x
-              4096 channels, a and b from the model's gates) and a ragged
-              one (1 x 2085 x 999, a in (0.9, 1)), with its plain log-step
-              scan, both held to the float64 recurrence; its library
+              forward and prefill shapes (2 x 4096, 4 x 2100 and 1 x
+              2100 tokens x 4096 channels, a and b from the model's
+              gates) and a ragged one (1 x 2085 x 999, a in (0.9, 1);
+              again at W 1000, where the tiles load in 16-byte copies)
+              in the geometry
+              `launch_geometry` picks (printed with its shared memory and
+              CTAs per SM), with its plain log-step scan and its own order
+              (`rglru_tiled_ref`), all held to the float64 recurrence;
+              timed queued and unqueued with inputs past the L2, beside
+              its bound share; then every compiled (C, L, stages)
+              instance at each shape, timed and checked; its library
               column is null (no single PyTorch call computes a linear
               recurrence).
   4. rollout  the tensor engine's path: `EngineParams.from_fleet` ->
@@ -174,6 +182,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_S = 3.35e12
 FP64_FLOPS = 34e12
 FP32_FLOPS = 67e12
+L2_BYTES = 50 * 2 ** 20
 TF32_FLOPS = 495e12
 ES_PEAK_FLOPS = 989e12
 D_FLEET, PERIODS, R, N_JOBS = 16384, 8, 14, 12
@@ -241,12 +250,15 @@ RG_BATCH, RG_SEQ, RG_PROMPT = 2, 4096, 2100
 RGLRU_SRC = "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu"
 RGLRU_TPU = "src/repro/kernels/rglru_scan/rglru_scan.py:43"
 # the RG-LRU recurrence at the path's shapes: (name, B, S, W, slow decay);
-# the forward's and the prefill's a and b as the model's gates make them,
-# and a ragged shape with a in (0.9, 1)
+# the forward's and the prefill's (of 4 prompts and of 1) a and b as the
+# model's gates make them, and a ragged shape with a in (0.9, 1), at an odd width (4-byte copies)
+# and at the next multiple of 4 (16-byte copies)
 RGLRU_SHAPES = (
     ("recurrentgemma_forward", RG_BATCH, RG_SEQ, 4096, False),
     ("recurrentgemma_prefill", GEN_BATCH, RG_PROMPT, 4096, False),
+    ("recurrentgemma_prefill_1", 1, RG_PROMPT, 4096, False),
     ("ragged_slow", 1, 2085, 999, True),
+    ("ragged_slow_w1000", 1, 2085, 1000, True),
 )
 RGLRU_LINE = "recurrentgemma_forward"       # the kernels line's shape
 # flash-decode through the model's entry at the generation runs' shapes:
@@ -1731,13 +1743,30 @@ def rglru_inputs(torch, dev, g, B, S, W, slow):
     return layers._rglru_gates(p, u)
 
 
+def rglru_copies(torch, a, b, reps):
+    """``reps`` argument tuples for timed calls of the recurrence, cycling
+    over copies of (a, b) that together exceed twice the card's 50 MB L2,
+    so that every call reads its inputs from device memory."""
+    per_call = 3 * a.numel() * a.element_size()
+    n = max(1, -(-2 * L2_BYTES // per_call))
+    copies = [(a, b)] + [(a.clone(), b.clone()) for _ in range(n - 1)]
+    return [copies[i % n] for i in range(reps)]
+
+
 def phase_rglru_kernel(torch, dev):
-    """The RG-LRU recurrence kernel against its plain log-step scan at
-    `RGLRU_SHAPES`, both held to the recurrence in float64 within 1e-5
-    max(1, max |h|) (the recurrence is contractive, 0 < a < 1), and to
-    each other within the same.  Kernel and plain times by CUDA events;
-    the bound is 12 bytes per (token, channel); no single PyTorch call
-    computes a linear recurrence, so the library column is null."""
+    """The RG-LRU recurrence kernel at `RGLRU_SHAPES` in the geometry
+    `ops.launch_geometry` picks, against its plain log-step scan, its own
+    order recomputed (`ref.rglru_tiled_ref`, one rounding a step) and the
+    recurrence in float64: every pair within 1e-5 max(1, max |h|) (the
+    recurrence is contractive, 0 < a < 1), the kernel's distance from its
+    own order also as a share of that.  Kernel times by CUDA events queued
+    behind a device sleep (the device's time) and not (the host's launch
+    rate may set it), inputs read from device memory (`rglru_copies`);
+    the bound is 12 bytes per (token, channel).  Then every compiled
+    instance (C, L, stages) at each shape, timed queued and held to the
+    plain version: the measurements behind `ops.TILES`.  No single
+    PyTorch call computes a linear recurrence, so the library column is
+    null."""
     from repro_torch.kernels.rglru_scan import ops as rg_ops
     from repro_torch.kernels.rglru_scan import ref as rg_ref
     g = torch.Generator(device=dev).manual_seed(29)
@@ -1747,8 +1776,10 @@ def phase_rglru_kernel(torch, dev):
         a_range = [a.min().item(), a.max().item()]
         check(0.0 < a_range[0] and a_range[1] < 1.0,
               f"rglru {name}: a outside (0, 1): {a_range}")
+        geo = rg_ops.launch_geometry(B, S, W)
         got = rg_ops.rglru_scan_fwd(a, b)
         want = rg_ref.rglru_scan_ref(a, b)
+        tiled = rg_ref.rglru_tiled_ref(a, b, tile=geo.steps, split=geo.split)
         exact = rg_ref.rglru_sequential_ref(a, b)
         torch.cuda.synchronize()
         scale = exact.abs().max().item()
@@ -1756,29 +1787,61 @@ def phase_rglru_kernel(torch, dev):
         err = (got - want).abs().max().item()
         err_exact = (got.double() - exact).abs().max().item()
         own = (want.double() - exact).abs().max().item()
-        check(bool(torch.isfinite(got).all()) and max(err, err_exact, own)
-              <= tol, f"rglru_scan_fwd {name}: {err} from the plain "
-                      f"version, {err_exact} from float64 (plain's own "
-                      f"{own}; bound {tol})")
-        del got, want, exact
-        ms = cuda_ms(lambda: rg_ops.rglru_scan_fwd(a, b), [()] * 20, torch)
+        err_tiled = (got - tiled).abs().max().item()
+        tiled_exact = (tiled.double() - exact).abs().max().item()
+        check(bool(torch.isfinite(got).all())
+              and max(err, err_exact, own, err_tiled, tiled_exact) <= tol,
+              f"rglru_scan_fwd {name}: {err} from the plain version, "
+              f"{err_exact} from float64, {err_tiled} from its own order "
+              f"(plain's own {own}, the order's {tiled_exact}; bound {tol})")
+        del got, tiled, exact
+        ms, ms_unqueued = both_ms(
+            torch, lambda a, b: rg_ops.rglru_scan_fwd(a, b),
+            lambda: rglru_copies(torch, a, b, 20))
         plain_ms = cuda_ms(lambda: rg_ref.rglru_scan_ref(a, b), [()] * 3,
                            torch)
         # a and b read once, h written once (float32); an FMA per element
         nbytes, flops = 12 * B * S * W, 2 * B * S * W
         bound_ms, bound_by = bound_of(nbytes, flops, FP32_FLOPS)
         row = dict(max_abs_err=err, err_vs_float64=err_exact,
-                   plain_err_vs_float64=own, scale=scale, ms=ms,
-                   plain_ms=plain_ms, library_ms=None,
+                   plain_err_vs_float64=own, err_vs_own_order=err_tiled,
+                   own_order_share_of_bound=err_tiled / tol, scale=scale,
+                   ms=ms, ms_unqueued=ms_unqueued, plain_ms=plain_ms,
+                   library_ms=None,
                    library_note="no single PyTorch call computes a linear "
                                 "recurrence",
                    bytes=nbytes, flops=flops, bound_ms=bound_ms,
-                   bound_by=bound_by)
+                   bound_by=bound_by, bound_share=bound_ms / ms)
         emit("kernels", kernel="rglru_scan_fwd", shape=name,
-             dims=dict(B=B, S=S, W=W), a_range=a_range, **row)
+             dims=dict(B=B, S=S, W=W), a_range=a_range,
+             geometry=dict(geo._asdict(), **rg_ops.occupancy(geo)), **row)
         rows[name] = row
-        del a, b
+        emit("kernels", kernel="rglru_scan_fwd", shape=name,
+             instances=rglru_instances(torch, rg_ops, a, b, want, tol,
+                                       bound_ms))
+        del a, b, want
     return rows
+
+
+def rglru_instances(torch, rg_ops, a, b, want, tol, bound_ms):
+    """Every compiled instance of the recurrence kernel on (a, b): its
+    geometry, CTAs per SM, time queued behind a device sleep and bound
+    share, each held to the plain version's ``want`` within ``tol``."""
+    B, S, W = a.shape
+    out = []
+    for inst in rg_ops.INSTANCES:
+        geo = rg_ops.geometry_of(B, W, *inst)
+        got = rg_ops.rglru_scan_fwd(a, b, geometry=geo)
+        err = (got - want).abs().max().item()
+        check(err <= tol, f"rglru_scan_fwd instance {inst}: {err} from the "
+                          f"plain version (bound {tol})")
+        del got
+        ms = cuda_ms(lambda a, b: rg_ops.rglru_scan_fwd(a, b, geometry=geo),
+                     rglru_copies(torch, a, b, 20), torch, ahead=True)
+        out.append(dict(C=geo.channels, L=geo.steps, stages=geo.stages,
+                        ctas=geo.ctas, **rg_ops.occupancy(geo), ms=ms,
+                        bound_share=bound_ms / ms, max_abs_err=err))
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -1981,7 +2044,8 @@ def phase_lm_forward_rg(torch, dev, params):
         run_logits()
         torch.cuda.synchronize()
         steady.append(time.perf_counter() - t0)
-    device_s, n_launch, top = profiled(torch, run_logits)
+    device_s, n_launch, top = profiled(torch, run_logits,
+                                       keep=("rglru_scan_kernel",))
     emit("profile", path="lm_forward recurrentgemma",
          device_seconds=device_s, wall_seconds=min(steady),
          busy_share=device_s / min(steady), n_kernel_launches=n_launch,
@@ -2194,9 +2258,10 @@ def phase_timing(torch, dev, params):
     return seconds
 
 
-def profiled(torch, run):
+def profiled(torch, run, keep=()):
     """``run()`` under `torch.profiler`: (device seconds, kernel launches,
-    the ten largest device items by name)."""
+    the ten largest device items by name, then any other item whose name
+    holds one of ``keep``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -2211,7 +2276,9 @@ def profiled(torch, run):
             n, t = by_name.get(ev.name, (0, 0.0))
             by_name[ev.name] = (n + 1, t + us)
     device_s = sum(t for _n, t in by_name.values()) / 1e6
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    top = ranked[:10] + [kv for kv in ranked[10:]
+                         if any(k in kv[0] for k in keep)]
     return (device_s, sum(n for n, _t in by_name.values()),
             [dict(name=k[:80], calls=n, ms=t / 1e3) for k, (n, t) in top])
 
@@ -2323,7 +2390,10 @@ def main() -> int:
         cckp_global=dict(
             smem=cckp_ops.smem_bytes(*DP_GLOBAL[1:], DP_GLOBAL[2], False),
             ctas_per_sm=cckp_ops.occupancy(*DP_GLOBAL[1:], DP_GLOBAL[2],
-                                           False))))
+                                           False)),
+        rglru_scan={name: dict(geo._asdict(), **rg_ops.occupancy(geo))
+                    for name, geo in ((name, rg_ops.launch_geometry(B, S, W))
+                                      for name, B, S, W, _ in RGLRU_SHAPES)}))
 
     t_kernels = time.perf_counter()
     rows = phase_kernels(torch, ops, ref, dev)

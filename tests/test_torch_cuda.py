@@ -31,7 +31,10 @@ against a running max per 32-key block); the small generation run's
 float32 logits to 1e-4, as the forward's; the RG-LRU recurrence kernel
 and its plain log-step scan each to 1e-5 max(1, max |h|) of the float64
 recurrence, and to that of each other (0 < a < 1: the recurrence is
-contractive, so float32 stays within a few roundings of |h|).
+contractive, so float32 stays within a few roundings of |h|), and the
+kernel to its own order recomputed on the CPU (`rglru_tiled_ref`) within
+5% of that (a few ulps: the oracle's fused multiply-add rounds twice on a
+float32 halfway case).
 """
 import dataclasses
 
@@ -699,12 +702,26 @@ def _generate_launches():
 # ---------------------------------------------------------------------------
 # recurrentgemma: the RG-LRU recurrence kernel
 # ---------------------------------------------------------------------------
-RGLRU_CASES = [  # (B, S, W, a's lower end)
+RGLRU_CASES = [  # (B, S, W, a's lower end); geometry: `launch_geometry`
     (2, 1000, 256, 0.0),
     (1, 1, 64, 0.0),                     # one step
     (1, 333, 77, 0.9),                   # ragged S and W, slow decay
     (3, 40, 4096, 0.0),                  # recurrentgemma-9b's width
     (1, 2100, 33, 0.99),
+    # 32 channels a CTA, tiles of L = 64 steps in sub-chunks of 8: S at
+    # L - 1, L, L + 1 and 3 tiles + 5 sub-chunks; W no multiple of 32, odd
+    # (4-byte copies); one prompt of 4096 channels (the deeper ring)
+    (2, 63, 4100, 0.0),
+    (3, 64, 4096, 0.5),
+    (1, 65, 4096, 0.0),
+    (2, 3 * 64 + 5 * 8, 4097, 0.9),
+    # 16 channels (L 256, sub-chunks of 16) and 8 (L 512, sub-chunks of
+    # 16): the narrow groups of small B * W, aligned and not
+    (1, 2 * 256 + 3 * 16, 1100, 0.99),
+    (1, 511, 40, 0.0),
+    (1, 2 * 512 + 1, 999, 0.9),
+    (1, 512 + 3 * 16, 1000, 0.0),
+    (6, 257, 4096, 0.0),                 # 768 CTAs: more than one wave
 ]
 
 
@@ -733,6 +750,57 @@ def test_cuda_rglru_kernel_matches_plain_version(cuda_device, monkeypatch,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", RGLRU_CASES)
+def test_cuda_rglru_kernel_is_its_own_order(cuda_device, monkeypatch, case):
+    """The kernel against `rglru_tiled_ref`, its association recomputed on
+    the CPU with one rounding a step, in the geometry the wrapper picks:
+    equal but for the float64 sum's second rounding in `ref._fma` (a few
+    ulps at most), so within 5% of the 1e-5 max(1, max |h|) tolerance;
+    the largest difference is printed as a share of it."""
+    B, S, W, lo = case
+    g = torch.Generator().manual_seed(S * 3 + W)
+    a = lo + (1.0 - lo) * torch.rand(B, S, W, generator=g)
+    b = torch.randn(B, S, W, generator=g)
+    geo = rg_ops.launch_geometry(B, S, W)
+    want = rg_ref.rglru_tiled_ref(a, b, tile=geo.steps, split=geo.split)
+    monkeypatch.setattr(rg_ops, "rglru_scan_ref", _fail_if_called)
+    rg_ops.reset_launches()
+    got = rg_ops.rglru_scan_fwd(a.to(cuda_device), b.to(cuda_device)).cpu()
+    assert rg_ops.rglru_scan_fwd.launches == 1
+    tol = 1e-5 * max(1.0, want.abs().max().item())
+    share = (got - want).abs().max().item() / tol
+    print(f"rglru {case} {tuple(geo)[:4]}: {share:.3g} of the tolerance")
+    assert share <= 0.05
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("inst", rg_ops.INSTANCES)
+def test_cuda_rglru_every_instance(cuda_device, monkeypatch, inst):
+    """Each compiled (C, L, stages), chosen by shape or not, against its
+    own order on the CPU at ragged S (past 3 tiles, inside a sub-chunk)
+    and W (past 3 channel groups; odd, then a multiple of 4 for the
+    16-byte copies), one launch a call; its shared memory as
+    `geometry_of` counts it, at least one CTA an SM."""
+    C, L, _stages = inst
+    monkeypatch.setattr(rg_ops, "rglru_scan_ref", _fail_if_called)
+    for W in (3 * C + 5, 3 * C + 8):
+        B, S = 2, 3 * L + L // 2 + 1
+        g = torch.Generator().manual_seed(W)
+        a = 0.9 + 0.1 * torch.rand(B, S, W, generator=g)
+        b = torch.randn(B, S, W, generator=g)
+        geo = rg_ops.geometry_of(B, W, *inst)
+        want = rg_ref.rglru_tiled_ref(a, b, tile=L, split=geo.split)
+        rg_ops.reset_launches()
+        got = rg_ops.rglru_scan_fwd(a.to(cuda_device), b.to(cuda_device),
+                                    geometry=geo).cpu()
+        assert rg_ops.rglru_scan_fwd.launches == 1
+        tol = 1e-5 * max(1.0, want.abs().max().item())
+        assert (got - want).abs().max().item() <= 0.05 * tol
+    occ = rg_ops.occupancy(geo)
+    assert occ["smem"] == geo.smem and occ["ctas_per_sm"] >= 1
+
+
+@pytest.mark.gpu
 def test_cuda_rglru_wrapper_checks_its_inputs(cuda_device, monkeypatch):
     """Refused inputs raise before a launch; a launcher error raises and
     leaves the counter as it was."""
@@ -748,6 +816,11 @@ def test_cuda_rglru_wrapper_checks_its_inputs(cuda_device, monkeypatch):
     assert rg_ops.rglru_scan_fwd(a[:, :0], a[:, :0]).shape == (2, 0, 4)
     assert rg_ops.rglru_scan_fwd.launches == 0
     rg_ops.rglru_scan_fwd(a, a)
+    assert rg_ops.rglru_scan_fwd.launches == 1
+
+    not_compiled = rg_ops.Geometry(32, 96, 3, 2, 2, 0)
+    with pytest.raises(RuntimeError, match="rglru_scan_fwd launch failed"):
+        rg_ops.rglru_scan_fwd(a, a, geometry=not_compiled)
     assert rg_ops.rglru_scan_fwd.launches == 1
 
     class Refusing:

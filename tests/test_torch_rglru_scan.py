@@ -7,7 +7,10 @@ References: `repro.kernels.rglru_scan.ref.rglru_scan_ref` (the
 associative scan), the Pallas `rglru_scan_fwd` in interpret mode, as the
 reference's own tests run it on the CPU (small tiles, so ragged S and W
 take its padding path), and the recurrence step by step in float64
-(`rglru_sequential_ref`).  Inputs come from numpy seeds: a in (0, 1), as
+(`rglru_sequential_ref`).  The CUDA kernel's own order
+(`rglru_tiled_ref`) is held to the same references, and its launch
+geometry (`ops.launch_geometry`) to covering every step and channel
+once.  Inputs come from numpy seeds: a in (0, 1), as
 the model's gates give it, b standard normal.
 
 Tolerances: the recurrence is contractive (0 < a < 1), so each float32
@@ -88,6 +91,141 @@ def test_plain_scan_matches_pallas_interpret(B, S, W):
     want = pallas_fwd(jnp.asarray(a), jnp.asarray(b), bs=16, bw=16,
                       interpret=True)
     _assert_scan_close(got.numpy(), want, _exact(a, b))
+
+
+# ---------------------------------------------------------------------------
+# the kernel's own order (`rglru_tiled_ref`) and its launch geometry
+# ---------------------------------------------------------------------------
+def _tiling(C, L):
+    """(tile, split) of the kernel instance with C channels and L steps."""
+    return L, ops.THREADS // C
+
+
+# (B, S, W, a's lower end, C, L): S at 1, L - 1, L, L + 1 and several
+# tiles, with a sub-chunk boundary (L / split steps) on the last step; W
+# no multiple of C; slow decay over > 2000 steps
+TILED_CASES = [
+    (2, 1, 37, 0.0, 32, 64),
+    (2, 63, 37, 0.0, 32, 64),
+    (1, 64, 40, 0.0, 32, 64),
+    (2, 65, 33, 0.5, 32, 64),
+    (1, 3 * 64 + 5 * 8, 70, 0.0, 32, 64),      # 3 tiles + 5 sub-chunks
+    (1, 2 * 256 + 3 * 16, 21, 0.9, 16, 256),   # 2 tiles + 3 sub-chunks
+    (1, 511, 13, 0.0, 8, 512),
+    (2, 513, 13, 0.0, 8, 512),
+    (1, 2 * 512 + 7 * 16, 9, 0.9, 8, 512),     # 2 tiles + 7 sub-chunks
+    (1, 2085, 7, 0.99, 32, 64),                # 33 tiles, a near 1
+    (1, 2085, 7, 0.99, 8, 512),
+]
+
+
+@pytest.mark.parametrize("B,S,W,lo,C,L", TILED_CASES)
+def test_tiled_order_matches_reference_scan(B, S, W, lo, C, L):
+    """The kernel's association against the reference's associative scan
+    and the float64 recurrence, within 1e-5 max(1, max |h|)."""
+    a, b = _inputs(S * 7 + W, B, S, W, lo)
+    tile, split = _tiling(C, L)
+    got = ref.rglru_tiled_ref(torch.as_tensor(a), torch.as_tensor(b),
+                              tile=tile, split=split)
+    assert got.dtype == torch.float32 and got.shape == (B, S, W)
+    want = ref_scan(jnp.asarray(a), jnp.asarray(b))
+    _assert_scan_close(got.numpy(), want, _exact(a, b))
+
+
+def _serial_fma(a, b):
+    """The recurrence step by step, each step one `ref._fma`."""
+    h = torch.zeros_like(a[:, 0])
+    out = []
+    for t in range(a.shape[1]):
+        h = ref._fma(a[:, t], h, b[:, t])
+        out.append(h)
+    return torch.stack(out, 1)
+
+
+@pytest.mark.parametrize("tile,split", [(64, 1), (8, 8), (16, 16)])
+def test_tiled_order_degenerates_to_the_serial_recurrence(tile, split):
+    """One sub-chunk covering the whole sequence, or sub-chunks of one
+    step (the fold is then the recurrence itself), give the serial FMA
+    recurrence bitwise."""
+    a, b = (torch.as_tensor(v) for v in _inputs(5, 2, 40, 6))
+    got = ref.rglru_tiled_ref(a, b, tile=tile, split=split)
+    torch.testing.assert_close(got, _serial_fma(a, b), rtol=0, atol=0)
+
+
+def test_tiled_order_checks_its_tiling():
+    a = torch.rand(1, 8, 2)
+    with pytest.raises(ValueError, match="multiple"):
+        ref.rglru_tiled_ref(a, a, tile=12, split=8)
+
+
+def test_fma_rounds_once():
+    """`_fma` keeps the product exact: 1 + 2^-23 squared minus 1 is 2^-22
+    + 2^-46 exactly, which float32 holds; a multiply, then an add, loses
+    the 2^-46."""
+    a = torch.tensor([1.0 + 2.0 ** -23])
+    c = torch.tensor([-1.0 - 2.0 ** -22])
+    assert ref._fma(a, a, c).item() == 2.0 ** -46
+    assert (a * a + c).item() == 0.0
+
+
+# the smoke's shapes (recurrentgemma-9b's forward, prefill of 4 and of 1
+# prompts, the ragged ones) and edges of the channel-group choice
+GEOMETRY_SHAPES = {
+    (2, 4096, 4096): (32, 64, 2),
+    (4, 2100, 4096): (32, 64, 2),
+    (1, 2100, 4096): (32, 64, 4),
+    (1, 2085, 999): (8, 512, 4),
+    (1, 2085, 1000): (8, 512, 4),
+    (1, 1, 1): (8, 512, 4),
+    (1, 333, 77): (8, 512, 4),
+    (1, 300, 1100): (16, 256, 4),
+    (3, 40, 4096): (32, 64, 2),
+    (6, 257, 4096): (32, 64, 2),
+    (1, 65, 2112): (32, 64, 4),                 # 66 CTAs of 32 channels
+    (1, 65, 2080): (16, 256, 4),                # 65 CTAs of 32 channels
+    (64, 3, 5): (8, 512, 4),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(GEOMETRY_SHAPES))
+def test_launch_geometry_covers_every_step_and_channel_once(shape):
+    """The launch's CTAs (batch row, channel group) and each CTA's tiles,
+    sub-chunks and steps, as the kernel indexes them, own every (b, t, w)
+    of the call exactly once, within a compiled instance that fits a
+    CTA's shared memory."""
+    B, S, W = shape
+    g = ops.launch_geometry(B, S, W)
+    assert g == ops.launch_geometry(B, S, W)           # a pure function
+    assert (g.channels, g.steps, g.stages) == GEOMETRY_SHAPES[shape]
+    assert (g.channels, g.steps, g.stages) in ops.INSTANCES
+    assert g.split * g.channels == ops.THREADS and g.steps % g.split == 0
+    assert g.smem <= ops.MAX_SMEM
+    groups = -(-W // g.channels)
+    assert g.ctas == B * groups
+    # channels: CTA -> (row, c0); thread channel c < C, stored if < W
+    own_bw = np.zeros((B, W), np.int64)
+    for cta in range(g.ctas):
+        row, c0 = divmod(cta, groups)
+        cols = c0 * g.channels + np.arange(g.channels)
+        np.add.at(own_bw[row], cols[cols < W], 1)
+    # steps: tile n, sub-chunk k, step i of the sub-chunk, stored if < S
+    sub = g.steps // g.split
+    n, k, i = np.meshgrid(np.arange(-(-S // g.steps)), np.arange(g.split),
+                          np.arange(sub), indexing="ij")
+    t = (n * g.steps + k * sub + i).ravel()
+    own_t = np.bincount(t[t < S], minlength=S)
+    assert (own_bw == 1).all() and (own_t == 1).all()
+
+
+def test_every_instance_fits_a_cta():
+    """Every compiled instance's shared memory (the ring of a and x tiles
+    and the (P, H) pairs) stays within a CTA's 227 KB."""
+    for inst in ops.INSTANCES:
+        g = ops.geometry_of(1, 4096, *inst)
+        assert g.smem <= ops.MAX_SMEM, inst
+        assert g.split * g.channels == ops.THREADS and g.steps % g.split == 0
+    with pytest.raises(ValueError, match="no compiled"):
+        ops.geometry_of(1, 64, 32, 96, 2)
 
 
 def test_sequential_oracle_is_the_recurrence():
