@@ -101,6 +101,29 @@ Phases, each printing JSON lines; any failure exits non-zero:
               each recorded DP call (the plan over every AMDP lane, the
               replans over the bumped lanes) again from the start grid:
               the kernel bitwise against its plain version, and its time.
+     rollout_dual  `rollout` of the same fleet and trace under
+              ``policy="dual"`` (8 periods, counters at 0 before, no port
+              kernel on the path: the bisection is PyTorch work): no
+              unsolved lane, the warm basis -1, integer metrics exact and
+              float metrics to 1e-9 against the same rollout on the CPU,
+              the period-0 plan of every 64th lane equal to the NumPy
+              `dual_schedule`; devices/s, launches per period and the
+              device's busy share (profiled), and total accuracy beside
+              the amr2 rollout's on the same arrivals.
+     rollout_poisson  amr2 (revised LP) with ``arrivals="poisson"`` on
+              the same fleet, 8 periods: reduced_pivot launched, jobs
+              conserved (released + backlog = drawn), the mean count per
+              device-period within 5 standard errors of the rate and the
+              class frequencies within 5 of the class probabilities, from
+              the card's generator; then a rate-0 run (no jobs, no
+              backlog).
+     serve_delegated  `FleetEngine.from_config` on the rollouts' fleet
+              (`FleetConfig`, one shape group) under amr2 and dual, the
+              delegation to the tensor engine's period core active: 8
+              periods each, counters at 0 before (pivot kernels launched
+              under amr2, none under dual), `run` equal bit for bit to
+              `rollout` of `EngineParams.from_config` on the card; s/period
+              and devices/s beside the host serve phase's.
   7. lm_forward  gemma3-1b at full width (26 layers, d 1152, GQA 4:1 at
               head_dim 256, vocabulary 262144): `init_params` on the card
               from a seed, 2 requests of 2048 `TokenPipeline` tokens,
@@ -812,19 +835,35 @@ def reduced_pivot_work(torch, ref, case, want, art_cost, tol):
 # --------------------------------------------------------------------------
 # phases 4 to 7: the engine
 # --------------------------------------------------------------------------
-def build_params(dev):
-    """The 16384-device fleet's params, one per LP method, from one fleet
-    and one replayed arrival trace."""
+def rollout_fleet():
+    """The 16384-device fleet of the rollouts and its queue (the
+    configuration `rollout_config` describes)."""
+    cfg = rollout_config("amr2")
+    return cfg.build_devices(), cfg.build_queue()
+
+
+def rollout_config(policy):
+    """The rollouts' fleet as a `FleetConfig`: `make_fleet(16384, seed=7,
+    horizon=8)`, three job classes, rate 10, 12 jobs, 1024 servers."""
+    from repro_torch.serving.fleet import FleetConfig
+    return FleetConfig(n_devices=D_FLEET, T=T_BUDGET, n_servers=N_SERVERS,
+                       policy=policy, rate=10.0, batch_max=N_JOBS,
+                       horizon=PERIODS, seed=7, es_peak_flops=ES_PEAK_FLOPS,
+                       es_hbm_bw=HBM_BYTES_S)
+
+
+def build_params(dev, fleet):
+    """The 16384-device fleet's params, one per LP method and one for the
+    dual, from one fleet and one replayed arrival trace."""
     from repro_torch.api import engine as E
-    from repro_torch.serving.fleet import make_fleet
-    from repro_torch.serving.queue import RequestQueue
-    devices = make_fleet(D_FLEET, seed=7, horizon=PERIODS,
-                         es_peak_flops=ES_PEAK_FLOPS, es_hbm_bw=HBM_BYTES_S)
-    queue = RequestQueue(D_FLEET, (128, 512, 1024), rate=10.0,
-                         batch_max=N_JOBS, seed=7)
-    return {m: E.EngineParams.from_fleet(
-        devices, queue, T=1.2, n_servers=D_FLEET // 16, horizon=PERIODS,
+    devices, queue = fleet
+    out = {m: E.EngineParams.from_fleet(
+        devices, queue, T=T_BUDGET, n_servers=N_SERVERS, horizon=PERIODS,
         lp_method=m, device=dev) for m in ("tableau", "revised")}
+    dual = E.EngineParams.from_fleet(
+        devices, queue, T=T_BUDGET, n_servers=N_SERVERS, horizon=PERIODS,
+        policy="dual", device=dev)
+    return out, dual
 
 
 def compare_metrics(E, torch, a, b, what):
@@ -871,7 +910,7 @@ def phase_rollout(torch, ops, dev, params):
              mean_job_accuracy=float(metrics.mean_job_accuracy.mean()))
     compare_metrics(E, torch, out["revised"], out["tableau"],
                     "revised vs tableau")
-    return launches
+    return launches, out
 
 
 class PivotRecorder:
@@ -1371,6 +1410,250 @@ def serve_periods(torch, engine, calls):
               f"serve: mean job accuracy {stats.mean_job_accuracy}")
         emit("serve", **row)
     return time.perf_counter() - t_all
+
+
+# --------------------------------------------------------------------------
+# phase 6b: the dual policy, Poisson arrivals and the delegated FleetEngine
+# --------------------------------------------------------------------------
+def cpu_params(E, params):
+    """``params`` carried to the CPU, where the plain versions run."""
+    from repro_torch import convert
+    return convert.params_from_numpy(
+        {**{f: getattr(params, f).cpu().numpy() for f in E.PARAM_ARRAYS},
+         **{f: getattr(params, f) for f in E.PARAM_CONFIG}}, "cpu")
+
+
+def first_plan(torch, E, params, dev):
+    """The period-0 primary plan of ``params``: the `FleetProblem` the
+    engine's first `_plan` call gets and the assignment it returns, from
+    one untimed step with `_plan` wrapped."""
+    calls = []
+    plan = E._plan
+
+    def recording(p, fp, warm_basis, lane_mask=None):
+        out = plan(p, fp, warm_basis, lane_mask)
+        calls.append((fp, out))
+        return out
+
+    E._plan = recording
+    try:
+        E.step(E.init_state(params, device=dev), params, device=dev)
+    finally:
+        E._plan = plan
+    return calls[0]
+
+
+# the dual rollout's card-vs-CPU check audits at 1.4: at the default 1.5 a
+# 3x straggler's audit after one EMA update is an exact tie, decided by
+# the rounding of sums the card and the CPU associate differently
+# (ROADMAP §3 item 1)
+DUAL_CHECK_THRESHOLD = 1.4
+
+
+def phase_rollout_dual(torch, dev, params, amr2_metrics):
+    """`rollout` of the 16384-device fleet under ``policy="dual"``: 8
+    periods on the card with every counter set to 0 before and read after
+    (the dual's bisection is PyTorch work: no kernel of the port runs);
+    its period-0 plan on the card against the CPU's on every lane and,
+    on every 64th lane, against the NumPy `dual_schedule`; the rollout at
+    audit threshold `DUAL_CHECK_THRESHOLD` on the card against the CPU
+    (integer metrics exact, floats to 1e-9); its accuracy beside the amr2
+    rollout's on the same arrivals."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.api import engine as E
+    from repro_torch.core.dual import dual_schedule
+    from repro_torch.core.types import OffloadInstance
+    state = E.init_state(params, device=dev)
+    E.rollout(state, params, 1, device=dev)           # untimed first call
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    final, metrics = E.rollout(state, params, PERIODS, device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kernel_launches()
+    check(not any(launches.values()),
+          f"rollout_dual: a kernel launched on the dual path: {launches}")
+    check(int(metrics.n_unsolved.sum()) == 0, "rollout_dual: unsolved")
+    check(bool((final.warm_basis == -1).all()),
+          "rollout_dual: the dual carried a basis")
+    device_s, n_launch, top = profiled(
+        torch, lambda: E.rollout(state, params, PERIODS, device=dev))
+    cpu = cpu_params(E, params)
+    # period 0: the plan on the card, on the CPU and by the NumPy oracle
+    fp, (assign, _st, _basis) = first_plan(torch, E, params, dev)
+    _fp, (want0, _st, _basis) = first_plan(torch, E, cpu, "cpu")
+    got0 = assign.cpu()
+    flips = torch.nonzero((got0 != want0).any(dim=1)).flatten().tolist()
+    check(not flips, f"rollout_dual: period-0 lanes {flips[:8]} "
+                     f"({len(flips)}) plan otherwise on the card than on "
+                     f"the CPU")
+    lanes = list(range(0, D_FLEET, 64))
+    p_ed, p_es = fp.p_ed.cpu().numpy(), fp.p_es.cpu().numpy()
+    acc, got = fp.acc.cpu().numpy(), got0.numpy()
+    differ = [b for b in lanes if not np.array_equal(
+        got[b], dual_schedule(OffloadInstance(
+            p_ed=p_ed[b], p_es=p_es[b], acc=acc[b],
+            T=T_BUDGET)).assignment)]
+    check(not differ, f"rollout_dual: period-0 lanes {differ[:8]} differ "
+                      f"from the NumPy dual_schedule")
+    # the whole rollout, card against CPU, off the audit's tie
+    checked = dataclasses.replace(params,
+                                  straggler_threshold=DUAL_CHECK_THRESHOLD)
+    checked_cpu = dataclasses.replace(
+        cpu, straggler_threshold=DUAL_CHECK_THRESHOLD)
+    _, have = E.rollout(state, checked, PERIODS, device=dev)
+    t1 = time.perf_counter()
+    _, want = E.rollout(E.init_state(checked_cpu, device="cpu"),
+                        checked_cpu, PERIODS, device="cpu")
+    cpu_seconds = time.perf_counter() - t1
+    for f in E.METRIC_FIELDS:
+        a, b = getattr(have, f).cpu(), getattr(want, f)
+        if a.is_floating_point():
+            check(bool(torch.isfinite(a).all()), f"rollout_dual: {f}")
+            d = (a - b).abs().max().item()
+            check(d <= 1e-9, f"rollout_dual: {f} differs from the CPU "
+                             f"run by {d} (per period {(a - b).tolist()})")
+        else:
+            check(torch.equal(a, b), f"rollout_dual: {f} {a.tolist()} on "
+                                     f"the card, {b.tolist()} on the CPU")
+    acc_dual = float(metrics.total_accuracy.sum())
+    acc_amr2 = float(amr2_metrics.total_accuracy.sum())
+    emit("rollout_dual", devices=D_FLEET, periods=PERIODS, seconds=seconds,
+         devices_per_s=D_FLEET * PERIODS / seconds, cpu_seconds=cpu_seconds,
+         peak_mem_bytes=torch.cuda.max_memory_allocated(),
+         port_kernel_launches=launches,
+         launches_per_period=n_launch / PERIODS,
+         device_seconds=device_s,
+         busy_share=device_s / seconds if device_s else None, top=top,
+         lanes_vs_cpu=D_FLEET, lanes_vs_numpy_oracle=len(lanes),
+         n_jobs=int(metrics.n_jobs.sum()),
+         n_backpressured=int(metrics.n_backpressured.sum()),
+         n_violations=int(metrics.n_violations.sum()),
+         n_violations_amr2=int(amr2_metrics.n_violations.sum()),
+         worst_violation=float(metrics.worst_violation.max()),
+         total_accuracy=acc_dual, total_accuracy_amr2=acc_amr2,
+         gap_vs_amr2=(acc_amr2 - acc_dual) / acc_amr2)
+
+
+def phase_rollout_poisson(torch, ops, dev, fleet):
+    """amr2 with ``arrivals="poisson"`` on the 16384-device fleet, 8
+    periods on the card (revised LP, counters set to 0 before and read
+    after), with the distribution checks on the card's generator: the
+    mean count per device-period within 5 standard errors of the rate,
+    the class frequencies within 5 of the class probabilities, jobs
+    conserved (released + backlog = drawn); then a rate-0 run."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.api import engine as E
+    devices, queue = fleet
+    params = E.EngineParams.from_fleet(
+        devices, queue, T=T_BUDGET, n_servers=N_SERVERS, horizon=1,
+        arrivals="poisson", lp_method="revised", device=dev)
+    seed = 5
+    state = E.init_state(params, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    final, metrics = E.rollout(state, params, PERIODS, device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kernel_launches()
+    check(launches["reduced_pivot"] > 0,
+          f"rollout_poisson: reduced_pivot never launched: {launches}")
+    check(int(metrics.n_unsolved.sum()) == 0, "rollout_poisson: unsolved")
+    drawn = torch.stack([torch.poisson(params.rate, generator=E._generator(
+        seed, t, 0, dev)) for t in range(PERIODS)]).double()
+    released = int(metrics.n_jobs.sum())
+    check(released + int(final.pending.sum()) == int(drawn.sum().item()),
+          "rollout_poisson: released + backlog != drawn")
+    rate = float(params.rate[0])
+    mean = drawn.mean().item()
+    se = np.sqrt(rate / drawn.numel())
+    check(abs(mean - rate) <= 5 * se,
+          f"rollout_poisson: mean count {mean} vs rate {rate}")
+    ci = torch.cat([E._arrivals(state, params, t)[0].reshape(-1)
+                    for t in range(PERIODS)])
+    probs = params.class_probs.cpu().numpy()
+    freq = (torch.bincount(ci.long(), minlength=len(probs)).double()
+            / ci.numel()).cpu().numpy()
+    se_c = np.sqrt(probs * (1 - probs) / ci.numel())
+    check(bool((np.abs(freq - probs) <= 5 * se_c).all()),
+          f"rollout_poisson: class frequencies {freq} vs {probs}")
+    zero = dataclasses.replace(params, rate=torch.zeros_like(params.rate))
+    _, mz = E.rollout(E.init_state(zero, seed=seed, device=dev), zero, 2,
+                      device=dev)
+    check(int(mz.n_jobs.sum()) == 0 and int(mz.backlog.sum()) == 0,
+          "rollout_poisson: rate 0 released or queued jobs")
+    emit("rollout_poisson", devices=D_FLEET, periods=PERIODS,
+         seconds=seconds, devices_per_s=D_FLEET * PERIODS / seconds,
+         launches={k: v for k, v in launches.items() if v},
+         mean_count=mean, rate=rate, count_se=se,
+         class_freq=freq.tolist(), class_probs=probs.tolist(),
+         released=released, backlog=int(final.pending.sum()),
+         n_backpressured=int(metrics.n_backpressured.sum()),
+         mean_job_accuracy=float(metrics.mean_job_accuracy.mean()))
+
+
+def phase_serve_delegated(torch, dev, serve_seconds):
+    """`FleetEngine.from_config` on the rollouts' fleet under amr2 and
+    dual, the delegation active: 8 periods each with every counter set to
+    0 before and read after, then `rollout` of `EngineParams.from_config`
+    on the card, which `run` must equal bit for bit."""
+    import dataclasses
+
+    from repro_torch.api import engine as E
+    from repro_torch.serving.fleet import FleetEngine, FleetPeriodStats
+    fields = [f.name for f in dataclasses.fields(FleetPeriodStats)
+              if f.name in E.METRIC_FIELDS]
+    for policy in ("amr2", "dual"):
+        cfg = rollout_config(policy)
+        engine = FleetEngine.from_config(cfg, device=dev)
+        check(engine._v2_params is not None,
+              f"serve_delegated: {policy} did not delegate")
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        stats = engine.run(PERIODS)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = kernel_launches()
+        pivots = launches["simplex_pivot"] + launches["reduced_pivot"]
+        check((pivots > 0) == (policy == "amr2"),
+              f"serve_delegated: {policy} pivot launches {launches}")
+        params = E.EngineParams.from_config(cfg, horizon=PERIODS,
+                                            device=dev)
+        state, metrics = E.rollout(E.init_state(params, device=dev),
+                                   params, PERIODS, device=dev)
+        for i, st in enumerate(stats):
+            for f in fields:
+                a, b = getattr(metrics, f)[i].item(), getattr(st, f)
+                check(a == b, f"serve_delegated: {policy} period {i} {f}: "
+                              f"run {b}, rollout {a}")
+        g = engine._groups[0]
+        if policy == "amr2":
+            check(bool((state.warm_basis.cpu() == torch.as_tensor(
+                g.warm_basis)).all()), "serve_delegated: warm bases differ")
+        emit("serve_delegated", policy=policy, devices=D_FLEET,
+             periods=PERIODS, seconds=seconds,
+             s_per_period=seconds / PERIODS,
+             devices_per_s=D_FLEET * PERIODS / seconds,
+             host_serve_seconds=serve_seconds,
+             host_serve_devices_per_s=D_FLEET * PERIODS / serve_seconds,
+             launches={k: v for k, v in launches.items() if v},
+             plan_seconds=sum(st.plan_seconds for st in stats),
+             n_jobs=sum(st.n_jobs for st in stats),
+             n_backpressured=sum(st.n_backpressured for st in stats),
+             n_straggler_updates=sum(st.n_straggler_updates
+                                     for st in stats),
+             mean_job_accuracy=sum(st.total_accuracy for st in stats)
+             / max(sum(st.n_jobs for st in stats), 1))
 
 
 # --------------------------------------------------------------------------
@@ -2403,14 +2686,19 @@ def main() -> int:
     decode_rows = phase_decode_kernel(torch, dev)
     rglru_rows = phase_rglru_kernel(torch, dev)
     emit("kernels", phase_seconds=time.perf_counter() - t_kernels)
-    params = build_params(dev)
-    launches = phase_rollout(torch, ops, dev, params)
+    fleet = rollout_fleet()
+    params, dual_params = build_params(dev, fleet)
+    launches, amr2_metrics = phase_rollout(torch, ops, dev, params)
     phase_rollout_calls(torch, ops, ref, dev, params)
     phase_front(torch, dev)
     serve_launches, serve_seconds, dp_calls = phase_serve(torch, dev)
     launches["cckp_model_dp"] = serve_launches["cckp_model_dp"]
     phase_cckp_serve_calls(torch, dev, dp_calls)
     del dp_calls
+    phase_rollout_dual(torch, dev, dual_params, amr2_metrics["tableau"])
+    phase_rollout_poisson(torch, ops, dev, fleet)
+    phase_serve_delegated(torch, dev, serve_seconds)
+    del dual_params, amr2_metrics, fleet
     phase_lm_forward(torch, dev)
     phase_lm_forward_ssm(torch, dev)
     launches["flash_attention_fwd"] = phase_lm_serve(torch, dev)

@@ -7,9 +7,11 @@ of `repro.api` — plus the fleet engine (`engine`):
 
     >>> from repro_torch import api
     >>> sol = api.solve(fleet_problem)                  # auto: AMDP | AMR^2
+    >>> sol = api.solve(fleet_problem, policy="dual")    # batched dual
     >>> sol = api.solve(fleet_problem, es_disabled=True)
+    >>> sol = api.solve(fleet_problem, backend="numpy")  # the NumPy oracles
     >>> api.solver_names()
-    ['amdp', 'amr2', 'greedy', 'lp']
+    ['amdp', 'amr2', 'dual', 'greedy', 'lp']
 
 Every entry point runs on the CUDA card unless given ``device="cpu"``.
 """

@@ -1,14 +1,17 @@
 """Fleet engine: `EngineParams`, `EngineState`, `step` and `rollout`.
 
-Port of the base path of `repro.api.engine` — ``policy="amr2"`` with no
-scenario armed and replayed arrivals.  Each period:
+Port of the base path of `repro.api.engine` — ``policy="amr2"`` or
+``"dual"`` with no scenario armed, replayed or Poisson arrivals.  Each
+period:
 
-  * releases this period's arrivals from the replayed trace (`_arrivals`);
+  * releases this period's arrivals (`_arrivals`): from the replayed
+    trace, or drawn on the params' device (``arrivals="poisson"``);
   * assembles the padded `FleetProblem` (outage periods price the ES at
     the disabled sentinel; a lane whose outage flag flipped starts cold);
-  * plans every device in one batched solve (`_plan`):
+  * plans every device in one batched solve (`_plan`): under amr2
     `amr2.build_lp_arrays_torch` -> `lp.simplex_batch_core` (warm from last
-    period's basis) -> `amr2.round_relaxation_torch`;
+    period's basis) -> `amr2.round_relaxation_torch`; under dual the
+    bisection `dual.dual_one_batch`, which carries no basis;
   * recovers lanes whose LP did not finish with the greedy local fill
     (`_recover_unsolved`);
   * admits offloads to the ES pool (`mobility.admit_mask_pool`);
@@ -22,11 +25,17 @@ Python loop over `step`, and the simplex phases inside read their loop
 condition on the host.  Everything is float64 (`_require_f64`): a float32
 simplex cycles until ``maxiter``.
 
+Poisson arrivals cannot redraw jax's threefry streams: each period's
+counts (`torch.poisson`) and job classes (`torch.multinomial`) come from
+generators on the params' device seeded from (seed, period), drawn for
+the whole fleet at once, so a device's draw depends only on the seed, the
+period and its index in the fleet.  They match the reference in
+distribution, not draw for draw.
+
 Entry points run on the CUDA card unless given ``device="cpu"``; with no
 card and no device they raise.  Not ported yet (each raises
-`NotImplementedError` naming its ROADMAP item): the dual policy, the
-chaos / mobility / HI / differentiable scenarios, Poisson arrivals and the
-sharded entry points.
+`NotImplementedError` naming its ROADMAP item): the chaos / mobility / HI
+/ differentiable scenarios and the sharded entry points.
 """
 from __future__ import annotations
 
@@ -38,17 +47,15 @@ import torch
 
 from .._device import DeviceLike, check_device, resolve_device
 from ..core.amr2 import build_lp_arrays_torch, round_relaxation_torch
+from ..core.dual import dual_one_batch
 from ..core.faults import greedy_local_fill
 from ..core.lp import _bucket_maxiter, simplex_batch_core
 from ..core.mobility import admit_mask_pool
 from ..core.problem import ES_DISABLED_SENTINEL, ST_UNSOLVED, FleetProblem
 
-TRACEABLE_POLICIES = ("amr2",)
+TRACEABLE_POLICIES = ("amr2", "dual")
 
 _ROADMAP = {
-    "dual": "policy='dual' is not ported yet (ROADMAP §1 item 5)",
-    "poisson": "arrivals='poisson' is not ported yet (ROADMAP §1 item 4: "
-               "replay mode first)",
     "chaos": "the chaos scenario is not ported yet (ROADMAP §1 item 9)",
     "mobility": "the mobility scenario is not ported yet (ROADMAP §1 "
                 "item 9)",
@@ -73,14 +80,17 @@ class EngineParams:
     each device's profile at construction).  ``drift``/``outage`` are
     per-period schedules cycled past their horizon; ``counts`` (H, D) and
     ``stream`` (D, S) hold the presampled arrival trace
-    (`RequestQueue.presample`) the replay mode releases from.  The
-    reference's ``classes``, ``rate`` and ``class_probs`` leaves serve
-    Poisson arrivals only and are not carried."""
+    (`RequestQueue.presample`) the replay mode releases from; ``rate``
+    and ``class_probs`` are what the Poisson mode draws from.  The
+    reference's ``classes`` leaf (class labels, for reference only) is
+    not carried."""
 
     base_p_ed: torch.Tensor    # (D, c, m) ground-truth ED latencies
     p_es: torch.Tensor         # (D, c) ES latencies (comm incl.)
     acc: torch.Tensor          # (D, m+1) accuracies
     T: torch.Tensor            # () period budget
+    rate: torch.Tensor         # (D,) Poisson arrival rates
+    class_probs: torch.Tensor  # (c,) class sampling distribution
     drift: torch.Tensor        # (D, H) true per-period ED slowdown
     outage: torch.Tensor       # (D, H) bool, ES link down
     counts: torch.Tensor       # (Hc, D) int32 replayed arrival counts
@@ -92,6 +102,7 @@ class EngineParams:
     straggler_threshold: float = 1.5
     ema: float = 0.5
     frac_tol: float = 1e-4
+    iters: int = 40            # dual bisection steps
     maxiter: Optional[int] = None
     tol: float = 1e-7
     lp_method: str = "tableau"
@@ -114,13 +125,14 @@ class EngineParams:
                    policy: str = "amr2", horizon: int = 64,
                    arrivals: str = "replay",
                    straggler_threshold: float = 1.5, ema: float = 0.5,
-                   frac_tol: float = 1e-4,
+                   frac_tol: float = 1e-4, iters: int = 40,
                    maxiter: Optional[int] = None, tol: float = 1e-7,
                    lp_method: str = "tableau", faults=None, mobility=None,
                    device: DeviceLike = None) -> "EngineParams":
         """Build params from `DeviceSpec`s and a `RequestQueue` (one shape
         group: every profile shares a class table and model count).
-        ``device`` defaults to the CUDA card."""
+        ``device`` defaults to the CUDA card.  Only the replay mode
+        presamples the queue's trace (``horizon`` periods)."""
         dev = resolve_device(device)
         if policy == "auto":
             policy = "amr2"
@@ -156,12 +168,19 @@ class EngineParams:
                     f"device {d} has no profile entry for queue classes "
                     f"{sorted(missing)}")
         lut = np.searchsorted(np.asarray(devices[0].profile.classes), qcls)
-        counts, stream = queue.presample(horizon)
+        if arrivals == "replay":
+            counts, stream = queue.presample(horizon)
+        else:
+            counts = np.zeros((1, len(devices)), dtype=np.int64)
+            stream = np.zeros((len(devices), 1), dtype=np.int32)
+        probs = (np.full(len(qcls), 1.0 / len(qcls))
+                 if queue.class_probs is None
+                 else np.asarray(queue.class_probs, np.float64))
         arrays = dict(
             base_p_ed=np.stack([d.profile.p_ed[lut] for d in devices]),
             p_es=np.stack([d.profile.p_es[lut] for d in devices]),
             acc=np.stack([d.profile.acc for d in devices]),
-            T=T,
+            T=T, rate=np.asarray(queue.rate, np.float64), class_probs=probs,
             drift=np.array([[d.drift_at(t) for t in range(horizon)]
                             for d in devices]),
             outage=np.array([[d.outage_at(t) for t in range(horizon)]
@@ -171,8 +190,31 @@ class EngineParams:
             arrays, dev, policy=policy, arrivals=arrivals,
             n_servers=n_servers, batch_max=queue.batch_max,
             straggler_threshold=straggler_threshold, ema=ema,
-            frac_tol=frac_tol, maxiter=maxiter, tol=tol,
+            frac_tol=frac_tol, iters=iters, maxiter=maxiter, tol=tol,
             lp_method=lp_method)
+
+    @classmethod
+    def from_config(cls, config, *, horizon: Optional[int] = None,
+                    arrivals: str = "replay", policy: Optional[str] = None,
+                    lp_method: Optional[str] = None,
+                    device: DeviceLike = None) -> "EngineParams":
+        """Build params from a `serving.FleetConfig` (the engine's twin of
+        `FleetEngine.from_config`).  The replayed trace covers ``horizon``
+        periods (default: the config's ``horizon``); ``lp_method``
+        defaults to the config's.  The config's chaos, mobility and HI
+        fields pass through the guards that raise while they are armed."""
+        horizon = horizon if horizon is not None else config.horizon
+        return cls.from_fleet(
+            config.build_devices(), config.build_queue(), T=config.T,
+            n_servers=config.n_servers,
+            policy=policy if policy is not None else config.policy,
+            horizon=horizon, arrivals=arrivals,
+            straggler_threshold=config.straggler_threshold, ema=config.ema,
+            lp_method=(lp_method if lp_method is not None
+                       else getattr(config, "lp_method", "tableau")),
+            faults=getattr(config, "faults", None),
+            mobility=getattr(config, "mobility", None),
+            device=device).with_hi(getattr(config, "hi", None))
 
     def with_hi(self, hi, **_kw) -> "EngineParams":
         """Online hierarchical inference: only disarming (``None``) is
@@ -199,15 +241,11 @@ PARAM_CONFIG = tuple(f.name for f in dataclasses.fields(EngineParams)
 
 
 def _validate_config(*, policy: str, arrivals: str, lp_method: str) -> None:
-    if policy == "dual":
-        raise _not_ported("dual")
     if policy not in TRACEABLE_POLICIES:
         raise ValueError(
             f"policy={policy!r} has no batched engine path; the engine "
             f"supports {TRACEABLE_POLICIES}")
-    if arrivals == "poisson":
-        raise _not_ported("poisson")
-    if arrivals != "replay":
+    if arrivals not in ("replay", "poisson"):
         raise ValueError(f"unknown arrivals mode {arrivals!r}")
     if lp_method not in ("tableau", "revised"):
         raise ValueError(f"unknown lp_method {lp_method!r}; expected "
@@ -236,9 +274,10 @@ def params_from_arrays(arrays: Dict[str, object], device: torch.device,
 class EngineState:
     """Everything a period mutates, as tensors on the params' device.
 
-    The reference state's PRNG key (Poisson arrivals), positions and
-    serving cells (mobility) and HI learner state belong to parts not
-    ported yet and are not carried."""
+    ``seed`` takes the place of the reference's PRNG key: Poisson
+    arrivals draw each period from generators seeded by (seed, period).
+    The reference's positions and serving cells (mobility) and HI learner
+    state belong to parts not ported yet and are not carried."""
 
     period: torch.Tensor       # () int32
     p_ed: torch.Tensor         # (D, c, m) belief latencies (audit state)
@@ -248,12 +287,13 @@ class EngineState:
     n_updates: torch.Tensor    # (D,) int32 straggler-audit update counts
     cell_load: torch.Tensor    # (1,) last period's admitted ES load
     p_es_belief: torch.Tensor  # (D, c) priced ES latencies
+    seed: torch.Tensor         # () int64 Poisson arrival seed
 
 
 STATE_FIELDS = tuple(f.name for f in dataclasses.fields(EngineState))
 _STATE_DTYPES = {"period": torch.int32, "pending": torch.int32,
                  "head": torch.int32, "warm_basis": torch.int32,
-                 "n_updates": torch.int32}
+                 "n_updates": torch.int32, "seed": torch.int64}
 
 
 def state_from_arrays(arrays: Dict[str, object],
@@ -310,8 +350,9 @@ METRIC_FIELDS = tuple(f.name for f in dataclasses.fields(PeriodMetrics))
 def init_state(params: EngineParams, *, seed: int = 0,
                device: DeviceLike = None) -> EngineState:
     """A fresh fleet: beliefs = profiles, empty backlog, cold bases.
-    ``seed`` seeds the reference's Poisson key and is unused by replay."""
-    del seed
+    ``seed`` (>= 0) seeds Poisson arrivals and is unused by replay."""
+    if seed < 0:
+        raise ValueError("seed must be >= 0")
     dev = _entry_device(params, None, device)
     D = params.n_devices
     i32 = dict(dtype=torch.int32, device=dev)
@@ -323,7 +364,8 @@ def init_state(params: EngineParams, *, seed: int = 0,
         warm_basis=torch.full((D, params.n_basis_rows), -1, **i32),
         n_updates=torch.zeros(D, **i32),
         cell_load=torch.zeros(1, dtype=torch.float64, device=dev),
-        p_es_belief=params.p_es.clone())
+        p_es_belief=params.p_es.clone(),
+        seed=torch.tensor(seed, dtype=torch.int64, device=dev))
 
 
 # --------------------------------------------------------------------------
@@ -331,13 +373,23 @@ def init_state(params: EngineParams, *, seed: int = 0,
 # --------------------------------------------------------------------------
 def _plan(params: EngineParams, fp: FleetProblem, warm_basis,
           lane_mask=None):
-    """One batched AMR^2 solve of a padded `FleetProblem`: the LP
-    relaxation (warm-or-cold simplex) and its rounding.  Returns
-    ``(assignment (D, n) int32, status (D,) int32, basis (D, R) int32)``.
-    (The reference's CPU lane chunking, `REPRO_PLAN_LANE_CHUNK`, is
-    bitwise-invisible and has no counterpart here.)"""
+    """One batched solve of a padded `FleetProblem`.  amr2: the LP
+    relaxation (warm-or-cold simplex) and its rounding; dual: the
+    bisection over every lane (``lane_mask`` unused), no basis, status 0
+    ok and 1 fallback.  Returns ``(assignment (D, n) int32, status (D,)
+    int32, basis (D, R) int32)``; under dual the basis is ``warm_basis``
+    or, without one, all -1.  (The reference's CPU lane chunking,
+    `REPRO_PLAN_LANE_CHUNK`, is bitwise-invisible and has no counterpart
+    here.)"""
     D, n = fp.p_es.shape
     m = fp.p_ed.shape[2]
+    if params.policy == "dual":
+        assign, st = dual_one_batch(fp.p_ed, fp.p_es, fp.acc, fp.T,
+                                    iters=params.iters)
+        basis = (warm_basis.to(torch.int32) if warm_basis is not None
+                 else torch.full((D, params.n_basis_rows), -1,
+                                 dtype=torch.int32, device=fp.p_ed.device))
+        return assign.to(torch.int32), st.to(torch.int32), basis
     A, b, c_full = build_lp_arrays_torch(fp.p_ed, fp.p_es, fp.acc, fp.T)
     maxiter = params.maxiter if params.maxiter is not None else \
         _bucket_maxiter(50 * (A.shape[1] + 2))
@@ -364,11 +416,46 @@ def _recover_unsolved(assign, unsolved, p_ed_jobs, mask, acc, T):
     return torch.where(eligible, local, assign).to(torch.int32)
 
 
+def _generator(seed: int, period: int, stream: int,
+               device: torch.device) -> torch.Generator:
+    """A generator on ``device`` seeded from (seed, period, stream)."""
+    g = torch.Generator(device=device)
+    g.manual_seed(int(np.random.SeedSequence(
+        [seed, period, stream]).generate_state(1, np.uint64)[0]))
+    return g
+
+
+def _slot_sum(x):
+    """Sum (D, n) over the job slots in slot order.  `torch.sum`
+    associates differently on the CPU and the card, and devices whose ES
+    demands tie in exact arithmetic (the same jobs in other slots) would
+    then be admitted in another order; the same additions in the same
+    order agree bit for bit."""
+    out = x[:, 0]
+    for k in range(1, x.shape[1]):
+        out = out + x[:, k]
+    return out
+
+
 def _arrivals(state: EngineState, params: EngineParams, t: int):
-    """Release this period's jobs from the replayed trace: ``(ci (D, n)
-    int32 class indices, take (D,) int32, pending', head')``."""
+    """Release this period's jobs: ``(ci (D, n) int32 class indices,
+    take (D,) int32, pending', head')``.  Replay reads the trace; Poisson
+    draws the whole fleet's counts and the classes of every release slot
+    (a backlogged job takes a fresh class when it is released, which is
+    the same distribution for i.i.d. classes)."""
     n = params.batch_max
     dev = params.device
+    D = params.n_devices
+    if params.arrivals == "poisson":
+        seed = int(state.seed)
+        counts_t = torch.poisson(params.rate,
+                                 generator=_generator(seed, t, 0, dev))
+        avail = state.pending + counts_t.to(torch.int32)
+        take = torch.clamp_max(avail, n).to(torch.int32)
+        ci = torch.multinomial(params.class_probs, D * n, replacement=True,
+                               generator=_generator(seed, t, 1, dev))
+        return (ci.reshape(D, n).to(torch.int32), take,
+                (avail - take).to(torch.int32), state.head)
     counts_t = params.counts[t % params.counts.shape[0]]
     avail = state.pending + counts_t
     take = torch.clamp_max(avail, n).to(torch.int32)
@@ -383,9 +470,12 @@ def _arrivals(state: EngineState, params: EngineParams, t: int):
 def _period(belief_p_ed, warm_basis, ci, take, drift_t, outage_t,
             es_tbl, params: EngineParams):
     """Everything after arrivals and before the state bookkeeping (the
-    base branch of the reference's `_period_impl`).  Returns
-    ``(new_belief, new_warm_basis, upd (D,) bool, cell_load (1,),
-    metrics dict)``."""
+    base branch of the reference's `_period_impl`), shared by `step` and
+    the host `FleetEngine`'s delegation.  Returns ``(new_belief,
+    new_warm_basis, upd (D,) bool, factor (D,), cell_load (1,), metrics
+    dict)``; ``factor`` is the EMA rescale each updated device's belief
+    was multiplied by (the delegation applies it to its profile tables).
+    Only amr2 carries a basis forward; dual hands ``warm_basis`` back."""
     D, _c, m = belief_p_ed.shape
     n = params.batch_max
     dev = belief_p_ed.device
@@ -410,7 +500,7 @@ def _period(belief_p_ed, warm_basis, ci, take, drift_t, outage_t,
                                params.acc, params.T)
 
     # ---- ES-pool admission ---------------------------------------------
-    demand = torch.where(mask & (assign == m), p_es_jobs, 0.0).sum(dim=1)
+    demand = _slot_sum(torch.where(mask & (assign == m), p_es_jobs, 0.0))
     admitted, loads, _inc = admit_mask_pool(demand, params.T,
                                             params.n_servers)
     offl = demand > 0
@@ -423,7 +513,9 @@ def _period(belief_p_ed, warm_basis, ci, take, drift_t, outage_t,
         p_es_crippled = torch.where(mask, ES_DISABLED_SENTINEL, 0.0)
         fp_bp = FleetProblem.from_arrays_unchecked(
             p_ed_jobs, p_es_crippled, params.acc, Tvec, mask)
-        assign_bp, st_bp, _ = _plan(params, fp_bp, None, lane_mask=bumped)
+        assign_bp, st_bp, _ = _plan(
+            params, fp_bp, None,
+            lane_mask=bumped if params.policy == "amr2" else None)
         unsolved_bp = bumped & (st_bp == ST_UNSOLVED)
         assign_bp = _recover_unsolved(assign_bp, unsolved_bp, p_ed_jobs,
                                       mask, params.acc, params.T)
@@ -475,7 +567,8 @@ def _period(belief_p_ed, warm_basis, ci, take, drift_t, outage_t,
         "n_hi_offloaded": zero_i, "n_hi_local_final": zero_i,
         "hi_regret": torch.zeros((), dtype=f64, device=dev),
     }
-    return new_belief, basis, upd, loads.sum()[None], metrics
+    new_warm = basis if params.policy == "amr2" else warm_basis
+    return new_belief, new_warm, upd, factor, loads.sum()[None], metrics
 
 
 def _step(state: EngineState, params: EngineParams
@@ -494,7 +587,7 @@ def _step(state: EngineState, params: EngineParams
     else:
         warm0 = state.warm_basis
     ci, take, pending, head = _arrivals(state, params, t)
-    new_belief, new_warm, upd, cell_load, m = _period(
+    new_belief, new_warm, upd, _factor, cell_load, m = _period(
         state.p_ed, warm0, ci, take, drift_t, outage_t, state.p_es_belief,
         params)
     n_jobs = m["n_jobs"]
@@ -510,7 +603,8 @@ def _step(state: EngineState, params: EngineParams
         period=state.period + 1, p_ed=new_belief, pending=pending,
         head=head, warm_basis=new_warm.to(torch.int32),
         n_updates=(state.n_updates + upd.to(torch.int32)),
-        cell_load=cell_load, p_es_belief=state.p_es_belief)
+        cell_load=cell_load, p_es_belief=state.p_es_belief,
+        seed=state.seed)
     return new_state, metrics
 
 
@@ -545,12 +639,15 @@ def _entry_device(params: EngineParams, state: Optional[EngineState],
 
 def _check_horizon(state: EngineState, params: EngineParams,
                    periods: int) -> None:
+    if params.arrivals != "replay":
+        return
     end = int(state.period) + periods
     if end > params.counts.shape[0]:
         raise ValueError(
             f"replayed arrival trace covers {params.counts.shape[0]} "
             f"periods but the rollout needs {end}; presample a longer "
-            f"horizon (EngineParams.from_fleet(..., horizon=))")
+            f"horizon (EngineParams.from_fleet(..., horizon=)) or use "
+            f"arrivals='poisson'")
 
 
 def _checked(state, params, periods, device) -> None:
@@ -580,6 +677,10 @@ def rollout(state: EngineState, params: EngineParams, periods: int, *,
     return state, PeriodMetrics(**{
         f: torch.stack([getattr(m, f) for m in history])
         for f in METRIC_FIELDS})
+
+
+def fleet_mesh(*_args, **_kwargs):
+    raise _not_ported("sharded")
 
 
 def shard(*_args, **_kwargs):

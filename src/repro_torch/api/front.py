@@ -8,11 +8,17 @@ Dispatch rules:
     each side runs through its solver's batched path in one call.
   * ``policy=<name>`` — any registry entry (`solver_names()`).
     ``policy="amdp"`` on heterogeneous jobs falls back to AMR^2.
-  * a fleet runs through each solver's batched path; a solver without
-    one (``greedy``) plans it device by device through ``solve_one``.
-    The reference's sequential NumPy LP oracle (``backend="numpy"``) is
-    not ported: ``solve_one`` of an LP-backed solver runs the batched LP
-    at B = 1.
+  * ``backend="torch"`` (the default, for fleets and single problems
+    alike) runs each solver's batched path on ``device``: a single
+    problem goes through it at B = 1.  This differs from the reference,
+    whose single `Problem` defaults to its NumPy oracle.  A solver without
+    a batched path (``greedy``) plans a fleet device by device through
+    ``solve_one`` (the reference raises for it under ``"jax"``).
+  * ``backend="numpy"`` is the reference's sequential oracle: every
+    device through ``solve_one`` with the NumPy LP (`core.lp._solve_np`)
+    and the NumPy dual (`core.dual.dual_schedule`).  It runs only when
+    asked for by name; the reference's ``"jax"`` is refused, naming
+    ``"torch"``.
   * ``es_disabled=True`` — plan with offloading made infeasible (uniform
     huge p_es on real jobs): the backpressure / ES-outage replan path.
     Identical-job detection then looks at the real jobs only.
@@ -32,6 +38,7 @@ import numpy as np
 
 from .._device import DeviceLike, resolve_device
 from ..core.amdp import amdp_arrays, amdp_batch
+from ..core.lp import _check_backend
 from ..core.problem import (ST_UNSOLVED, FleetProblem, Problem, Solution)
 from ..core.types import InstanceBatch, OffloadInstance
 from . import solvers as _solvers
@@ -99,6 +106,14 @@ def _validate_opts(policy: str, opts: Dict) -> None:
             f"{sorted(unknown)}")
 
 
+def _check_fleet_policy(policy: str, backend: str) -> None:
+    """Refuse a backend the port does not have (the reference's "jax" is
+    the port's "torch") and an unknown policy before any work is done."""
+    _check_backend(backend)
+    if policy != "auto":
+        get_solver(policy)                # unknown names raise here
+
+
 def _check_strict(sol: Solution, strict: bool) -> Solution:
     """Surface non-convergence (status "unsolved": LP iteration limit or
     unbounded) instead of silently returning a degraded plan."""
@@ -115,7 +130,7 @@ def _check_strict(sol: Solution, strict: bool) -> Solution:
 
 
 def solve(problem: AnyProblem, *, policy: str = "auto",
-          es_disabled: bool = False,
+          backend: str = "torch", es_disabled: bool = False,
           strict: bool = True, warm_start: Optional[np.ndarray] = None,
           device: DeviceLike = None, **opts) -> Solution:
     """Plan one `Problem` or a whole `FleetProblem` through the registry.
@@ -124,10 +139,12 @@ def solve(problem: AnyProblem, *, policy: str = "auto",
     bases (`Solution.basis`); rows of -1 (or no longer valid) solve cold.
     ``strict`` True (default) raises when a solver fails to converge,
     False warns and returns the best-effort `Solution` tagged "unsolved".
-    ``device`` is where the LP and the DP run (the card unless named).
+    ``device`` is where the LP and the DP run (the card unless named);
+    ``backend="numpy"`` plans device by device with the NumPy oracles.
 
     Returns a `Solution`; ``plan_seconds`` is the wall time of the call."""
     problem = _coerce(problem)
+    _check_fleet_policy(policy, backend)
     dev = resolve_device(device)
     if warm_start is not None:
         opts["warm_start"] = np.asarray(warm_start)
@@ -140,13 +157,15 @@ def solve(problem: AnyProblem, *, policy: str = "auto",
             f"it cannot drive the backpressure/outage replan path")
     if isinstance(problem, FleetProblem):
         if es_disabled:
-            sol = _solve_fleet_es_disabled(problem, policy, dev, **opts)
+            sol = _solve_fleet_es_disabled(problem, policy, backend, dev,
+                                           **opts)
         else:
-            sol = _solve_fleet(problem, policy, dev, **opts)
+            sol = _solve_fleet(problem, policy, backend, dev, **opts)
         return _check_strict(sol, strict)
     if es_disabled:
         problem = problem.es_disabled()
-    return _check_strict(_solve_one(problem, policy, dev, **opts), strict)
+    return _check_strict(_solve_one(problem, policy, backend, dev, **opts),
+                         strict)
 
 
 # --------------------------------------------------------------------------
@@ -160,10 +179,11 @@ def _resolve_policy(problem: Problem, policy: str) -> str:
     return policy
 
 
-def _solve_one(problem: Problem, policy: str, device, **opts) -> Solution:
+def _solve_one(problem: Problem, policy: str, backend: str, device,
+               **opts) -> Solution:
     t0 = time.perf_counter()
     solver = get_solver(_resolve_policy(problem, policy))
-    sol = solver.solve_one(problem, device=device,
+    sol = solver.solve_one(problem, backend=backend, device=device,
                            **_filter_opts(solver.solve_one, opts))
     sol.plan_seconds = time.perf_counter() - t0
     return sol
@@ -215,7 +235,7 @@ class _FleetMerge:
                         plan_seconds=time.perf_counter() - t0)
 
 
-def _solve_fleet(fleet: FleetProblem, policy: str, device,
+def _solve_fleet(fleet: FleetProblem, policy: str, backend: str, device,
                  **opts) -> Solution:
     t0 = time.perf_counter()
     B, n = fleet.p_es.shape
@@ -223,9 +243,9 @@ def _solve_fleet(fleet: FleetProblem, policy: str, device,
     if B == 0:
         return out.solution(fleet, t0)
 
-    if policy not in batched_policies():
+    if backend == "numpy" or policy not in batched_policies():
         warm = opts.get("warm_start")
-        for b in range(B):                # no batched path: device by device
+        for b in range(B):                # device by device
             o = opts
             if warm is not None:
                 o = dict(opts)
@@ -234,7 +254,7 @@ def _solve_fleet(fleet: FleetProblem, policy: str, device,
                     o["warm_start"] = wb
                 else:
                     del o["warm_start"]
-            sol = _solve_one(fleet[b], policy, device, **o)
+            sol = _solve_one(fleet[b], policy, backend, device, **o)
             if sol.basis is not None:
                 sol.basis = np.asarray(sol.basis)[None]
             out.put(np.array([b]), sol, sol.solver)
@@ -260,15 +280,15 @@ def _solve_fleet(fleet: FleetProblem, policy: str, device,
     return out.solution(fleet, t0)
 
 
-def _solve_fleet_es_disabled(fleet: FleetProblem, policy: str, device,
-                             **opts) -> Solution:
+def _solve_fleet_es_disabled(fleet: FleetProblem, policy: str,
+                             backend: str, device, **opts) -> Solution:
     """ONE batched ES-disabled solve for a sub-fleet (backpressure /
     outage): real jobs get the uniform huge ES time, phantom padding stays
     free, and under ``auto``/``amdp`` devices whose real jobs share
     processing times go to the exact DP on their stripped instances."""
     crippled = fleet.es_disabled()
-    if policy not in ("auto", "amdp"):
-        return _solve_fleet(crippled, policy, device, **opts)
+    if backend == "numpy" or policy not in ("auto", "amdp"):
+        return _solve_fleet(crippled, policy, backend, device, **opts)
 
     t0 = time.perf_counter()
     B, n = crippled.p_es.shape
@@ -303,7 +323,7 @@ def _solve_fleet_es_disabled(fleet: FleetProblem, policy: str, device,
         out.solver[idxs] = "amdp"
     rest = np.nonzero(~ident)[0]
     if len(rest):
-        sub = _solve_fleet(crippled.take(rest), "amr2", device,
+        sub = _solve_fleet(crippled.take(rest), "amr2", "torch", device,
                            **_take_rows(opts, rest))
         out.put(rest, sub, np.atleast_1d(sub.solver))
     return out.solution(crippled, t0)
@@ -313,7 +333,7 @@ def _solve_fleet_es_disabled(fleet: FleetProblem, policy: str, device,
 # many single problems (mixed shapes)
 # --------------------------------------------------------------------------
 def solve_many(problems: Sequence[AnyProblem], *, policy: str = "auto",
-               strict: bool = True,
+               backend: str = "torch", strict: bool = True,
                warm_start: Optional[Sequence] = None,
                device: DeviceLike = None, **opts) -> List[Solution]:
     """Plan a sequence of (possibly mixed-shape) problems in as few solver
@@ -324,7 +344,8 @@ def solve_many(problems: Sequence[AnyProblem], *, policy: str = "auto",
     shared among its members.
 
     ``warm_start`` is one basis or None per problem; each LP group stacks
-    its members' bases (missing ones become cold -1 rows)."""
+    its members' bases (missing ones become cold -1 rows).
+    ``backend="numpy"`` plans them one by one with the NumPy oracles."""
     probs = [_coerce(p) for p in problems]
     if any(isinstance(p, FleetProblem) for p in probs):
         raise TypeError("solve_many wants single problems; pass a "
@@ -338,19 +359,20 @@ def solve_many(problems: Sequence[AnyProblem], *, policy: str = "auto",
     dev = resolve_device(device)
     _validate_opts(policy, opts)
     opts.setdefault("on_error", "mark")
+    _check_fleet_policy(policy, backend)
 
     def _done(sols: List[Solution]) -> List[Solution]:
         for s in sols:
             _check_strict(s, strict)
         return sols
 
-    if policy not in batched_policies():
+    if backend == "numpy" or policy not in batched_policies():
         out = []
         for i, p in enumerate(probs):
             o = opts
             if warm_start is not None and warm_start[i] is not None:
                 o = {**opts, "warm_start": np.asarray(warm_start[i])}
-            out.append(_solve_one(p, policy, dev, **o))
+            out.append(_solve_one(p, policy, backend, dev, **o))
         return _done(out)
 
     sols: List[Solution] = [None] * len(probs)      # type: ignore

@@ -3,9 +3,8 @@
 
 Each solver registers itself with a declared capability set, and
 `repro_torch.api.solve` dispatches on those capabilities.  The reference's
-``dual``, ``routed``, ``hi_threshold`` and ``hi_bandit`` entries are not
-ported yet: asking for one raises `NotImplementedError` naming its ROADMAP
-item.
+``routed``, ``hi_threshold`` and ``hi_bandit`` entries are not ported yet:
+asking for one raises `NotImplementedError` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -16,7 +15,6 @@ from ..core.problem import FleetProblem, Problem, Solution
 
 # registry entries of the reference that wait for a later slice
 _NOT_PORTED = {
-    "dual": "ROADMAP §1 item 5",
     "routed": "ROADMAP §1 item 9, mobility",
     "hi_threshold": "ROADMAP §1 item 9, online hierarchical inference",
     "hi_bandit": "ROADMAP §1 item 9, online hierarchical inference",
@@ -41,11 +39,12 @@ class SolverInfo:
 @runtime_checkable
 class Solver(Protocol):
     """What a registry entry provides: ``solve_one`` for a single
-    `Problem`; batched solvers also ``solve_fleet`` over a same-shape
-    `FleetProblem`."""
+    `Problem` (``backend`` "torch" or "numpy"); batched solvers also
+    ``solve_fleet`` over a same-shape `FleetProblem`."""
     info: SolverInfo
 
-    def solve_one(self, problem: Problem, **opts) -> Solution: ...
+    def solve_one(self, problem: Problem, *, backend: str = "torch",
+                  **opts) -> Solution: ...
 
     def solve_fleet(self, fleet: FleetProblem, **opts) -> Solution: ...
 

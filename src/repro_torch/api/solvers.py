@@ -1,14 +1,17 @@
 """The registry entries (port of `repro.api.solvers`): the paper's AMR^2
-and AMDP, the Greedy-RRA baseline and the LP bound behind the uniform
-`Solver` protocol.
+and AMDP, the Greedy-RRA baseline, the beyond-paper dual scheduler and
+the LP bound behind the uniform `Solver` protocol.
 
 ``solve_one`` plans one `Problem`; ``solve_fleet`` plans a same-shape
 `FleetProblem` in one batched call.  What runs on the card — the LP
-(`core.lp.solve_lp_batch`, through the simplex kernels) and the DP
-(`core.amdp`, through the CCKP kernel) — runs on ``device``; the rounding
-and the bookkeeping stay NumPy.  A single problem goes through the batched
-path at B = 1.  The reference's ``impl=`` option has no counterpart: the
-device decides.
+(`core.lp.solve_lp_batch`, through the simplex kernels), the DP
+(`core.amdp`, through the CCKP kernel) and the dual's bisection
+(`core.dual.dual_one_batch`) — runs on ``device``; the rounding and the
+bookkeeping stay NumPy.  A single problem goes through the batched path at
+B = 1 under ``backend="torch"``; ``backend="numpy"`` runs the reference's
+sequential NumPy oracles instead (the LP's `_solve_np`, `dual_schedule`).
+AMDP's DP and Greedy-RRA have one path, whatever the backend.  The
+reference's ``impl=`` option has no counterpart: the device decides.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from ..core.amdp import amdp, amdp_arrays
 from ..core.amr2 import (ST_INFEASIBLE, ST_UNSOLVED, amr2_batch_arrays,
                          build_lp_arrays_batch, round_relaxation,
                          solve_lp_relaxation)
+from ..core.dual import dual_schedule, dual_schedule_batch_arrays
 from ..core.greedy import greedy_rra
 from ..core.lp import INFEASIBLE, OPTIMAL, solve_lp_batch
 from ..core.problem import (SOLUTION_STATUS_NAMES, ST_BOUND, FleetProblem,
@@ -36,14 +40,15 @@ _STATUS_CODE = {name: code for code, name in enumerate(SOLUTION_STATUS_NAMES)}
     description="LP-relax + round (paper Alg. 1–2): ≤2T makespan, "
                 "≤2(a_max−a_min) accuracy gap")
 class AMR2Solver:
-    def solve_one(self, problem: Problem, *, frac_tol: float = 1e-4,
-                  maxiter: Optional[int] = None,
+    def solve_one(self, problem: Problem, *, backend: str = "torch",
+                  frac_tol: float = 1e-4, maxiter: Optional[int] = None,
                   warm_start: Optional[np.ndarray] = None,
                   on_error: str = "raise",
                   device: DeviceLike = None) -> Solution:
         inst = problem.to_instance()
         xbar, a_lp, status, basis = solve_lp_relaxation(
-            inst, maxiter=maxiter, warm_basis=warm_start, device=device)
+            inst, backend=backend, maxiter=maxiter, warm_basis=warm_start,
+            device=device)
         sched = round_relaxation(inst, xbar, a_lp, status,
                                  frac_tol=frac_tol, on_error=on_error)
         sol = Solution.from_schedule(sched, solver="amr2", problem=problem)
@@ -72,8 +77,10 @@ class AMR2Solver:
     supports_es_disabled=True,
     description="exact pseudo-polynomial DP for identical jobs (paper §VI)")
 class AMDPSolver:
-    def solve_one(self, problem: Problem, *, resolution: float = 1e-3,
+    def solve_one(self, problem: Problem, *, backend: str = "torch",
+                  resolution: float = 1e-3,
                   device: DeviceLike = None) -> Solution:
+        del backend                       # the DP runs the same on both
         sched = amdp(problem.to_instance(), resolution=resolution,
                      device=device)
         return Solution.from_schedule(sched, solver="amdp", problem=problem)
@@ -98,13 +105,42 @@ class AMDPSolver:
 
 
 @register_solver(
+    "dual", batched=True, exact_on_identical=False,
+    supports_es_disabled=True,
+    description="beyond-paper Lagrangian-dual bisection + density-greedy "
+                "knapsack (no 2T guarantee; ~1% gap, near-free)")
+class DualSolver:
+    def solve_one(self, problem: Problem, *, backend: str = "torch",
+                  iters: int = 40, device: DeviceLike = None) -> Solution:
+        if backend == "numpy":
+            sched = dual_schedule(problem.to_instance(), iters=iters)
+            return Solution.from_schedule(sched, solver="dual",
+                                          problem=problem)
+        # B = 1, unpadded: phantom slots would change the bisection's
+        # bracket (min p_ed) and so the plan
+        sol = self.solve_fleet(
+            FleetProblem.from_problems([problem], pad_to=problem.n),
+            iters=iters, device=device)
+        return Solution(problem=problem, assignment=sol.assignment[0],
+                        status=np.int64(sol.status[0]), solver="dual")
+
+    def solve_fleet(self, fleet: FleetProblem, *, iters: int = 40,
+                    device: DeviceLike = None) -> Solution:
+        B = len(fleet)
+        assign, status = dual_schedule_batch_arrays(
+            fleet.to_batch(), iters=iters, device=device)
+        return Solution(problem=fleet, assignment=assign, status=status,
+                        solver=np.full(B, "dual", dtype=object))
+
+
+@register_solver(
     "greedy", batched=False, exact_on_identical=False,
     supports_es_disabled=True,
     description="Greedy-RRA baseline (paper §VII): O(n), may violate T")
 class GreedySolver:
-    def solve_one(self, problem: Problem, *,
+    def solve_one(self, problem: Problem, *, backend: str = "torch",
                   device: DeviceLike = None) -> Solution:
-        del device                        # host-only: O(n) per device
+        del backend, device               # host-only: O(n) per device
         sched = greedy_rra(problem.to_instance())
         return Solution.from_schedule(sched, solver="greedy",
                                       problem=problem)
@@ -119,13 +155,14 @@ class LPBoundSolver:
     """Bound-only entry: the integral accuracy is bounded above by
     ``lp_accuracy``; the argmax assignment need not fit the budgets."""
 
-    def solve_one(self, problem: Problem, *, maxiter: Optional[int] = None,
+    def solve_one(self, problem: Problem, *, backend: str = "torch",
+                  maxiter: Optional[int] = None,
                   warm_start: Optional[np.ndarray] = None,
                   on_error: str = "raise",
                   device: DeviceLike = None) -> Solution:
         xbar, a_lp, status, basis = solve_lp_relaxation(
-            problem.to_instance(), maxiter=maxiter, warm_basis=warm_start,
-            device=device)
+            problem.to_instance(), backend=backend, maxiter=maxiter,
+            warm_basis=warm_start, device=device)
         if status == INFEASIBLE:
             return Solution(problem=problem,
                             assignment=np.argmin(problem.p_ed, axis=1),

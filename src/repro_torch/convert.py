@@ -60,8 +60,9 @@ def params_from_numpy(fields: Dict[str, object],
 def state_from_numpy(fields: Dict[str, object],
                      device: DeviceLike = None) -> EngineState:
     """The port's `EngineState` from the reference's state fields (the
-    Poisson key, mobility and HI leaves are not carried)."""
-    return state_from_arrays(fields, resolve_device(device))
+    Poisson key, mobility and HI leaves are not carried; the Poisson seed
+    is ``fields["seed"]``, 0 when absent)."""
+    return state_from_arrays({"seed": 0, **fields}, resolve_device(device))
 
 
 def fleet_problem_from_numpy(obj) -> FleetProblem:

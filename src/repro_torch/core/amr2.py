@@ -13,7 +13,11 @@ sub-ILP by (m+1)^2 enumeration, so the makespan stays within 2T
 * the front door's host path: `build_lp_arrays(_batch)`, the batched LP
   solve (`lp.solve_lp_batch`, on the card) and the NumPy rounding
   `round_relaxation_batch`, whose rare >2-fractional rows drop to the
-  scalar `round_relaxation`; `amr2_batch_arrays` chains them.
+  scalar `round_relaxation`; `amr2_batch_arrays` chains them, and
+  `amr2_batch` returns the result as `Schedule`s;
+* the scalar `amr2`: one instance through `solve_lp_relaxation` (the
+  batched LP at B = 1, or the reference's NumPy oracle with
+  ``backend="numpy"``) and `round_relaxation`.
 """
 from __future__ import annotations
 
@@ -192,16 +196,30 @@ def build_lp_arrays_batch(batch: InstanceBatch):
     return c, A_ub, b_ub, A_eq, b_eq
 
 
-def solve_lp_relaxation(inst: OffloadInstance, *,
+def solve_lp_relaxation(inst: OffloadInstance, *, backend: str = "torch",
                         maxiter: Optional[int] = None,
                         warm_basis: Optional[np.ndarray] = None,
                         device: DeviceLike = None):
-    """``(xbar (n, m+1), A*_LP, status, basis)`` of one instance, solved
-    by the batched LP at B = 1."""
+    """``(xbar (n, m+1), A*_LP, status, basis)`` of one instance: the
+    batched LP at B = 1 on ``device``, or the sequential NumPy oracle with
+    ``backend="numpy"``."""
     res = solve_lp(*build_lp_arrays(inst), maxiter=maxiter,
-                   warm_basis=warm_basis, device=device)
+                   warm_basis=warm_basis, backend=backend, device=device)
     return res.x.reshape(inst.n, inst.m + 1), -res.fun, res.status, \
         res.basis
+
+
+def amr2(inst: OffloadInstance, *, backend: str = "torch",
+         frac_tol: float = _FRAC_TOL, maxiter: Optional[int] = None,
+         warm_basis: Optional[np.ndarray] = None, on_error: str = "raise",
+         device: DeviceLike = None) -> Schedule:
+    """AMR^2 (Algorithm 1) on one instance: the LP relaxation
+    (`solve_lp_relaxation`) and its rounding (`round_relaxation`)."""
+    xbar, a_lp, status, _ = solve_lp_relaxation(
+        inst, backend=backend, maxiter=maxiter, warm_basis=warm_basis,
+        device=device)
+    return round_relaxation(inst, xbar, a_lp, status, frac_tol=frac_tol,
+                            on_error=on_error)
 
 
 def fractional_jobs(xbar: np.ndarray, tol: float = _FRAC_TOL) -> np.ndarray:
@@ -436,3 +454,20 @@ def amr2_batch_arrays(batch: InstanceBatch, *, frac_tol: float = _FRAC_TOL,
     assignment, sched_status, n_frac = round_relaxation_batch(
         batch, xbar, res.status, frac_tol=frac_tol, on_error=on_error)
     return assignment, sched_status, n_frac, -res.fun, res.basis
+
+
+def amr2_batch(batch: InstanceBatch, *, frac_tol: float = _FRAC_TOL,
+               method: str = "tableau",
+               device: DeviceLike = None) -> "list[Schedule]":
+    """AMR^2 over B same-shape instances: one batched LP solve on
+    ``device`` and the vectorized rounding (`amr2_batch_arrays`), as a
+    list of `Schedule`s."""
+    assignment, sched_status, n_frac, lp_acc, _ = amr2_batch_arrays(
+        batch, frac_tol=frac_tol, method=method, device=device)
+    return [Schedule(assignment=assignment[b], instance=batch[b],
+                     lp_accuracy=(None if sched_status[b] in
+                                  (ST_INFEASIBLE, ST_UNSOLVED)
+                                  else float(lp_acc[b])),
+                     n_fractional=int(n_frac[b]),
+                     status=STATUS_NAMES[sched_status[b]], solver="amr2")
+            for b in range(len(batch))]

@@ -27,7 +27,11 @@ simplex cycles until ``maxiter``.
 The host entry points `solve_lp_batch` and `solve_lp` (port of the
 reference's) take NumPy LPs in standard form, canonicalise them
 (`_canonicalize_batch`), run `simplex_batch_core` on ``device`` and bring
-NumPy results back.
+NumPy results back.  With ``backend="numpy"`` they run the reference's
+sequential NumPy oracle instead (`_canonicalize`, `_solve_np`,
+`_warm_np`, `_phase_np`): the same algorithm on one instance at a time in
+host float64, with the artificial columns materialized — the oracle the
+batched path is held to, run only when a caller names it.
 
 Statuses: 0 optimal, 1 iteration limit, 2 infeasible, 3 unbounded.
 """
@@ -445,10 +449,23 @@ def _canonicalize_batch(c, A_ub, b_ub, A_eq, b_eq):
     return A, b, c_full, nv, n_ub
 
 
+_BACKENDS = ("torch", "numpy")
+
+
+def _check_backend(backend: str) -> None:
+    if backend == "jax":
+        raise ValueError("backend='jax' is the reference's batched path; "
+                         "the port's is backend='torch'")
+    if backend not in _BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; expected one of "
+                         f"{_BACKENDS}")
+
+
 def solve_lp_batch(c, A_ub=None, b_ub=None, A_eq=None, b_eq=None, *,
                    maxiter: Optional[int] = None, tol: float = 1e-7,
                    warm_basis: Optional[np.ndarray] = None,
                    bland_after: int = BLAND_AFTER, method: str = "tableau",
+                   backend: str = "torch",
                    device: DeviceLike = None) -> BatchLPResult:
     """Solve B structurally identical LPs in one batched simplex on
     ``device`` (the card unless named), float64.
@@ -457,7 +474,17 @@ def solve_lp_batch(c, A_ub=None, b_ub=None, A_eq=None, b_eq=None, *,
     row is -1, out of range, singular or ill-conditioned run the cold
     two-phase solve in the same call (``BatchLPResult.warm`` says which).
     The default ``maxiter`` is the reference's shape-derived budget
-    rounded up to a power of two."""
+    rounded up to a power of two.
+
+    ``backend="numpy"`` solves the lanes one by one with the sequential
+    NumPy oracle (`solve_lp(backend="numpy")`: its unrounded default
+    budget, ``method`` and ``device`` unused)."""
+    _check_backend(backend)
+    if backend == "numpy":
+        return _solve_lp_batch_np(c, A_ub, b_ub, A_eq, b_eq,
+                                  maxiter=maxiter, tol=tol,
+                                  warm_basis=warm_basis,
+                                  bland_after=bland_after)
     A, b, c_full, nv, _ = _canonicalize_batch(c, A_ub, b_ub, A_eq, b_eq)
     if maxiter is None:
         maxiter = _bucket_maxiter(50 * (A.shape[1] + 2))
@@ -483,14 +510,70 @@ def solve_lp_batch(c, A_ub=None, b_ub=None, A_eq=None, b_eq=None, *,
                          warm=ok.cpu().numpy())
 
 
+def _solve_lp_batch_np(c, A_ub, b_ub, A_eq, b_eq, *, maxiter, tol,
+                       warm_basis, bland_after) -> BatchLPResult:
+    """`solve_lp_batch` lane by lane through the NumPy oracle."""
+    c = np.asarray(c, np.float64)
+    B = c.shape[0]
+
+    def lane(x, b):
+        return None if x is None else np.asarray(x)[b]
+
+    if warm_basis is not None:
+        wb = np.asarray(warm_basis, np.int64)
+        R = (0 if A_ub is None else np.asarray(A_ub).shape[1]) + \
+            (0 if A_eq is None else np.asarray(A_eq).shape[1])
+        if wb.shape != (B, R):
+            raise ValueError(f"warm_basis must be (B, R) = {(B, R)}; "
+                             f"got {wb.shape}")
+    res = [solve_lp(c[b], lane(A_ub, b), lane(b_ub, b), lane(A_eq, b),
+                    lane(b_eq, b), maxiter=maxiter, tol=tol,
+                    warm_basis=lane(warm_basis, b), bland_after=bland_after,
+                    backend="numpy") for b in range(B)]
+    return BatchLPResult(
+        x=np.stack([r.x for r in res]),
+        fun=np.array([r.fun for r in res], np.float64),
+        status=np.array([r.status for r in res], np.int64),
+        niter=np.array([r.niter for r in res], np.int64),
+        basis=np.stack([np.asarray(r.basis, np.int64) for r in res]),
+        warm=np.array([r.warm for r in res], bool))
+
+
 def solve_lp(c, A_ub=None, b_ub=None, A_eq=None, b_eq=None, *,
              maxiter: Optional[int] = None, tol: float = 1e-7,
              warm_basis: Optional[np.ndarray] = None,
              bland_after: int = BLAND_AFTER, method: str = "tableau",
+             backend: str = "torch",
              device: DeviceLike = None) -> LPResult:
     """Minimize ``c@x`` s.t. ``A_ub x <= b_ub``, ``A_eq x == b_eq``,
-    ``x >= 0``: `solve_lp_batch` at B = 1 (the reference's sequential
-    NumPy oracle is not ported)."""
+    ``x >= 0``.  ``backend="torch"`` (the default) is `solve_lp_batch` at
+    B = 1 on ``device``; ``backend="numpy"`` is the reference's sequential
+    NumPy oracle in host float64, with the reference's unrounded default
+    budget 50 (R + 2).  A ``warm_basis`` rejected by the oracle (stale,
+    singular) falls back to its cold two-phase solve (``LPResult.warm``
+    says which ran)."""
+    _check_backend(backend)
+    if backend == "numpy":
+        A, b, c_full, nv, n_slack = _canonicalize(c, A_ub, b_ub, A_eq, b_eq)
+        if warm_basis is not None \
+                and np.asarray(warm_basis).shape != (A.shape[0],):
+            raise ValueError(
+                f"warm_basis must be ({A.shape[0]},) — one basic column "
+                f"per constraint row; got {np.asarray(warm_basis).shape}")
+        if maxiter is None:
+            maxiter = 50 * (A.shape[0] + 2)
+        if warm_basis is not None:
+            got = _warm_np(A, b, c_full, nv, warm_basis, maxiter, tol,
+                           bland_after)
+            if got is not None:
+                x, fun, status, niter, basis = got
+                return LPResult(x=x, fun=float(fun), status=int(status),
+                                niter=int(niter), basis=basis, warm=True)
+        x, fun, status, niter, basis = _solve_np(A, b, c_full, nv, n_slack,
+                                                 maxiter, tol, bland_after)
+        return LPResult(x=x, fun=float(fun), status=int(status),
+                        niter=int(niter), basis=basis)
+
     def one(x):
         return None if x is None else np.asarray(x, np.float64)[None]
 
@@ -499,3 +582,170 @@ def solve_lp(c, A_ub=None, b_ub=None, A_eq=None, b_eq=None, *,
                           one(b_eq), maxiter=maxiter, tol=tol,
                           warm_basis=wb, bland_after=bland_after,
                           method=method, device=device)[0]
+
+
+# --------------------------------------------------------------------------
+# the sequential NumPy oracle (host float64, one instance)
+# --------------------------------------------------------------------------
+def _canonicalize(c, A_ub, b_ub, A_eq, b_eq):
+    """One LP as ``A x == b, b >= 0`` (slack per inequality row, rows with
+    a negative rhs flipped): ``(A (R, C0), b (R,), c_full (C0,), nv,
+    n_slack)``."""
+    c = np.asarray(c, dtype=np.float64)
+    nv = c.shape[0]
+    rows = []
+    rhs = []
+    n_ub = 0
+    if A_ub is not None:
+        A_ub = np.asarray(A_ub, dtype=np.float64)
+        b_ub = np.asarray(b_ub, dtype=np.float64)
+        n_ub = A_ub.shape[0]
+        rows.append(np.concatenate([A_ub, np.eye(n_ub)], axis=1))
+        rhs.append(b_ub)
+    if A_eq is not None:
+        A_eq = np.asarray(A_eq, dtype=np.float64)
+        b_eq = np.asarray(b_eq, dtype=np.float64)
+        pad = np.zeros((A_eq.shape[0], n_ub))
+        rows.append(np.concatenate([A_eq, pad], axis=1))
+        rhs.append(b_eq)
+    A = np.concatenate(rows, axis=0)
+    b = np.concatenate(rhs, axis=0)
+    neg = b < 0
+    A[neg] *= -1.0
+    b[neg] *= -1.0
+    c_full = np.concatenate([c, np.zeros(n_ub)])
+    return A, b, c_full, nv, n_ub
+
+
+def _warm_np(A, b, c_full, nv, basis0, maxiter, tol, bland_after):
+    """Warm start of one instance: factor the basis, repair infeasible
+    rows with (materialized) artificials, then warm phase 1 and phase 2.
+    Returns an LPResult tuple, or None when the basis is rejected (out of
+    range, singular or ill-conditioned)."""
+    R, C0 = A.shape
+    C = C0 + R
+    basis0 = np.asarray(basis0)
+    if basis0.shape != (R,) or (basis0 < 0).any() or (basis0 >= C0).any():
+        return None
+    Bmat = A[:, basis0]
+    try:
+        Binv = np.linalg.solve(Bmat, np.eye(R))
+    except np.linalg.LinAlgError:
+        return None
+    resid = np.max(np.abs(Bmat @ Binv - np.eye(R)))
+    if not np.isfinite(resid) or resid >= 1e-6:
+        return None
+    rhs = Binv @ b
+    tabA = Binv @ A
+
+    flip = rhs < -1e-9                       # feasibility-repair rows
+    sgn = np.where(flip, -1.0, 1.0)
+    tabA = tabA * sgn[:, None]
+    rhs = np.maximum(rhs * sgn, 0.0)
+    basis = basis0.astype(np.int64).copy()
+    basis[flip] = C0 + np.nonzero(flip)[0]
+
+    tab = np.zeros((R + 1, C + 1))
+    tab[:R, :C0] = tabA
+    tab[:R, C0:C] = np.eye(R)
+    tab[:R, -1] = rhs
+    tab[-1, :] = -tab[:R, :][flip].sum(axis=0)
+    tab[-1, C0:C] = 0.0
+    tab, basis, it1, st1 = _phase_np(tab, basis, C0, maxiter, tol,
+                                     bland_after)
+    infeasible = tab[-1, -1] < -max(tol, 1e-8) * (1.0 + np.abs(b).sum())
+
+    obj = np.zeros(C + 1)
+    obj[:C0] = c_full
+    obj = obj - obj[basis] @ tab[:R, :]
+    tab[-1, :] = obj
+    tab, basis, it2, st2 = _phase_np(tab, basis, C0, maxiter, tol,
+                                     bland_after, it0=it1)
+    x = np.zeros(C)
+    x[basis] = tab[:R, -1]
+    if st1 != OPTIMAL:
+        status = st1
+    else:
+        status = INFEASIBLE if infeasible else st2
+    return x[:nv], -tab[-1, -1], status, it2, basis
+
+
+def _phase_np(tab, basis, art_start, maxiter, tol,
+              bland_after=BLAND_AFTER, it0=0):
+    """One simplex phase on a dense tableau with the objective in its last
+    row.  ``it0`` seeds the iteration counter (cumulative across phases,
+    so ``maxiter`` caps the two-phase total); optimality is checked
+    before the cap."""
+    R = tab.shape[0] - 1
+    C = tab.shape[1] - 1
+    it = it0
+    degen = 0
+    while True:
+        rc = tab[-1, :C]
+        enter = np.where((rc < -tol) & (np.arange(C) < art_start))[0]
+        if enter.size == 0:
+            return tab, basis, it, OPTIMAL
+        if it >= maxiter:
+            return tab, basis, it, ITERATION_LIMIT
+        if degen >= bland_after:
+            j = enter[0]                  # Bland: smallest eligible index
+        else:
+            j = enter[np.argmin(rc[enter])]
+        col = tab[:R, j]
+        rhs = tab[:R, -1]
+        ratio = np.full(R, np.inf)
+        pos = col > tol
+        ratio[pos] = rhs[pos] / col[pos]
+        art_basic = (basis >= art_start) & (np.abs(col) > tol) & (rhs <= tol)
+        ratio[art_basic] = 0.0
+        if not np.any(ratio < np.inf):
+            return tab, basis, it, UNBOUNDED
+        rmin = ratio.min()
+        tie = ratio <= rmin + max(abs(rmin) * 1e-9, 1e-12)
+        cand = np.where(tie)[0]
+        r = cand[np.argmin(basis[cand])]
+        piv = tab[r, j]
+        tab[r] = tab[r] / piv
+        for k in range(tab.shape[0]):
+            if k != r and abs(tab[k, j]) > 0:
+                tab[k] -= tab[k, j] * tab[r]
+        basis[r] = j
+        degen = degen + 1 if rmin <= tol else 0
+        it += 1
+
+
+def _solve_np(A, b, c_full, nv, n_slack, maxiter, tol,
+              bland_after=BLAND_AFTER):
+    """Cold two-phase solve of one instance, every row starting on its
+    own artificial."""
+    R, C0 = A.shape
+    C = C0 + R
+    tab = np.zeros((R + 1, C + 1))
+    tab[:R, :C0] = A
+    tab[:R, C0:C] = np.eye(R)
+    tab[:R, -1] = b
+    tab[-1, :] = -tab[:R, :].sum(axis=0)
+    tab[-1, C0:C] = 0.0
+    basis = np.arange(C0, C, dtype=np.int64)
+
+    tab, basis, it1, st1 = _phase_np(tab, basis, C0, maxiter, tol,
+                                     bland_after)
+    infeasible = tab[-1, -1] < -max(tol, 1e-8) * (1.0 + np.abs(b).sum())
+
+    obj = np.zeros(C + 1)
+    obj[:C0] = c_full
+    obj = obj - obj[basis] @ tab[:R, :]
+    tab[-1, :] = obj
+    tab, basis, it2, st2 = _phase_np(tab, basis, C0, maxiter, tol,
+                                     bland_after, it0=it1)
+
+    x = np.zeros(C)
+    x[basis] = tab[:R, -1]
+    fun = -tab[-1, -1]
+    # an unconverged phase 1 voids both the infeasibility certificate and
+    # the phase-2 result
+    if st1 != OPTIMAL:
+        status = st1
+    else:
+        status = INFEASIBLE if infeasible else st2
+    return x[:nv], fun, status, it2, basis

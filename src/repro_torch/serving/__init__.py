@@ -1,19 +1,24 @@
 """Serving layer of the port: tier profiles, the period loop over a model
-ladder, and the host fleet engine.
+ladder, and the fleet engine.
 
 Ported: `profile` (`TierProfile`, `measure_latency`, `measure_profiles`,
 `comm_time`, `roofline_profile`), `executor` (`execute`, the `EXEC_*`
 status codes), `runtime` (`ServingRuntime`, `PeriodStats`,
-`audit_profile`), `queue` (`RequestQueue`) and `fleet` (`FleetEngine`,
-`make_fleet`, ...).  Not ported yet: the reference's `planner` shims,
-`faults`, `hi` and `engine_v2` (ROADMAP §1 items 7 and 9).
+`audit_profile`), `queue` (`RequestQueue`), `fleet` (`FleetEngine` and its
+delegation to the tensor engine, `FleetConfig`, `UnsolvedPeriodError`,
+`make_fleet`, ...), `engine_v2` (the tensor engine under the serving
+namespace) and the deprecated `planner` shims.  Not ported yet: the
+reference's `faults` and `hi` (ROADMAP §1 item 9).
 """
+from . import engine_v2
 from .executor import (EXEC_DROPPED, EXEC_FALLBACK_LOCAL, EXEC_OK_ED,
                        EXEC_OK_ES, EXEC_STATUS_NAMES, ExecutionReport,
                        execute)
-from .fleet import (DeviceSpec, EdgeServerPool, FleetEngine,
-                    FleetPeriodStats, make_fleet, paper_style_profile,
-                    roofline_style_profile)
+from .fleet import (DeviceSpec, EdgeServerPool, FleetConfig, FleetEngine,
+                    FleetPeriodStats, UnsolvedPeriodError, make_fleet,
+                    paper_style_profile, roofline_style_profile)
+from .planner import (FleetPlan, Plan, plan, plan_batch, plan_batch_arrays,
+                      replan_without_es, replan_without_es_batch)
 from .profile import (TierProfile, comm_time, measure_latency,
                       measure_profiles, roofline_profile)
 from .queue import RequestQueue
@@ -22,10 +27,14 @@ from .runtime import PeriodStats, ServingRuntime, audit_profile
 __all__ = [
     "TierProfile", "measure_latency", "measure_profiles", "comm_time",
     "roofline_profile",
+    "FleetPlan", "Plan", "plan", "plan_batch", "plan_batch_arrays",
+    "replan_without_es", "replan_without_es_batch",
     "ExecutionReport", "execute", "EXEC_OK_ED", "EXEC_OK_ES",
     "EXEC_FALLBACK_LOCAL", "EXEC_DROPPED", "EXEC_STATUS_NAMES",
     "ServingRuntime", "PeriodStats", "audit_profile",
     "RequestQueue",
-    "DeviceSpec", "EdgeServerPool", "FleetEngine", "FleetPeriodStats",
-    "make_fleet", "paper_style_profile", "roofline_style_profile",
+    "DeviceSpec", "EdgeServerPool", "FleetConfig", "FleetEngine",
+    "FleetPeriodStats", "UnsolvedPeriodError", "make_fleet",
+    "paper_style_profile", "roofline_style_profile",
+    "engine_v2",
 ]

@@ -1,7 +1,7 @@
 """Tiered plan execution (port of `repro.serving.executor`).
 
-Executes a planning result — a `repro_torch.api.Solution` — against real
-model apply functions (the ED ladder and the ES), keeping per-tier clocks
+Executes a planning result — a `repro_torch.api.Solution` or a legacy
+`serving.planner.Plan` — against real model apply functions (the ED ladder and the ES), keeping per-tier clocks
 of *measured* wall time: the quantity Fig. 6 of the paper compares with
 the predicted makespan.  Jobs routed to the same model run as one batched
 call.  The apply functions of the port's launcher end in a host copy of
@@ -10,8 +10,7 @@ their accuracies, so each call's wall time includes the card's work.
 ``es_fail=True`` simulates an ES-tier outage inside the period: offloaded
 jobs bounce and are replanned onto the ED ladder (the paper's m-model
 special case) through `solve(..., es_disabled=True)`.  The reference's
-legacy `serving.Plan` input (and its planner shims) and its
-``comm_simulator`` hook, which no caller sets, are not ported.
+``comm_simulator`` hook, which no caller sets, is not ported.
 """
 from __future__ import annotations
 
@@ -53,11 +52,25 @@ class ExecutionReport:
         return int((self.status == EXEC_DROPPED).sum())
 
 
+def _instance_of(plan_):
+    """The planned instance, of a legacy `Plan` or an api `Solution`."""
+    if hasattr(plan_, "schedule"):            # legacy Plan
+        return plan_.schedule.instance
+    return plan_.problem.to_instance()        # api Solution
+
+
+def _predicted_makespan(plan_) -> float:
+    if hasattr(plan_, "schedule"):
+        return plan_.predicted_makespan
+    return float(plan_.makespan)
+
+
 def execute(plan_: Solution, apply_ed: List[Callable], apply_es: Callable,
             jobs: List[object], *, es_fail: bool = False,
             device: DeviceLike = None) -> ExecutionReport:
-    """Run ``jobs`` as ``plan_`` routes them (``per_model``); ``device``
-    is where the ES-outage replan is solved (the card unless named)."""
+    """Run ``jobs`` as ``plan_`` routes them (``per_model``): a
+    `Solution` or a legacy `Plan`.  ``device`` is where the ES-outage
+    replan is solved (the card unless named)."""
     m = len(apply_ed)
     results: Dict[int, object] = {}
     ed_wall = 0.0
@@ -74,7 +87,7 @@ def execute(plan_: Solution, apply_ed: List[Callable], apply_es: Callable,
     if len(es_ids):
         if es_fail:
             # ES unreachable: replan the bounced jobs on the ED ladder
-            inst = plan_.problem.to_instance()
+            inst = _instance_of(plan_)
             sub = Problem(p_ed=inst.p_ed[es_ids], p_es=inst.p_es[es_ids],
                           acc=inst.acc, T=inst.T)
             fb = solve(sub, es_disabled=True, device=device)
@@ -101,6 +114,6 @@ def execute(plan_: Solution, apply_ed: List[Callable], apply_es: Callable,
             _land(ids, out, EXEC_OK_ED)
 
     return ExecutionReport(
-        predicted_makespan=float(plan_.makespan), ed_wall=ed_wall,
+        predicted_makespan=_predicted_makespan(plan_), ed_wall=ed_wall,
         es_wall=es_wall, results=results, replanned=replanned,
         status=status)

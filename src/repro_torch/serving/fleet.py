@@ -2,53 +2,82 @@
 (port of `repro.serving.fleet`).
 
 * Fleet construction — `DeviceSpec`, `paper_style_profile`,
-  `roofline_style_profile`, `make_fleet`.  The NumPy draws happen in the
-  reference's order, so with the same seed and the same ES constants the
-  port's fleet equals the reference's.  The ES tier's peak FLOP/s and
+  `roofline_style_profile`, `make_fleet`, and the declarative
+  `FleetConfig` (`FleetEngine.from_config`).  The NumPy draws happen in
+  the reference's order, so with the same seed and the same ES constants
+  the port's fleet equals the reference's.  The ES tier's peak FLOP/s and
   bytes/s have no default: the reference's defaults are TPU v5e figures,
   and a caller of the port states its own.
-* `FleetEngine` — the host period pipeline (the reference's
-  `_run_period_host`).  Each period it polls the `RequestQueue`,
-  assembles one padded `FleetProblem` per profile-shape group, plans it
-  with `api.solve` (under ``policy="auto"``: AMDP's DP for identical-job
-  devices, batched AMR^2 for the rest; both on the card), admits the
-  offload demand to the `EdgeServerPool`, replans the devices admission
-  bumped in one ES-disabled solve, and prices the plan and runs the EMA
-  straggler audit on the host, in NumPy, as the reference does.
+* `FleetEngine` — the period loop.  A fleet of one profile-shape group
+  under ``policy="amr2"`` or ``"dual"`` with ``delegate=True`` (and the
+  torch backend) hands each period to the tensor engine's period core
+  (`api.engine._period`) on ``device``: the host only polls the queue,
+  maps arrival values to class indices and books the stats, so `run(P)`
+  equals `api.engine.rollout` of the same config bit for bit.  A period
+  that leaves LP lanes unsolved raises `UnsolvedPeriodError` (or warns
+  under ``strict="warn"``).  Every other fleet runs the host period
+  pipeline (the reference's `_run_period_host`): per shape group one
+  padded `FleetProblem` planned with `api.solve` (under
+  ``policy="auto"``: AMDP's DP for identical-job devices, batched AMR^2
+  for the rest), admission to the `EdgeServerPool`, one ES-disabled
+  replan of the bumped devices, and pricing and the EMA straggler audit
+  on the host, in NumPy, as the reference does.  ``backend="numpy"``
+  plans with the sequential NumPy oracles instead of the card.
+* `run_period_reference` — the reference's per-device loop (padding,
+  stripping, sequential replans, per-device audit), the oracle and
+  baseline the array-resident loop is held to.
 
-Not ported yet: the reference's delegation of single-group amr2/dual
-fleets to the traced engine (with its `UnsolvedPeriodError`),
-`run_period_reference`, `FleetConfig` / `from_config`, and the chaos and
-hierarchical-inference scenarios; asking for them raises
-`NotImplementedError` naming the ROADMAP item.
+Not ported yet: the chaos and hierarchical-inference scenarios and
+mobility; asking for them raises `NotImplementedError` naming the ROADMAP
+item.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from collections import Counter
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from .._device import DeviceLike, resolve_device
-from ..api.front import batched_policies, solve
+from ..api import engine as _engine
+from ..api.front import batched_policies, solve, solve_many
 from ..api.registry import get_solver
 from ..core.instances import (PAPER_ACC, PAPER_COMM, PAPER_P_ED,
                               PAPER_P_ES_PROC)
+from ..core.lp import _check_backend
 from ..core.problem import ES_DISABLED_SENTINEL, FleetProblem, Problem
+from ..core.types import OffloadInstance, Schedule
 from .profile import TierProfile, roofline_profile
 from .queue import RequestQueue
+from .runtime import audit_profile
 
 _NOT_PORTED = {
-    "delegate": "FleetEngine's delegation of a one-group amr2/dual fleet "
-                "to the traced engine is not ported yet (ROADMAP §1 item 7); "
-                "pass delegate=False for the host period pipeline, or run "
-                "repro_torch.api.engine.rollout",
     "faults": "the chaos scenario is not ported yet (ROADMAP §1 item 9)",
     "hi": "online hierarchical inference is not ported yet (ROADMAP §1 "
           "item 9)",
+    "mobility": "the mobility scenario is not ported yet (ROADMAP §1 "
+                "item 9)",
 }
+
+
+class UnsolvedPeriodError(RuntimeError):
+    """A delegated period left ``n_unsolved`` LP lanes uncertified under
+    ``strict="raise"``.  Carries the failing ``period`` and
+    ``partial_stats``, every `FleetPeriodStats` completed before it (the
+    engine's ``history`` holds the same).  The period core has already
+    replanned the unsolved lanes with the greedy local-only fill, so
+    ``strict="warn"`` books the period and goes on."""
+
+    def __init__(self, message: str, *, period: int, n_unsolved: int,
+                 partial_stats: List["FleetPeriodStats"]):
+        super().__init__(message)
+        self.period = period
+        self.n_unsolved = n_unsolved
+        self.partial_stats = partial_stats
 
 
 @dataclasses.dataclass
@@ -175,6 +204,18 @@ class _ShapeGroup:
         return self.p_ed.shape[2]
 
 
+def _ed_time_under(profile: TierProfile, job_classes: np.ndarray,
+                   assignment: np.ndarray) -> float:
+    """ED-tier time of a schedule priced with ``profile``'s latencies."""
+    if len(job_classes) == 0:
+        return 0.0
+    ci = np.searchsorted(np.asarray(profile.classes), job_classes)
+    mask = assignment < profile.p_ed.shape[1]
+    if not mask.any():
+        return 0.0
+    return float(profile.p_ed[ci[mask], assignment[mask]].sum())
+
+
 @dataclasses.dataclass
 class FleetPeriodStats:
     period: int
@@ -208,6 +249,16 @@ class FleetPeriodStats:
     hi_regret: float = 0.0
 
 
+# `FleetPeriodStats` fields a delegated period books straight from the
+# period core's metrics
+_V2_STATS = ("n_violations", "worst_violation", "n_offloading",
+             "n_backpressured", "n_outage", "n_straggler_updates",
+             "es_utilization", "n_offload_samples", "n_offload_ok",
+             "n_deadline_miss", "n_retries", "n_fallback_local",
+             "n_dropped", "realized_makespan", "n_es_audit_updates",
+             "n_hi_offloaded", "n_hi_local_final", "hi_regret")
+
+
 class EdgeServerPool:
     """``n_servers`` ES tiers, each offering T seconds per period.
     Admission is greedy — ascending demand (device id on ties),
@@ -218,6 +269,20 @@ class EdgeServerPool:
         if n_servers <= 0:
             raise ValueError("n_servers must be positive")
         self.n_servers = n_servers
+
+    def admit(self, demands: Dict[int, float], T: float):
+        """``demands``: device id -> ES seconds.  Returns ``(admitted ids,
+        per-server loads)``, visiting devices in (demand, id) order —
+        never the dict's order — as `admit_mask` does."""
+        loads = np.zeros(self.n_servers)
+        admitted: List[int] = []
+        for dev in sorted(demands, key=lambda d: (demands[d], d)):
+            need = demands[dev]
+            slot = int(np.argmin(loads))
+            if loads[slot] + need <= T + 1e-12:
+                loads[slot] += need
+                admitted.append(dev)
+        return admitted, loads
 
     def admit_mask(self, demands: np.ndarray, T: float):
         """``demands`` (D,) ES seconds per device (<= 0: not offloading).
@@ -238,18 +303,138 @@ class EdgeServerPool:
         return mask, loads
 
 
+def _padded_instance(profile: TierProfile, job_classes: np.ndarray,
+                     T: float, n_total: int, *,
+                     disable_es: bool) -> OffloadInstance:
+    """One device's instance padded with phantom jobs (p = 0: free
+    everywhere, stripped later) to the planning window ``n_total``."""
+    k = len(job_classes)
+    if k > n_total:
+        raise ValueError(f"{k} jobs exceed planning window {n_total}")
+    m = profile.p_ed.shape[1]
+    p_ed = np.zeros((n_total, m))
+    p_es = np.zeros(n_total)
+    if k:
+        ci = np.searchsorted(np.asarray(profile.classes), job_classes)
+        p_ed[:k] = profile.p_ed[ci]
+        p_es[:k] = ES_DISABLED_SENTINEL if disable_es else profile.p_es[ci]
+    return OffloadInstance(p_ed=p_ed, p_es=p_es, acc=profile.acc.copy(), T=T)
+
+
+def _strip_phantoms(padded: Schedule, k: int) -> Schedule:
+    """The schedule of the first ``k`` (real) jobs of a padded one."""
+    inst = padded.instance
+    real = OffloadInstance(p_ed=inst.p_ed[:k], p_es=inst.p_es[:k],
+                           acc=inst.acc, T=inst.T)
+    return Schedule(assignment=padded.assignment[:k].copy(), instance=real,
+                    lp_accuracy=None, n_fractional=padded.n_fractional,
+                    status=padded.status, solver=padded.solver)
+
+
+@dataclasses.dataclass
+class FleetConfig:
+    """The whole engine in one value — policy, ES pool, traffic and fleet
+    composition; `FleetEngine.from_config` is the one-call equivalent of
+    `make_fleet` + `RequestQueue` + `FleetEngine`, and
+    `api.engine.EngineParams.from_config` its tensor-engine twin.
+
+    ``devices`` gives an explicit fleet; otherwise `make_fleet` draws one
+    from ``seed`` and the fractions below, its ES tier at
+    ``es_peak_flops`` / ``es_hbm_bw`` (required: the reference's defaults
+    are TPU v5e figures).  ``backend`` is "torch" or "numpy"; the
+    reference's "jax" is refused.  ``lp_method`` picks the delegated LP's
+    pivot representation (the reference's engine fixes "tableau").  The
+    chaos, mobility and HI scenarios are not ported: their fields must
+    stay None."""
+
+    # engine
+    n_devices: int
+    T: float
+    es_peak_flops: float
+    es_hbm_bw: float
+    n_servers: int = 1
+    policy: str = "auto"
+    backend: str = "torch"
+    straggler_threshold: float = 1.5
+    ema: float = 0.5
+    # False forces the host period pipeline where delegation would apply
+    delegate: bool = True
+    lp_method: str = "tableau"
+    # "raise": an unsolved delegated period raises UnsolvedPeriodError;
+    # "warn": warn and book it
+    strict: str = "raise"
+    # scenarios (ROADMAP §1 item 9): None only
+    faults: Optional[object] = None
+    mobility: Optional[object] = None
+    hi: Optional[object] = None
+    # traffic (RequestQueue)
+    classes: Sequence[int] = (128, 512, 1024)
+    rate: float = 10.0
+    batch_max: int = 12
+    trace: Optional[np.ndarray] = None
+    class_probs: Optional[Sequence[float]] = None
+    # fleet composition (make_fleet); ignored when `devices` is given
+    devices: Optional[Sequence[DeviceSpec]] = None
+    roofline_frac: float = 0.5
+    straggler_frac: float = 0.25
+    outage_frac: float = 0.1
+    drift_mag: float = 3.0
+    horizon: int = 64
+    seed: int = 0
+
+    def build_devices(self) -> List[DeviceSpec]:
+        if self.devices is not None:
+            if len(self.devices) != self.n_devices:
+                raise ValueError(
+                    f"config names {self.n_devices} devices but "
+                    f"{len(self.devices)} DeviceSpecs were given")
+            return list(self.devices)
+        return make_fleet(self.n_devices, es_peak_flops=self.es_peak_flops,
+                          es_hbm_bw=self.es_hbm_bw, classes=self.classes,
+                          roofline_frac=self.roofline_frac,
+                          straggler_frac=self.straggler_frac,
+                          outage_frac=self.outage_frac,
+                          drift_mag=self.drift_mag, horizon=self.horizon,
+                          seed=self.seed)
+
+    def build_queue(self) -> RequestQueue:
+        return RequestQueue(self.n_devices, self.classes, rate=self.rate,
+                            batch_max=self.batch_max, seed=self.seed,
+                            trace=self.trace, class_probs=self.class_probs)
+
+
 class FleetEngine:
-    """Drives the whole fleet, one period at a time, on the host period
-    pipeline; the LP and the DP of each period's solves run on
-    ``device`` (the CUDA card unless named)."""
+    """Drives the whole fleet, one period at a time; the LP, the DP and
+    the delegated period core run on ``device`` (the CUDA card unless
+    named)."""
+
+    @classmethod
+    def from_config(cls, config: FleetConfig, *,
+                    device: DeviceLike = None) -> "FleetEngine":
+        """The engine a `FleetConfig` describes (the same fleet, queue and
+        policy as the manual construction)."""
+        if config.mobility is not None:
+            raise NotImplementedError(_NOT_PORTED["mobility"])
+        return cls(config.build_devices(), config.build_queue(),
+                   n_servers=config.n_servers, T=config.T,
+                   policy=config.policy, backend=config.backend,
+                   straggler_threshold=config.straggler_threshold,
+                   ema=config.ema, delegate=config.delegate,
+                   lp_method=config.lp_method, strict=config.strict,
+                   faults=config.faults, hi=config.hi, device=device)
 
     def __init__(self, devices: Sequence[DeviceSpec], queue: RequestQueue, *,
                  n_servers: int = 1, T: float, policy: str = "auto",
-                 straggler_threshold: float = 1.5, ema: float = 0.5,
-                 delegate: bool = True, faults=None, hi=None,
-                 device: DeviceLike = None):
+                 backend: str = "torch", straggler_threshold: float = 1.5,
+                 ema: float = 0.5, delegate: bool = True,
+                 lp_method: str = "tableau", strict: str = "raise",
+                 faults=None, hi=None, device: DeviceLike = None):
         if queue.n_devices != len(devices):
             raise ValueError("queue.n_devices must match the fleet size")
+        if strict not in ("raise", "warn"):
+            raise ValueError(f"strict={strict!r}; expected 'raise' or "
+                             f"'warn'")
+        _check_backend(backend)
         if policy != "auto" and get_solver(policy).info.bound_only:
             raise ValueError(                     # get_solver rejects unknowns
                 f"policy={policy!r} is a bound-only solver; its "
@@ -277,10 +462,13 @@ class FleetEngine:
         self.pool = EdgeServerPool(n_servers)
         self.T = T
         self.policy = policy
-        # a solver without a batched path (greedy) plans device by device
-        self._batched = policy in batched_policies()
+        self.backend = backend
+        # batched solves on the card; a solver without a batched path
+        # (greedy), or the NumPy backend, plans device by device
+        self._batched = backend == "torch" and policy in batched_policies()
         self.straggler_threshold = straggler_threshold
         self.ema = ema
+        self.strict = strict
         self.device = resolve_device(device)
         self.history: List[FleetPeriodStats] = []
         # per period: how many devices each solver planned, in the plan
@@ -294,15 +482,134 @@ class FleetEngine:
             by_key.setdefault(key, []).append(d)
         self._groups = [_ShapeGroup(ids, [self.devices[d] for d in ids])
                         for ids in by_key.values()]
-        if delegate and policy in ("amr2", "dual") \
+        self._dev_slot: Dict[int, tuple] = {}    # device -> (group, row)
+        for g in self._groups:
+            for row, d in enumerate(g.ids):
+                self._dev_slot[int(d)] = (g, row)
+        # delegation: the period core of the tensor engine, with the queue
+        # and the stats on the host.  `_v2_params` is None (and the host
+        # pipeline runs) unless delegate, the torch backend, amr2/dual
+        # and one shape group all hold.
+        self._v2_params = None
+        if delegate and backend == "torch" \
+                and policy in _engine.TRACEABLE_POLICIES \
                 and len(self._groups) == 1:
-            raise NotImplementedError(_NOT_PORTED["delegate"])
+            # arrivals come from the host queue: "poisson" only skips the
+            # presampled trace
+            self._v2_params = _engine.EngineParams.from_fleet(
+                devices, queue, T=T, n_servers=n_servers, policy=policy,
+                horizon=1, arrivals="poisson",
+                straggler_threshold=straggler_threshold, ema=ema,
+                lp_method=lp_method, device=self.device)
+            g = self._groups[0]
+            qcls = np.asarray(queue.classes)
+            self._v2_lut = np.searchsorted(np.asarray(g.classes), qcls)
+            # arrival value -> queue class index, right on an unsorted
+            # queue class table too
+            self._v2_qorder = np.argsort(qcls, kind="stable")
+            self._v2_qsorted = qcls[self._v2_qorder]
 
     def run(self, periods: int) -> List[FleetPeriodStats]:
-        """Run ``periods`` periods."""
+        """Run ``periods`` periods.  Under ``strict="raise"`` an unsolved
+        delegated period raises `UnsolvedPeriodError`; the completed
+        periods' stats are on the error and on ``history``."""
         return [self.run_period() for _ in range(periods)]
 
     def run_period(self) -> FleetPeriodStats:
+        """One period: delegated to the tensor engine's period core when
+        the fleet allows it, else the host pipeline."""
+        if self._v2_params is not None:
+            return self._run_period_v2()
+        return self._run_period_host()
+
+    def _run_period_v2(self) -> FleetPeriodStats:
+        """The period through `api.engine._period` on ``device``: the host
+        polls the queue, hands over padded class indices and counts, and
+        books the stats; planning, admission, replans, pricing and the
+        audit are the tensor engine's, so `run` equals `rollout` of the
+        same config bit for bit."""
+        t = self._period
+        self._period += 1
+        arrivals = self.queue.poll(t)
+        D = len(self.devices)
+        g = self._groups[0]
+        params = self._v2_params
+        n_pad = self.queue.batch_max
+        take = np.fromiter((len(a) for a in arrivals), dtype=np.int32,
+                           count=D)
+        ci = np.zeros((D, n_pad), dtype=np.int32)
+        for d, a in enumerate(arrivals):
+            if len(a):
+                ci[d, :len(a)] = self._v2_qorder[
+                    np.searchsorted(self._v2_qsorted, a)]
+        outage = np.fromiter((st.spec.outage_at(t) for st in self.devices),
+                             dtype=bool, count=D)
+        drift = np.fromiter((st.spec.drift_at(t) for st in self.devices),
+                            dtype=np.float64, count=D)
+        belief = np.ascontiguousarray(g.p_ed[:, self._v2_lut, :])
+        warm = (np.asarray(g.warm_basis, np.int32)
+                if g.warm_basis is not None
+                else np.full((D, params.n_basis_rows), -1, np.int32))
+        if t > 0:
+            # the ES column set changed (outage flip): that lane's basis
+            # labels another LP, so it starts cold
+            prev = np.fromiter(
+                (st.spec.outage_at(t - 1) for st in self.devices),
+                dtype=bool, count=D)
+            warm = np.where((prev != outage)[:, None], np.int32(-1), warm)
+
+        dev = self.device
+        t0 = time.perf_counter()
+        _belief, new_warm, upd, factor, _load, m = _engine._period(
+            torch.as_tensor(belief, device=dev),
+            torch.as_tensor(warm, device=dev),
+            torch.as_tensor(ci, device=dev),
+            torch.as_tensor(take, device=dev),
+            torch.as_tensor(drift, device=dev),
+            torch.as_tensor(outage, device=dev), params.p_es, params)
+        m = {k: v.item() for k, v in m.items()}
+        plan_seconds = time.perf_counter() - t0
+        if m["n_unsolved"]:
+            # never serve an uncertified plan silently; the core already
+            # replanned those lanes with the greedy local-only fill
+            msg = (f"period {t}: {m['n_unsolved']} device plan(s) were "
+                   f"not solved to optimality (simplex iteration limit or "
+                   f"unbounded LP); raise maxiter — the lanes were served "
+                   f"by the greedy local-only fallback")
+            if self.strict == "warn":
+                warnings.warn(msg, RuntimeWarning, stacklevel=3)
+            else:
+                raise UnsolvedPeriodError(
+                    msg, period=t, n_unsolved=m["n_unsolved"],
+                    partial_stats=list(self.history))
+
+        if self.policy == "amr2":       # only the LP carries its bases
+            g.warm_basis = new_warm.cpu().numpy().astype(np.int64)
+        upd = upd.cpu().numpy()
+        if upd.any():
+            factor = factor.cpu().numpy()
+            g.p_ed[upd] *= factor[upd, None, None]
+            for r in np.nonzero(upd)[0]:
+                st = self.devices[int(g.ids[r])]
+                st.profile = dataclasses.replace(
+                    st.profile, p_ed=g.p_ed[r].copy())
+                st.n_updates += 1
+
+        n_jobs = m["n_jobs"]
+        total_acc = m["total_accuracy"]
+        stats = FleetPeriodStats(
+            period=t, n_devices=D, n_jobs=n_jobs,
+            plan_seconds=plan_seconds, total_accuracy=total_acc,
+            mean_job_accuracy=total_acc / n_jobs if n_jobs else 0.0,
+            backlog=self.queue.backlog,
+            **{f: m[f] for f in _V2_STATS})
+        self.history.append(stats)
+        self.solver_log.append({
+            "plan": Counter({self.policy: D}),
+            "replan": Counter({self.policy: m["n_backpressured"]})})
+        return stats
+
+    def _run_period_host(self) -> FleetPeriodStats:
         """One period of the host pipeline: arrivals, batched solves,
         admission, backpressure replans, pricing and the audit."""
         t = self._period
@@ -330,12 +637,13 @@ class FleetEngine:
         for g in self._groups:
             fp, base = self._assemble(g, arrivals, outage, n_pad)
             warm = {}
-            if g.warm_basis is not None:
+            if self.backend == "torch" and g.warm_basis is not None:
                 wb = np.asarray(g.warm_basis)
                 if stale_all is not None:
                     wb = np.where(stale_all[g.ids][:, None], -1, wb)
                 warm["warm_start"] = wb
-            sol = solve(fp, policy=self.policy, device=self.device, **warm)
+            sol = solve(fp, policy=self.policy, backend=self.backend,
+                        device=self.device, **warm)
             # LP-planned rows warm the next period; a period with no LP
             # solve drops the carry rather than hand it to a later one
             g.warm_basis = None if sol.basis is None \
@@ -372,7 +680,8 @@ class FleetEngine:
                         p_ed=fp.p_ed[r, :k], p_es=fp.p_es[r, :k],
                         acc=fp.acc[r], T=self.T)
                     fbp = solve(stripped, policy=self.policy,
-                                es_disabled=True, device=self.device)
+                                backend=self.backend, es_disabled=True,
+                                device=self.device)
                     log["replan"][str(fbp.solver)] += 1
                     assign[r, :k] = fbp.assignment
                 plan_seconds += time.perf_counter() - t0
@@ -466,6 +775,87 @@ class FleetEngine:
         fp = FleetProblem(p_ed=p_ed, p_es=p_es, acc=g.acc.copy(),
                           T=np.full(D, self.T), real_mask=mask)
         return fp, base
+
+    def run_period_reference(self) -> FleetPeriodStats:
+        """The reference's per-device period loop: padding and stripping
+        per device, sequential backpressure replans, the per-device audit
+        (`audit_profile`).  Every solve runs on this engine's backend; it
+        is the oracle the array-resident loop is held to and the baseline
+        a bench measures it against."""
+        t = self._period
+        self._period += 1
+        arrivals = self.queue.poll(t)
+        n_pad = self.queue.batch_max
+        outages = [st.spec.outage_at(t) for st in self.devices]
+
+        padded = [_padded_instance(st.profile, arrivals[d], self.T, n_pad,
+                                   disable_es=outages[d])
+                  for d, st in enumerate(self.devices)]
+        sols = solve_many([Problem.from_instance(p) for p in padded],
+                          policy=self.policy, backend=self.backend,
+                          device=self.device)
+        plan_seconds = sum(s.plan_seconds for s in sols)
+        scheds = [_strip_phantoms(s.to_schedule(), len(arrivals[d]))
+                  for d, s in enumerate(sols)]
+
+        # --- ES capacity: admit offload demand server by server ----------
+        demands = {d: s.es_makespan for d, s in enumerate(scheds)
+                   if s.es_makespan > 0}
+        admitted, loads = self.pool.admit(demands, self.T)
+        bumped = sorted(set(demands) - set(admitted))
+        for d in bumped:  # backpressure: replan ED-only, one at a time
+            fb = solve(Problem.from_instance(scheds[d].instance),
+                       policy=self.policy, backend=self.backend,
+                       es_disabled=True, device=self.device)
+            scheds[d] = fb.to_schedule()
+            plan_seconds += fb.plan_seconds
+
+        # --- execution and the straggler audit ----------------------------
+        n_jobs = 0
+        total_acc = 0.0
+        worst_viol = 0.0
+        n_viol = 0
+        n_updates = 0
+        n_off_samples = 0
+        realized_makespan = 0.0
+        for d, st in enumerate(self.devices):
+            sched = scheds[d]
+            n_jobs += sched.instance.n
+            total_acc += sched.total_accuracy
+            n_off_samples += int(
+                (sched.assignment == sched.instance.p_ed.shape[1]).sum())
+            ed_wall = _ed_time_under(st.spec.profile, arrivals[d],
+                                     sched.assignment) * st.spec.drift_at(t)
+            es_wall = 0.0 if d in bumped else sched.es_makespan
+            wall = max(ed_wall, es_wall)
+            realized_makespan = max(realized_makespan, wall)
+            viol = max(0.0, wall / self.T - 1.0)
+            worst_viol = max(worst_viol, viol)
+            n_viol += viol > 0
+            new_profile, updated = audit_profile(
+                st.profile, sched.ed_makespan, ed_wall,
+                threshold=self.straggler_threshold, ema=self.ema)
+            if updated:
+                st.profile = new_profile
+                st.n_updates += 1
+                n_updates += 1
+                g, row = self._dev_slot[d]      # keep the stacks in sync
+                g.p_ed[row] = new_profile.p_ed
+
+        stats = FleetPeriodStats(
+            period=t, n_devices=len(self.devices), n_jobs=n_jobs,
+            plan_seconds=plan_seconds, total_accuracy=total_acc,
+            mean_job_accuracy=total_acc / n_jobs if n_jobs else 0.0,
+            n_violations=n_viol, worst_violation=worst_viol,
+            n_offloading=len(demands), n_backpressured=len(bumped),
+            n_outage=int(sum(outages)), n_straggler_updates=n_updates,
+            es_utilization=float(loads.sum()) / (self.pool.n_servers
+                                                 * self.T),
+            backlog=self.queue.backlog,
+            n_offload_samples=n_off_samples, n_offload_ok=n_off_samples,
+            realized_makespan=realized_makespan)
+        self.history.append(stats)
+        return stats
 
     def summary(self) -> Dict[str, float]:
         h = self.history

@@ -7,8 +7,9 @@ across the tiers, then audit: if the measured ED wall time drifts past the
 profile's prediction by more than ``straggler_threshold``, the profile's
 p_ed is EMA-rescaled so the next period plans for the degraded tier (the
 straggler loop).  An ES outage inside a period triggers the executor's
-fallback replan.  ``policy="dual"`` raises `NotImplementedError` at the
-first plan, as the port's solver registry does (ROADMAP §1 item 5).
+fallback replan.  Any registry policy plans here (``"auto"``, ``"amr2"``,
+``"amdp"``, ``"dual"``, ``"greedy"``), on ``device`` at B = 1 (the
+reference plans a single problem with its NumPy oracles).
 """
 from __future__ import annotations
 

@@ -1,7 +1,9 @@
 """The port on a CUDA card: each kernel against its plain version, a
 small rollout, a small host `FleetEngine` run, a 2-layer LM forward,
 recurrentgemma's 2-cycle SMOKE forward and the SMOKE models' generation
-on the card against the same runs on the CPU.
+on the card against the same runs on the CPU; the batched dual against
+the CPU exactly, Poisson arrivals by their distribution, and a delegated
+`FleetEngine` run against `rollout` on the card bit for bit.
 
 Every test here is marked ``gpu`` and skips (with the reason) where no
 card is visible.  The file imports no JAX — it compares the port with
@@ -57,7 +59,8 @@ from repro_torch.models import (decode_step, forward, init_params,
                                 logits_from_h, prefill)
 from repro_torch.kernels.cckp_dp import ref as cckp_ref
 from repro_torch.kernels.simplex_pivot import ops, ref
-from repro_torch.serving.fleet import FleetEngine, make_fleet
+from repro_torch.core.dual import dual_one_batch
+from repro_torch.serving.fleet import FleetConfig, FleetEngine, make_fleet
 from repro_torch.serving.queue import RequestQueue
 
 RTOL = ATOL = 1e-12
@@ -869,3 +872,144 @@ def test_cuda_recurrentgemma_forward_matches_cpu_forward(cuda_device,
         assert err.max().item() <= 0.25 and \
             top1.float().mean().item() >= 0.85
     assert torch.equal(got[..., V:], want[..., V:])
+
+
+def _dual_lanes(lanes, n, seed):
+    """Paper-like lanes: 2 local models, times and budgets drawn apart,
+    every fourth lane with a phantom (p = 0) slot."""
+    rng = np.random.default_rng(seed)
+    p_ed = np.sort(rng.uniform(0.02, 0.4, (lanes, n, 2)), axis=2)
+    p_es = rng.uniform(0.05, 0.5, (lanes, n))
+    acc = np.sort(rng.uniform(0.3, 0.95, (lanes, 3)), axis=1)
+    T = rng.uniform(0.1, 1.5, lanes)
+    if n > 1:
+        p_ed[::4, -1], p_es[::4, -1] = 0.0, 0.0
+    return [torch.as_tensor(x) for x in (p_ed, p_es, acc, T)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 12, 16])
+def test_cuda_dual_batch_equals_cpu_exactly(cuda_device, n):
+    """The bisection on the card equals the CPU's, assignment and status,
+    on 4096 lanes (the prefix loads are sums in another order on the
+    card; no decision here lands within rounding of a boundary)."""
+    cpu = _dual_lanes(4096, n, seed=n)
+    want_a, want_s = dual_one_batch(*cpu)
+    got_a, got_s = dual_one_batch(*(x.to(cuda_device) for x in cpu))
+    assert got_a.is_cuda
+    assert torch.equal(got_a.cpu(), want_a)
+    assert torch.equal(got_s.cpu(), want_s)
+    assert 0 < int(want_s.sum()) < 4096          # both statuses occur
+
+
+@pytest.mark.gpu
+def test_cuda_dual_rollout_matches_cpu_rollout(cuda_device):
+    """The dual rollout of 2048 roofline-heavy devices (their ES times
+    repeat exactly, so many devices' demands tie in exact arithmetic) on
+    the card against the CPU: integer metrics exact, floats to 1e-9.
+    Demands sum in slot order on both, so admission breaks those ties
+    alike; the audit threshold is 1.4 (ROADMAP §3)."""
+    D, P = 2048, 6
+    devices = make_fleet(D, seed=5, horizon=P, es_peak_flops=989e12,
+                         es_hbm_bw=3.35e12, roofline_frac=0.8)
+    queue = RequestQueue(D, (128, 512, 1024), rate=10.0, batch_max=12,
+                         seed=5)
+    cpu = E.EngineParams.from_fleet(devices, queue, T=1.2, n_servers=D // 16,
+                                    horizon=P, policy="dual",
+                                    straggler_threshold=1.4, device="cpu")
+    gpu = convert.params_from_numpy(
+        {**{f: getattr(cpu, f).numpy() for f in E.PARAM_ARRAYS},
+         **{f: getattr(cpu, f) for f in E.PARAM_CONFIG}}, cuda_device)
+    sc, mc = E.rollout(E.init_state(cpu, device="cpu"), cpu, P,
+                       device="cpu")
+    sg, mg = E.rollout(E.init_state(gpu, device=cuda_device), gpu, P,
+                       device=cuda_device)
+    for f in E.METRIC_FIELDS:
+        a, b = getattr(mg, f).cpu(), getattr(mc, f)
+        if a.is_floating_point():
+            assert (a - b).abs().max().item() <= 1e-9, f
+        else:
+            assert torch.equal(a, b), f
+    assert torch.equal(sg.n_updates.cpu(), sc.n_updates)
+    assert int(mc.n_backpressured.sum()) > 0
+
+
+def _poisson_params(device, D=2048, rate=6.0, batch_max=8):
+    cfg = FleetConfig(n_devices=D, T=1.2, n_servers=D // 16, policy="amr2",
+                      rate=rate, batch_max=batch_max, horizon=2, seed=1,
+                      straggler_frac=0.0, class_probs=(0.2, 0.5, 0.3),
+                      es_peak_flops=989e12, es_hbm_bw=3.35e12)
+    return E.EngineParams.from_config(cfg, arrivals="poisson",
+                                      device=device)
+
+
+@pytest.mark.gpu
+def test_cuda_poisson_arrivals_follow_their_distribution(cuda_device):
+    params = _poisson_params(cuda_device)
+    state = E.init_state(params, seed=4, device=cuda_device)
+    counts, classes = [], []
+    for t in range(16):
+        g = E._generator(4, t, 0, cuda_device)
+        counts.append(torch.poisson(params.rate, generator=g))
+        ci, take, _p, _h = E._arrivals(state, params, t)
+        assert ci.is_cuda and int(take.max()) <= params.batch_max
+        classes.append(ci.reshape(-1))
+    counts = torch.stack(counts).double()
+    assert abs(counts.mean().item() - 6.0) <= 5 * np.sqrt(6.0 /
+                                                          counts.numel())
+    classes = torch.cat(classes)
+    freq = torch.bincount(classes, minlength=3).double() / classes.numel()
+    for k, p in enumerate((0.2, 0.5, 0.3)):
+        assert abs(freq[k].item() - p) <= 5 * np.sqrt(
+            p * (1 - p) / classes.numel()), freq.tolist()
+    # a short rollout conserves jobs; a seed repeats bit for bit
+    small = _poisson_params(cuda_device, D=64)
+    runs = [E.rollout(E.init_state(small, seed=4, device=cuda_device),
+                      small, 4, device=cuda_device) for _ in range(2)]
+    (s, m), (_s2, m2) = runs
+    assert torch.equal(m.n_jobs, m2.n_jobs) and torch.equal(m.backlog,
+                                                            m2.backlog)
+    drawn = sum(int(torch.poisson(small.rate, generator=E._generator(
+        4, t, 0, cuda_device)).sum()) for t in range(4))
+    assert int(m.n_jobs.sum()) + int(s.pending.sum()) == drawn
+    zero = _poisson_params(cuda_device, D=64, rate=0.0)
+    _, mz = E.rollout(E.init_state(zero, device=cuda_device), zero, 3,
+                      device=cuda_device)
+    assert int(mz.n_jobs.sum()) == 0 and int(mz.backlog.sum()) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy,lp_method", [("amr2", "tableau"),
+                                              ("amr2", "revised"),
+                                              ("dual", "tableau")])
+def test_cuda_delegated_run_equals_rollout(cuda_device, policy, lp_method):
+    """A 64-device `FleetConfig`: `FleetEngine.run` through the delegated
+    period core on the card equals `rollout` on the card bit for bit."""
+    P = 6
+    cfg = FleetConfig(n_devices=64, T=1.2, n_servers=4, policy=policy,
+                      rate=10.0, batch_max=12, horizon=P + 2, seed=3,
+                      lp_method=lp_method, es_peak_flops=989e12,
+                      es_hbm_bw=3.35e12)
+    eng = FleetEngine.from_config(cfg, device=cuda_device)
+    assert eng._v2_params is not None
+    params = E.EngineParams.from_config(cfg, horizon=P + 2,
+                                        device=cuda_device)
+    ops.reset_launches()
+    state, metrics = E.rollout(E.init_state(params, device=cuda_device),
+                               params, P, device=cuda_device)
+    launched = ops.pivot_update.launches + ops.reduced_pivot.launches
+    assert (launched > 0) == (policy == "amr2")
+    stats = eng.run(P)
+    for i, st in enumerate(stats):
+        for f in E.METRIC_FIELDS:
+            if hasattr(st, f):
+                assert getattr(metrics, f)[i].item() == getattr(st, f), \
+                    (i, f)
+    beliefs = np.stack([d.profile.p_ed for d in eng.devices])
+    np.testing.assert_array_equal(state.p_ed.cpu().numpy(),
+                                  beliefs[:, eng._v2_lut, :])
+    if policy == "amr2":
+        np.testing.assert_array_equal(state.warm_basis.cpu().numpy(),
+                                      eng._groups[0].warm_basis)
+    else:
+        assert (state.warm_basis == -1).all()

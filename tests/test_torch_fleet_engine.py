@@ -114,10 +114,15 @@ def test_unported_configurations_raise():
                            RequestQueue(4, classes, seed=0), T=1.2,
                            device="cpu", **kw)
 
-    with pytest.raises(NotImplementedError, match="delegation"):
-        engine(policy="amr2")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine(policy="dual")
+    # a one-group amr2 / dual fleet delegates to the tensor engine now
+    # (ROADMAP §1 items 5 and 7) and runs; the scenarios (item 9) raise
+    for policy in ("amr2", "dual"):
+        eng = engine(policy=policy)
+        assert eng._v2_params is not None
+        assert eng.run(1)[0].n_devices == 4
+    assert engine(policy="auto")._v2_params is None
+    with pytest.raises(ValueError, match="'torch'"):
+        engine(policy="amr2", backend="jax")
     with pytest.raises(NotImplementedError, match="chaos"):
         engine(faults=object())
     with pytest.raises(NotImplementedError, match="hierarchical"):
@@ -126,4 +131,5 @@ def test_unported_configurations_raise():
         engine(policy="lp")
     with pytest.raises(ValueError, match="unknown solver"):
         engine(policy="simplex")
-    assert engine(policy="amr2", delegate=False).run(1)[0].n_devices == 4
+    host = engine(policy="amr2", delegate=False)
+    assert host._v2_params is None and host.run(1)[0].n_devices == 4

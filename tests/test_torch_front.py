@@ -12,6 +12,8 @@ exact (the reference's own tableau-vs-revised bar — label sets — would
 apply where ROADMAP §3 item 2's cold-path ties bite; these fleets do not
 hit one).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -161,13 +163,23 @@ def test_typo_guard_and_registry():
         PAPI.solve(fp, policy="amr2", max_iter=10, device="cpu")
     with pytest.raises(TypeError, match="does not accept"):
         RAPI.solve(_fleet(4, seed=1), policy="amr2", max_iter=10)
-    assert PAPI.solver_names() == ["amdp", "amr2", "greedy", "lp"]
+    # dual is registered (ROADMAP §1 item 5) with the reference's flags;
+    # the mobility and HI entries (item 9) still raise
+    assert PAPI.solver_names() == ["amdp", "amr2", "dual", "greedy", "lp"]
     assert set(PAPI.solver_names()) < set(RAPI.solver_names())
-    for name in ("dual", "routed", "hi_threshold", "hi_bandit"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    assert (dataclasses.asdict(PAPI.solvers()["dual"])
+            == dataclasses.asdict(RAPI.solvers()["dual"]))
+    assert (PAPI.solve(fp, policy="dual", device="cpu").solver
+            == "dual").all()
+    for name in ("routed", "hi_threshold", "hi_bandit"):
+        with pytest.raises(NotImplementedError, match="item 9"):
             PAPI.solve(fp, policy=name, device="cpu")
     with pytest.raises(ValueError, match="unknown solver"):
         PAPI.get_solver("simplex")
-    with pytest.raises(TypeError, match="does not accept"):
-        PAPI.solve(fp, policy="amr2", backend="numpy", device="cpu")
+    # backend is a front-door option now: "numpy" runs the oracle, the
+    # reference's "jax" is refused naming the port's "torch"
+    assert (PAPI.solve(fp, policy="amr2", backend="numpy",
+                       device="cpu").solver == "amr2").all()
+    with pytest.raises(ValueError, match="'torch'"):
+        PAPI.solve(fp, policy="amr2", backend="jax", device="cpu")
     assert "| `amdp` | yes | yes |" in PAPI.solver_table()
