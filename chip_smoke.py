@@ -124,6 +124,35 @@ Phases, each printing JSON lines; any failure exits non-zero:
               under amr2, none under dual), `run` equal bit for bit to
               `rollout` of `EngineParams.from_config` on the card; s/period
               and devices/s beside the host serve phase's.
+     rollout_chaos  the chaos scenario on the rollouts' fleet, counters at
+              0 before each counted run and read after: armed with the
+              null model (revised), bit for bit the plain rollout; the
+              reference bench's armed_hot model (link 0.2 x 0.6,
+              stragglers 0.15 x 1.8, loss 0.05, fault seed 11, 2 retries)
+              drawn on the card, both LP methods, and its harsh model
+              (revised), each timed in turns with the plain rollout of
+              its method (plain, chaos, chaos, plain): every period
+              n_offload_samples = ok + fallback + dropped, every device's
+              realized ES time within 2T + backoff_cap + its admitted
+              demand x link factor (recorded through a stand-in for the
+              engine's `realize_execution`), the ES audit fired, armed_hot
+              keeping >= 0.90 of the fault-free accuracy; devices/s,
+              launches per period, peak memory, busy share (profiled);
+              then a trace drawn on the card replayed on the card and on
+              the CPU at audit threshold 1.4 on a 4096-device fleet of the
+              same recipe (integers exact, floats to 1e-9).
+     rollout_mobility  the mobility scenario (revised LP): one cell of
+              infinite radius, bit for bit the plain rollout; the bench's
+              16 cells on a 4 x 4 grid of pitch 20 (radius 30, link_alpha
+              0.2, 64 servers a cell, homes from `default_rng(0)`,
+              positions home + normal(6)) under nearest and min_time
+              routing, timed in turns with the plain rollout: handovers,
+              each period's admitted set (recorded through a stand-in for
+              the engine's `admit_mask_segmented`) equal to the
+              sequential `admit_mask_cells_np`, two card runs bitwise, the
+              4096-device fleet's rollout on the card against the CPU at
+              1.4; pivots per period beside the plain rollout's; the walk's
+              steps by distribution on the card's generator.
   7. lm_forward  gemma3-1b at full width (26 layers, d 1152, GQA 4:1 at
               head_dim 256, vocabulary 262144): `init_params` on the card
               from a seed, 2 requests of 2048 `TokenPipeline` tokens,
@@ -171,7 +200,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
               step; a profile of one decode step.
   9. parity   the card-marked tests (`pytest -m gpu tests/test_torch_cuda.py`,
               in a child process): each kernel against its plain version,
-              a 32-device rollout, a 64-device `FleetEngine` run, a
+              a 32-device rollout, a 64-device `FleetEngine` run, the
+              chaos and mobility rollouts and segmented admission, a
               2-layer LM forward, recurrentgemma's 2-cycle SMOKE forward
               and the SMOKE models' generation on the card against the
               same runs on the CPU.
@@ -1415,14 +1445,6 @@ def serve_periods(torch, engine, calls):
 # --------------------------------------------------------------------------
 # phase 6b: the dual policy, Poisson arrivals and the delegated FleetEngine
 # --------------------------------------------------------------------------
-def cpu_params(E, params):
-    """``params`` carried to the CPU, where the plain versions run."""
-    from repro_torch import convert
-    return convert.params_from_numpy(
-        {**{f: getattr(params, f).cpu().numpy() for f in E.PARAM_ARRAYS},
-         **{f: getattr(params, f) for f in E.PARAM_CONFIG}}, "cpu")
-
-
 def first_plan(torch, E, params, dev):
     """The period-0 primary plan of ``params``: the `FleetProblem` the
     engine's first `_plan` call gets and the assignment it returns, from
@@ -1483,7 +1505,7 @@ def phase_rollout_dual(torch, dev, params, amr2_metrics):
           "rollout_dual: the dual carried a basis")
     device_s, n_launch, top = profiled(
         torch, lambda: E.rollout(state, params, PERIODS, device=dev))
-    cpu = cpu_params(E, params)
+    cpu = params.to("cpu")
     # period 0: the plan on the card, on the CPU and by the NumPy oracle
     fp, (assign, _st, _basis) = first_plan(torch, E, params, dev)
     _fp, (want0, _st, _basis) = first_plan(torch, E, cpu, "cpu")
@@ -1655,6 +1677,373 @@ def phase_serve_delegated(torch, dev, serve_seconds):
              mean_job_accuracy=sum(st.total_accuracy for st in stats)
              / max(sum(st.n_jobs for st in stats), 1))
 
+
+# --------------------------------------------------------------------------
+# the chaos and mobility scenarios at the rollouts' fleet
+# --------------------------------------------------------------------------
+# the reference bench's fault models (benchmarks/fleet_bench.py): its
+# "armed_hot" chaos cell and its "harsh" model
+ARMED_HOT = dict(link_degrade_prob=0.2, link_degrade_mag=0.6,
+                 straggler_prob=0.15, straggler_mult=1.8, loss_rate=0.05)
+HARSH = dict(es_crash_prob=0.08, link_degrade_prob=0.25,
+             link_degrade_mag=0.6, straggler_prob=0.2, straggler_mult=1.8,
+             loss_rate=0.15)
+FAULT_SEED, MAX_RETRIES = 11, 2
+# card-against-CPU comparisons audit off the 1.5 tie (ROADMAP §3 item 1),
+# on a 4096-device fleet: a CPU rollout of 16384 devices takes ~25 s
+SCENARIO_CHECK_THRESHOLD = 1.4
+D_CHECK = 4096
+# the reference bench's mobility geometry: 16 cells on a 4 x 4 grid of
+# pitch 20, radius 30, link_alpha 0.2, 64 servers a cell at 16384 devices
+GRID, PITCH, RADIUS, LINK_ALPHA, SCATTER = 4, 20.0, 30.0, 0.2, 6.0
+WALK_SIGMA = 2.0
+
+
+def scenario_pair(E, dev, **scenario):
+    """A `D_CHECK`-device rollout fleet (the rollouts' recipe, 1/16 of the
+    servers) on the card and the same params copied to the CPU, audited
+    at `SCENARIO_CHECK_THRESHOLD`, revised LP."""
+    import dataclasses
+    cfg = dataclasses.replace(rollout_config("amr2"), n_devices=D_CHECK,
+                              n_servers=D_CHECK // 16,
+                              straggler_threshold=SCENARIO_CHECK_THRESHOLD)
+    params = E.EngineParams.from_config(cfg, lp_method="revised",
+                                        device=dev)
+    if "mobility" in scenario:
+        params = params.with_mobility(scenario["mobility"],
+                                      routing=scenario["routing"])
+    if "faults" in scenario:
+        params = params.with_faults(scenario["faults"],
+                                    max_retries=MAX_RETRIES,
+                                    fault_seed=FAULT_SEED,
+                                    fault_trace=scenario["trace"])
+    return params, params.to("cpu")
+
+
+def compare_card_cpu(torch, E, what, card, cpu):
+    """Rollouts of ``card`` (on the card) and ``cpu`` (on the CPU):
+    integer metrics and state exact, floats to 1e-9."""
+    dev = card.device
+    sg, mg = E.rollout(E.init_state(card, device=dev), card, PERIODS,
+                       device=dev)
+    t0 = time.perf_counter()
+    sc, mc = E.rollout(E.init_state(cpu, device="cpu"), cpu, PERIODS,
+                       device="cpu")
+    cpu_seconds = time.perf_counter() - t0
+    for f in E.METRIC_FIELDS:
+        a, b = getattr(mg, f).cpu(), getattr(mc, f)
+        if a.is_floating_point():
+            d = (a - b).abs().max().item()
+            check(d <= 1e-9, f"{what}: {f} differs from the CPU by {d}")
+        else:
+            check(torch.equal(a, b), f"{what}: {f} {a.tolist()} on the "
+                                     f"card, {b.tolist()} on the CPU")
+    for f in E.STATE_FIELDS:
+        if f == "warm_basis":        # another optimal basis of a tied LP
+            continue
+        a, b = getattr(sg, f).cpu(), getattr(sc, f)
+        if a.is_floating_point():
+            d = (a - b).abs().max().item()
+            check(d <= 1e-9, f"{what}: state {f} differs by {d}")
+        else:
+            check(torch.equal(a, b), f"{what}: state {f} differs")
+    return mc, cpu_seconds
+
+
+def timed_rollout(torch, E, params, dev):
+    """The rollout with every launch counter at 0 before and read after:
+    (final state, metrics, seconds, launches, peak memory)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    final, metrics = E.rollout(E.init_state(params, device=dev), params,
+                               PERIODS, device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: v for k, v in kernel_launches().items() if v}
+    return (final, metrics, seconds, launches,
+            torch.cuda.max_memory_allocated())
+
+
+def wall_seconds(torch, E, params, dev):
+    """Seconds of one synchronised rollout (counters untouched)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    E.rollout(E.init_state(params, device=dev), params, PERIODS, device=dev)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def same_rollout(torch, E, what, a, b):
+    """Two rollouts' metrics equal bit for bit."""
+    for f in E.METRIC_FIELDS:
+        check(torch.equal(getattr(a, f), getattr(b, f)),
+              f"{what}: {f} {getattr(a, f).tolist()} vs "
+              f"{getattr(b, f).tolist()}")
+
+
+def es_bound_recorder(E, T, fm):
+    """A stand-in for the engine's `realize_execution` that records, per
+    call, the largest excess of a device's realized ES time over ``2T +
+    backoff_cap + admitted demand x link factor`` (0-d tensors, read after
+    the run)."""
+    from repro_torch.core.problem import slot_sum
+    real_fn, excess = E.realize_execution, []
+
+    def recording(fm_, real, **kw):
+        rx = real_fn(fm_, real, **kw)
+        demand = slot_sum(kw["p_es_jobs"].where(kw["es_samp"], 0.0))
+        bound = 2.0 * T + fm.backoff_cap + demand * real.link_factor
+        excess.append((rx.es_wall - bound).amax())
+        return rx
+
+    return real_fn, recording, excess
+
+
+def phase_rollout_chaos(torch, dev, params, plain):
+    """The chaos scenario on the rollouts' fleet: (1) armed with the null
+    model, bit for bit the plain rollout; (2) the bench's armed_hot model
+    drawn on the card, both LP methods, each timed in turns with the plain
+    rollout of its method (plain, chaos, chaos, plain); (3) its harsh
+    model; (4) a trace drawn on the card replayed on the card and the
+    CPU.  Every run checks the ladder identity; a second run of each
+    model checks every device's realized ES time against its bound.
+    Returns the pivot launches of the counted runs and the plain
+    rollouts' seconds."""
+    import dataclasses
+
+    from repro_torch.api import engine as E
+    from repro_torch.core.faults import FaultModel, sample_trace
+    pivots = {"simplex_pivot": 0, "reduced_pivot": 0}
+    T = float(params["revised"].T)
+    # (1) armed null: the ladder runs and changes no bit
+    null = dataclasses.replace(params["revised"], chaos=True)
+    check(null.faults.is_null(), "rollout_chaos: the null model fires")
+    _s, m_null, secs, launches, _mem = timed_rollout(torch, E, null, dev)
+    same_rollout(torch, E, "rollout_chaos armed null vs plain", m_null,
+                 plain["revised"])
+    pivots["reduced_pivot"] += launches.get("reduced_pivot", 0)
+    emit("rollout_chaos", run="armed_null", lp_method="revised",
+         seconds=secs, devices_per_s=D_FLEET * PERIODS / secs,
+         launches_per_period={k: v / PERIODS for k, v in launches.items()},
+         bitwise_vs_plain=True)
+    plain_secs = {}
+    runs = [("armed_hot", ARMED_HOT, m) for m in ("tableau", "revised")]
+    runs.append(("harsh", HARSH, "revised"))
+    for name, model, method in runs:
+        fm = FaultModel.make(**model)
+        p = params[method].with_faults(fm, max_retries=MAX_RETRIES,
+                                       fault_seed=FAULT_SEED)
+        plain_walls = [wall_seconds(torch, E, params[method], dev)]
+        _s, m, secs, launches, mem = timed_rollout(torch, E, p, dev)
+        chaos_walls = [secs, wall_seconds(torch, E, p, dev)]
+        plain_walls.append(wall_seconds(torch, E, params[method], dev))
+        plain_secs[method] = min(plain_walls + [plain_secs.get(method,
+                                                               1e9)])
+        for k in pivots:
+            pivots[k] += launches.get(k, 0)
+        kname = "simplex_pivot" if method == "tableau" else "reduced_pivot"
+        check(launches.get(kname, 0) > 0,
+              f"rollout_chaos: {kname} never launched ({name})")
+        check(int(m.n_unsolved.sum()) == 0, "rollout_chaos: unsolved")
+        check(torch.equal(m.n_offload_samples, m.n_offload_ok
+                          + m.n_fallback_local + m.n_dropped),
+              f"rollout_chaos: {name} ladder identity broken")
+        # the same run again, recorded: the ES time bound, and bit for bit
+        real_fn, recording, excess = es_bound_recorder(E, T, fm)
+        E.realize_execution = recording
+        try:
+            _s2, m2 = E.rollout(E.init_state(p, device=dev), p, PERIODS,
+                                device=dev)
+        finally:
+            E.realize_execution = real_fn
+        same_rollout(torch, E, f"rollout_chaos {name} rerun", m, m2)
+        worst = max(x.item() for x in excess)
+        check(len(excess) == PERIODS and worst <= 1e-9,
+              f"rollout_chaos: {name} ES time over its bound by {worst}")
+        acc = float(m.total_accuracy.sum())
+        acc0 = float(plain[method].total_accuracy.sum())
+        busy = {}
+        if name == "armed_hot":
+            check(int(m.n_es_audit_updates.sum()) > 0,
+                  "rollout_chaos: the ES audit never fired")
+            check(acc >= 0.90 * acc0, f"rollout_chaos: accuracy {acc} "
+                                      f"below 0.90 of fault-free {acc0}")
+            device_s, n_launch, top = profiled(torch, lambda: E.rollout(
+                E.init_state(p, device=dev), p, PERIODS, device=dev))
+            busy = dict(device_seconds=device_s, launches_profiled=n_launch,
+                        busy_share=device_s / min(chaos_walls)
+                        if device_s else None, top=top)
+        emit("rollout_chaos", run=name, lp_method=method, devices=D_FLEET,
+             periods=PERIODS, seconds=chaos_walls,
+             devices_per_s=D_FLEET * PERIODS / min(chaos_walls),
+             plain_seconds=plain_walls,
+             wall_vs_plain=min(chaos_walls) / min(plain_walls),
+             peak_mem_bytes=mem,
+             launches_per_period={k: v / PERIODS
+                                  for k, v in launches.items()},
+             es_bound_excess=worst, **busy,
+             **{f: int(getattr(m, f).sum()) for f in (
+                 "n_offload_samples", "n_offload_ok", "n_retries",
+                 "n_fallback_local", "n_dropped", "n_deadline_miss",
+                 "n_es_audit_updates", "n_straggler_updates",
+                 "n_backpressured")},
+             total_accuracy=acc, total_accuracy_fault_free=acc0,
+             accuracy_kept=acc / acc0)
+    # (4) one trace drawn on the card, replayed on the card and the CPU
+    fm = FaultModel.make(**ARMED_HOT)
+    trace = sample_trace(FAULT_SEED, fm, D_CHECK, N_JOBS, MAX_RETRIES + 1,
+                         PERIODS, device=dev)
+    card, cpu = scenario_pair(E, dev, faults=fm, trace=trace)
+    mc, cpu_seconds = compare_card_cpu(torch, E, "rollout_chaos replay",
+                                       card, cpu)
+    check(int(mc.n_es_audit_updates.sum()) > 0,
+          "rollout_chaos: replay fired no ES audit")
+    emit("rollout_chaos", run="card_vs_cpu_replay", devices=D_CHECK,
+         periods=PERIODS, threshold=SCENARIO_CHECK_THRESHOLD,
+         cpu_seconds=cpu_seconds, equal=True,
+         n_retries=int(mc.n_retries.sum()),
+         n_es_audit_updates=int(mc.n_es_audit_updates.sum()))
+    return pivots, plain_secs
+
+
+def grid_mobility(D, periods):
+    """The bench geometry; each device's home cell from
+    ``default_rng(0)``, its replayed positions home + normal(SCATTER)."""
+    import numpy as np
+
+    from repro_torch.core.mobility import MobilityModel
+    cxy = np.array([[PITCH * i, PITCH * j] for i in range(GRID)
+                    for j in range(GRID)], np.float64)
+    rng = np.random.default_rng(0)
+    home = rng.integers(0, GRID * GRID, D)
+    trace = cxy[home][None] + rng.normal(scale=SCATTER,
+                                         size=(periods, D, 2))
+    return MobilityModel.make(cell_xy=cxy, trace=trace, radius=RADIUS,
+                              link_alpha=LINK_ALPHA, walk_sigma=WALK_SIGMA)
+
+
+def admission_recorder(E):
+    """A stand-in for the engine's `admit_mask_segmented` that keeps each
+    call's demands, cells and admitted set (tensors, read after)."""
+    real_fn, calls = E.admit_mask_segmented, []
+
+    def recording(demand, cell, T, n_cells, k):
+        out = real_fn(demand, cell, T, n_cells, k)
+        calls.append((demand, cell, float(T), n_cells, k, out[0]))
+        return out
+
+    return real_fn, recording, calls
+
+
+def phase_rollout_mobility(torch, dev, params, plain, plain_launches):
+    """The mobility scenario on the rollouts' fleet (revised LP): one cell
+    of infinite radius bit for bit the plain rollout; the bench's 16-cell
+    grid under both routings, timed in turns with the plain rollout
+    (handovers, each period's admission against the sequential oracle,
+    two card runs bitwise, the card against the CPU); the walk's steps by
+    distribution.  Returns the pivot launches of the counted runs."""
+    import numpy as np
+
+    from repro_torch.api import engine as E
+    from repro_torch.core.mobility import MobilityModel, admit_mask_cells_np
+    base = params["revised"]
+    launched = 0
+    one = MobilityModel.make(cell_xy=np.zeros((1, 2)),
+                             trace=np.zeros((PERIODS, D_FLEET, 2)))
+    _s, m1, secs, launches, _mem = timed_rollout(
+        torch, E, base.with_mobility(one), dev)
+    same_rollout(torch, E, "rollout_mobility one cell vs plain", m1,
+                 plain["revised"])
+    launched += launches.get("reduced_pivot", 0)
+    emit("rollout_mobility", run="one_cell_infinite_radius", seconds=secs,
+         devices_per_s=D_FLEET * PERIODS / secs, bitwise_vs_plain=True)
+    grid = grid_mobility(D_FLEET, PERIODS)
+    plain_pivots = plain_launches["reduced_pivot"] / PERIODS
+    for routing in ("nearest", "min_time"):
+        p = base.with_mobility(grid, routing=routing)
+        check(p.n_cells == 16 and p.servers_per_cell == N_SERVERS // 16,
+              f"rollout_mobility: {p.n_cells} cells")
+        plain_walls = [wall_seconds(torch, E, base, dev)]
+        s, m, secs, launches, mem = timed_rollout(torch, E, p, dev)
+        walls = [secs, wall_seconds(torch, E, p, dev)]
+        plain_walls.append(wall_seconds(torch, E, base, dev))
+        launched += launches.get("reduced_pivot", 0)
+        check(launches.get("reduced_pivot", 0) > 0,
+              "rollout_mobility: reduced_pivot never launched")
+        check(int(m.n_unsolved.sum()) == 0, "rollout_mobility: unsolved")
+        check(int(m.n_handover.sum()) > 0 and int(m.n_handover[0]) == 0,
+              f"rollout_mobility: handovers {m.n_handover.tolist()}")
+        # again, admission recorded: bitwise the timed run, every
+        # period's admitted set the sequential oracle's
+        real_fn, recording, calls = admission_recorder(E)
+        E.admit_mask_segmented = recording
+        try:
+            s2, m2 = E.rollout(E.init_state(p, device=dev), p, PERIODS,
+                               device=dev)
+        finally:
+            E.admit_mask_segmented = real_fn
+        same_rollout(torch, E, f"rollout_mobility {routing} rerun", m, m2)
+        for f in ("cell", "pos", "p_es_belief", "warm_basis", "p_ed"):
+            check(torch.equal(getattr(s, f), getattr(s2, f)),
+                  f"rollout_mobility: {routing} rerun state {f} differs")
+        check(len(calls) == PERIODS, f"rollout_mobility: {len(calls)} "
+                                     f"admission calls")
+        for t, (demand, cell, T, S, k, admitted) in enumerate(calls):
+            want, _loads = admit_mask_cells_np(
+                demand.cpu().numpy(), cell.cpu().numpy(), T, S, k)
+            got = admitted.cpu().numpy()
+            check(np.array_equal(got, want),
+                  f"rollout_mobility: {routing} period {t}: "
+                  f"{int((got != want).sum())} devices admitted otherwise "
+                  f"than the sequential oracle")
+        busy = {}
+        if routing == "nearest":
+            device_s, n_launch, top = profiled(torch, lambda: E.rollout(
+                E.init_state(p, device=dev), p, PERIODS, device=dev))
+            busy = dict(device_seconds=device_s, launches_profiled=n_launch,
+                        busy_share=device_s / min(walls)
+                        if device_s else None, top=top)
+        card, cpu = scenario_pair(E, dev, mobility=grid_mobility(
+            D_CHECK, PERIODS), routing=routing)
+        mc, cpu_seconds = compare_card_cpu(
+            torch, E, f"rollout_mobility {routing}", card, cpu)
+        emit("rollout_mobility", run="grid16", routing=routing,
+             devices=D_FLEET, periods=PERIODS, seconds=walls,
+             devices_per_s=D_FLEET * PERIODS / min(walls),
+             plain_seconds=plain_walls,
+             wall_vs_plain=min(walls) / min(plain_walls),
+             peak_mem_bytes=mem,
+             launches_per_period={k: v / PERIODS
+                                  for k, v in launches.items()},
+             pivots_per_period=launches["reduced_pivot"] / PERIODS,
+             plain_pivots_per_period=plain_pivots, **busy,
+             n_handover=m.n_handover.tolist(),
+             n_outage=int(m.n_outage.sum()),
+             n_backpressured=int(m.n_backpressured.sum()),
+             n_backpressured_plain=int(
+                 plain["revised"].n_backpressured.sum()),
+             total_accuracy=float(m.total_accuracy.sum()),
+             total_accuracy_plain=float(
+                 plain["revised"].total_accuracy.sum()),
+             admission_periods_vs_oracle=len(calls),
+             card_vs_cpu_devices=D_CHECK, cpu_seconds=cpu_seconds,
+             n_handover_cpu=int(mc.n_handover.sum()))
+    # the walk: steps by distribution on the card's generator
+    walk = base.with_mobility(grid, mode="walk", mobility_seed=3)
+    state = E.init_state(walk, device=dev)
+    steps = E._positions(state, walk, 0) - state.pos
+    n = steps.numel()
+    mean, std = steps.mean().item(), steps.std().item()
+    check(abs(mean) <= 5 * WALK_SIGMA / np.sqrt(n)
+          and abs(std - WALK_SIGMA) <= 5 * WALK_SIGMA / np.sqrt(2 * n),
+          f"rollout_mobility: walk steps mean {mean} std {std}")
+    _s, mw = E.rollout(state, walk, 2, device=dev)
+    check(int(mw.n_unsolved.sum()) == 0, "rollout_mobility: walk unsolved")
+    emit("rollout_mobility", run="walk", step_mean=mean, step_std=std,
+         walk_sigma=WALK_SIGMA, n_steps=n, n_handover=mw.n_handover.tolist())
+    return {"reduced_pivot": launched}
 
 # --------------------------------------------------------------------------
 # phases 7 and 8: the LM forward and the serving runtime
@@ -2698,6 +3087,14 @@ def main() -> int:
     phase_rollout_dual(torch, dev, dual_params, amr2_metrics["tableau"])
     phase_rollout_poisson(torch, ops, dev, fleet)
     phase_serve_delegated(torch, dev, serve_seconds)
+    plain_launches = dict(launches)
+    chaos_launches, _plain_seconds = phase_rollout_chaos(
+        torch, dev, params, amr2_metrics)
+    mobility_launches = phase_rollout_mobility(
+        torch, dev, params, amr2_metrics, plain_launches)
+    for counted in (chaos_launches, mobility_launches):
+        for name, n in counted.items():
+            launches[name] += n
     del dual_params, amr2_metrics, fleet
     phase_lm_forward(torch, dev)
     phase_lm_forward_ssm(torch, dev)

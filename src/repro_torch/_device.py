@@ -3,6 +3,7 @@ from __future__ import annotations
 
 from typing import Union
 
+import numpy as np
 import torch
 
 DeviceLike = Union[str, torch.device, None]
@@ -33,3 +34,14 @@ def check_device(tag: str, tensors, device: torch.device) -> None:
                 f"{tag}.{name} lives on {t.device} but the call runs on "
                 f"{device}; build params and state with the same device=")
 
+
+def seeded_generator(seed: int, period: int, stream: int,
+                     device: torch.device) -> torch.Generator:
+    """A generator on ``device`` seeded from (seed, period, stream): the
+    port's counterpart of the reference's ``fold_in(PRNGKey(seed),
+    period)``.  Streams keep the draws of one period apart (arrival
+    counts 0, arrival classes 1, faults 2-4, the mobility walk 5)."""
+    g = torch.Generator(device=device)
+    g.manual_seed(int(np.random.SeedSequence(
+        [seed, period, stream]).generate_state(1, np.uint64)[0]))
+    return g

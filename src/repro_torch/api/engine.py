@@ -1,41 +1,54 @@
 """Fleet engine: `EngineParams`, `EngineState`, `step` and `rollout`.
 
-Port of the base path of `repro.api.engine` — ``policy="amr2"`` or
-``"dual"`` with no scenario armed, replayed or Poisson arrivals.  Each
-period:
+Port of `repro.api.engine` — ``policy="amr2"`` or ``"dual"``, replayed or
+Poisson arrivals, and the chaos and mobility scenarios.  Each period:
 
+  * moves and routes the devices when mobility is armed (replayed
+    positions or a random walk; `mobility.route_cells`), and cold-starts
+    and re-prices a device that changed cells (handover);
   * releases this period's arrivals (`_arrivals`): from the replayed
     trace, or drawn on the params' device (``arrivals="poisson"``);
-  * assembles the padded `FleetProblem` (outage periods price the ES at
-    the disabled sentinel; a lane whose outage flag flipped starts cold);
+  * assembles the padded `FleetProblem` (outage and uncovered devices
+    price the ES at the disabled sentinel; a lane whose outage flag
+    flipped starts cold; a routed device's ES times scale by its link
+    factor; the ES column is priced from the audited ES belief);
   * plans every device in one batched solve (`_plan`): under amr2
     `amr2.build_lp_arrays_torch` -> `lp.simplex_batch_core` (warm from last
     period's basis) -> `amr2.round_relaxation_torch`; under dual the
     bisection `dual.dual_one_batch`, which carries no basis;
   * recovers lanes whose LP did not finish with the greedy local fill
     (`_recover_unsolved`);
-  * admits offloads to the ES pool (`mobility.admit_mask_pool`);
+  * admits offloads to the ES pool (`mobility.admit_mask_pool`; per cell
+    with `mobility.admit_mask_segmented` when there are several);
   * replans the devices admission bumped, ES disabled, in a lane-masked
     cold solve;
-  * prices the plan, runs the EMA straggler audit and emits
-    `PeriodMetrics`.
+  * prices the plan; under chaos, replays it through the period's fault
+    realization and walks the degradation ladder
+    (`faults.realize_execution`), and EMA-inflates the ES belief of
+    devices whose realized ES time blew past the priced one;
+  * runs the EMA straggler audit and emits `PeriodMetrics`.
 
 The reference scans a jitted step with ``lax.scan``; here `rollout` is a
 Python loop over `step`, and the simplex phases inside read their loop
 condition on the host.  Everything is float64 (`_require_f64`): a float32
 simplex cycles until ``maxiter``.
 
-Poisson arrivals cannot redraw jax's threefry streams: each period's
-counts (`torch.poisson`) and job classes (`torch.multinomial`) come from
-generators on the params' device seeded from (seed, period), drawn for
-the whole fleet at once, so a device's draw depends only on the seed, the
-period and its index in the fleet.  They match the reference in
-distribution, not draw for draw.
+Random streams cannot redraw jax's threefry streams.  Poisson arrivals,
+faults and the mobility walk are drawn on the params' device from
+generators seeded by (seed, period) (`_device.seeded_generator`), for the
+whole fleet at once, so a device's draw depends only on the seed, the
+period and its index in the fleet; they match the reference in
+distribution, not draw for draw.  Parity runs replay: arrivals from the
+presampled trace, positions from ``mobility.trace``, and faults from
+``EngineParams.fault_trace`` — a port-only field holding a realization
+per period (period t reads entry t mod H), which `sample_realization`
+fills when it is None.
 
 Entry points run on the CUDA card unless given ``device="cpu"``; with no
 card and no device they raise.  Not ported yet (each raises
-`NotImplementedError` naming its ROADMAP item): the chaos / mobility / HI
-/ differentiable scenarios and the sharded entry points.
+`NotImplementedError` naming its ROADMAP item): online hierarchical
+inference, the differentiable rollout and the sharded entry points
+(``shard_by_cell`` among them).
 """
 from __future__ import annotations
 
@@ -45,20 +58,22 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from .._device import DeviceLike, check_device, resolve_device
+from .._device import (DeviceLike, check_device, resolve_device,
+                       seeded_generator as _generator)
 from ..core.amr2 import build_lp_arrays_torch, round_relaxation_torch
 from ..core.dual import dual_one_batch
-from ..core.faults import greedy_local_fill
+from ..core.faults import (FaultModel, FaultRealization, greedy_local_fill,
+                           realize_execution, sample_realization)
 from ..core.lp import _bucket_maxiter, simplex_batch_core
-from ..core.mobility import admit_mask_pool
-from ..core.problem import ES_DISABLED_SENTINEL, ST_UNSOLVED, FleetProblem
+from ..core.mobility import (MobilityModel, admit_mask_pool,
+                             admit_mask_segmented, route_cells,
+                             validate_mobility)
+from ..core.problem import (ES_DISABLED_SENTINEL, ST_UNSOLVED, FleetProblem,
+                            slot_sum as _slot_sum)
 
 TRACEABLE_POLICIES = ("amr2", "dual")
 
 _ROADMAP = {
-    "chaos": "the chaos scenario is not ported yet (ROADMAP §1 item 9)",
-    "mobility": "the mobility scenario is not ported yet (ROADMAP §1 "
-                "item 9)",
     "hi": "online hierarchical inference is not ported yet (ROADMAP §1 "
           "item 9)",
     "differentiable": "the differentiable rollout is not ported yet "
@@ -83,7 +98,15 @@ class EngineParams:
     (`RequestQueue.presample`) the replay mode releases from; ``rate``
     and ``class_probs`` are what the Poisson mode draws from.  The
     reference's ``classes`` leaf (class labels, for reference only) is
-    not carried."""
+    not carried.
+
+    Scenarios: ``faults`` is read only while ``chaos`` is set
+    (`with_faults`), ``mobility`` (float64 tensors on the params' device)
+    only while ``mobility_mode`` is not "off" (`with_mobility`).
+    ``fault_trace`` is port-only: a `FaultRealization` with a leading
+    period axis on every field that replaces the per-period draw (period
+    t reads entry t mod H; parity runs fill it with the reference's
+    draws)."""
 
     base_p_ed: torch.Tensor    # (D, c, m) ground-truth ED latencies
     p_es: torch.Tensor         # (D, c) ES latencies (comm incl.)
@@ -95,6 +118,10 @@ class EngineParams:
     outage: torch.Tensor       # (D, H) bool, ES link down
     counts: torch.Tensor       # (Hc, D) int32 replayed arrival counts
     stream: torch.Tensor       # (D, S) int32 replayed class indices
+    faults: FaultModel = dataclasses.field(default_factory=FaultModel.none)
+    mobility: MobilityModel = dataclasses.field(
+        default_factory=MobilityModel.none)
+    fault_trace: Optional[FaultRealization] = None
     policy: str = "amr2"
     arrivals: str = "replay"
     n_servers: int = 1
@@ -106,6 +133,19 @@ class EngineParams:
     maxiter: Optional[int] = None
     tol: float = 1e-7
     lp_method: str = "tableau"
+    # chaos: ``chaos`` arms the realized-execution pass, ``max_retries``
+    # bounds the ladder's unrolled retry rounds, ``fault_seed`` seeds the
+    # fault draws (independent of the arrivals)
+    chaos: bool = False
+    max_retries: int = 2
+    fault_seed: int = 0
+    # mobility: "off", "replay" (``mobility.trace``) or "walk" (steps from
+    # ``mobility_seed``); ``n_cells`` splits the ``n_servers`` pool evenly;
+    # ``routing`` "nearest" or "min_time"
+    mobility_mode: str = "off"
+    routing: str = "nearest"
+    n_cells: int = 1
+    mobility_seed: int = 0
 
     @property
     def device(self) -> torch.device:
@@ -120,6 +160,11 @@ class EngineParams:
         """Simplex rows R = batch_max + 2 (warm-basis width)."""
         return self.batch_max + 2
 
+    @property
+    def servers_per_cell(self) -> int:
+        """ES servers fronted by each cell (the whole pool when S = 1)."""
+        return self.n_servers // max(self.n_cells, 1)
+
     @classmethod
     def from_fleet(cls, devices, queue, *, T: float, n_servers: int = 1,
                    policy: str = "amr2", horizon: int = 64,
@@ -127,25 +172,35 @@ class EngineParams:
                    straggler_threshold: float = 1.5, ema: float = 0.5,
                    frac_tol: float = 1e-4, iters: int = 40,
                    maxiter: Optional[int] = None, tol: float = 1e-7,
-                   lp_method: str = "tableau", faults=None, mobility=None,
+                   lp_method: str = "tableau",
+                   faults: Optional[FaultModel] = None,
+                   max_retries: int = 2, fault_seed: int = 0,
+                   fault_trace: Optional[FaultRealization] = None,
+                   mobility: Optional[MobilityModel] = None,
+                   mobility_mode: str = "replay", routing: str = "nearest",
+                   mobility_seed: int = 0,
                    device: DeviceLike = None) -> "EngineParams":
         """Build params from `DeviceSpec`s and a `RequestQueue` (one shape
         group: every profile shares a class table and model count).
         ``device`` defaults to the CUDA card.  Only the replay mode
-        presamples the queue's trace (``horizon`` periods)."""
+        presamples the queue's trace (``horizon`` periods).  A non-null
+        ``faults`` arms chaos; a ``mobility`` model arms mobility in
+        ``mobility_mode``; ``fault_trace`` (port-only) replays faults."""
         dev = resolve_device(device)
         if policy == "auto":
             policy = "amr2"
         _validate_config(policy=policy, arrivals=arrivals,
                          lp_method=lp_method)
-        if faults is not None:
-            raise _not_ported("chaos")
-        if mobility is not None:
-            raise _not_ported("mobility")
         if horizon <= 0:
             raise ValueError("horizon must be positive")
+        if max_retries < 0:
+            raise ValueError("max_retries must be >= 0")
         if queue.n_devices != len(devices):
             raise ValueError("queue.n_devices must match the fleet size")
+        mob = mobility if mobility is not None else MobilityModel.none()
+        mob_mode = mobility_mode if mobility is not None else "off"
+        validate_mobility(mob, n_devices=len(devices), n_servers=n_servers,
+                          mode=mob_mode, routing=routing)
         qcls = np.asarray(queue.classes)
         key0 = None
         for d, spec in enumerate(devices):
@@ -186,12 +241,17 @@ class EngineParams:
             outage=np.array([[d.outage_at(t) for t in range(horizon)]
                              for d in devices]),
             counts=counts, stream=stream)
+        fm = faults if faults is not None else FaultModel.none()
         return params_from_arrays(
             arrays, dev, policy=policy, arrivals=arrivals,
             n_servers=n_servers, batch_max=queue.batch_max,
             straggler_threshold=straggler_threshold, ema=ema,
             frac_tol=frac_tol, iters=iters, maxiter=maxiter, tol=tol,
-            lp_method=lp_method)
+            lp_method=lp_method, faults=fm, chaos=not fm.is_null(),
+            max_retries=max_retries, fault_seed=fault_seed,
+            fault_trace=fault_trace, mobility=mob, mobility_mode=mob_mode,
+            routing=routing, n_cells=mob.n_cells if mob_mode != "off" else 1,
+            mobility_seed=mobility_seed)
 
     @classmethod
     def from_config(cls, config, *, horizon: Optional[int] = None,
@@ -201,8 +261,8 @@ class EngineParams:
         """Build params from a `serving.FleetConfig` (the engine's twin of
         `FleetEngine.from_config`).  The replayed trace covers ``horizon``
         periods (default: the config's ``horizon``); ``lp_method``
-        defaults to the config's.  The config's chaos, mobility and HI
-        fields pass through the guards that raise while they are armed."""
+        defaults to the config's.  The config's chaos and mobility fields
+        arm those scenarios; an armed HI model raises (not ported)."""
         horizon = horizon if horizon is not None else config.horizon
         return cls.from_fleet(
             config.build_devices(), config.build_queue(), T=config.T,
@@ -213,8 +273,57 @@ class EngineParams:
             lp_method=(lp_method if lp_method is not None
                        else getattr(config, "lp_method", "tableau")),
             faults=getattr(config, "faults", None),
+            max_retries=getattr(config, "max_retries", 2),
+            fault_seed=getattr(config, "fault_seed", 0),
+            fault_trace=getattr(config, "fault_trace", None),
             mobility=getattr(config, "mobility", None),
+            mobility_mode=getattr(config, "mobility_mode", "replay"),
+            routing=getattr(config, "routing", "nearest"),
+            mobility_seed=getattr(config, "mobility_seed", 0),
             device=device).with_hi(getattr(config, "hi", None))
+
+    def with_faults(self, faults: Optional[FaultModel], *,
+                    max_retries: Optional[int] = None,
+                    fault_seed: Optional[int] = None,
+                    fault_trace: Optional[FaultRealization] = None
+                    ) -> "EngineParams":
+        """Arm (or disarm, with ``None`` / `FaultModel.none()`) chaos,
+        keeping the ``chaos`` flag consistent with the model's nullness.
+        ``fault_trace`` (port-only) replays those realizations instead of
+        drawing; ``None`` draws."""
+        fm = faults if faults is not None else FaultModel.none()
+        retries = self.max_retries if max_retries is None else max_retries
+        if retries < 0:
+            raise ValueError("max_retries must be >= 0")
+        return dataclasses.replace(
+            self, faults=fm, chaos=not fm.is_null(), max_retries=retries,
+            fault_seed=(self.fault_seed if fault_seed is None
+                        else fault_seed),
+            fault_trace=_fault_trace_on(fault_trace, self.device,
+                                        self.n_devices, self.batch_max,
+                                        retries + 1))
+
+    def with_mobility(self, mobility: Optional[MobilityModel], *,
+                      mode: str = "replay", routing: str = "nearest",
+                      mobility_seed: Optional[int] = None,
+                      shard_by_cell: bool = False) -> "EngineParams":
+        """Arm (or disarm, with ``None``) mobility.  Validates the geometry
+        (`mobility.validate_mobility`) and keeps ``mobility_mode`` and
+        ``n_cells`` consistent with the model.  ``shard_by_cell`` belongs
+        to the sharded engine and raises."""
+        if shard_by_cell:
+            raise _not_ported("sharded")
+        mob = mobility if mobility is not None else MobilityModel.none()
+        mob_mode = mode if mobility is not None else "off"
+        validate_mobility(mob, n_devices=self.n_devices,
+                          n_servers=self.n_servers, mode=mob_mode,
+                          routing=routing)
+        return dataclasses.replace(
+            self, mobility=mob.to(self.device), mobility_mode=mob_mode,
+            routing=routing,
+            n_cells=mob.n_cells if mob_mode != "off" else 1,
+            mobility_seed=(self.mobility_seed if mobility_seed is None
+                           else mobility_seed))
 
     def with_hi(self, hi, **_kw) -> "EngineParams":
         """Online hierarchical inference: only disarming (``None``) is
@@ -230,14 +339,27 @@ class EngineParams:
             return self
         raise _not_ported("differentiable")
 
+    def to(self, device: DeviceLike) -> "EngineParams":
+        """These params with every tensor on ``device``."""
+        dev = torch.device(device)
+        trace = self.fault_trace
+        return dataclasses.replace(
+            self, **{f: getattr(self, f).to(dev) for f in PARAM_ARRAYS},
+            mobility=self.mobility.to(dev),
+            fault_trace=(None if trace is None else FaultRealization(
+                *(x.to(dev) for x in trace))))
+
 
 # dtypes of the EngineParams tensors; everything else is float64
 _PARAM_DTYPES = {"outage": torch.bool, "counts": torch.int32,
                  "stream": torch.int32}
 PARAM_ARRAYS = tuple(f.name for f in dataclasses.fields(EngineParams)
                      if f.type == "torch.Tensor")
+# the scenario models: objects of their own, carried by `params_from_arrays`
+PARAM_SCENARIOS = ("faults", "mobility", "fault_trace")
 PARAM_CONFIG = tuple(f.name for f in dataclasses.fields(EngineParams)
-                     if f.type != "torch.Tensor")
+                     if f.type != "torch.Tensor"
+                     and f.name not in PARAM_SCENARIOS)
 
 
 def _validate_config(*, policy: str, arrivals: str, lp_method: str) -> None:
@@ -252,10 +374,41 @@ def _validate_config(*, policy: str, arrivals: str, lp_method: str) -> None:
                          f"'tableau' or 'revised'")
 
 
-def params_from_arrays(arrays: Dict[str, object], device: torch.device,
-                       **config) -> EngineParams:
+def _fault_trace_on(trace, device: torch.device, n_devices: int,
+                    n_jobs: int, n_attempts: int
+                    ) -> Optional[FaultRealization]:
+    """A replayed fault trace (fields of arrays or tensors with a leading
+    period axis) as tensors on ``device``, its shapes checked against the
+    fleet (``n_attempts`` = max_retries + 1)."""
+    if trace is None:
+        return None
+    es_crash, link, strag, lost = (torch.as_tensor(
+        np.asarray(x) if not isinstance(x, torch.Tensor) else x,
+        device=device) for x in trace)
+    H = es_crash.shape[0] if es_crash.dim() else 0
+    want = {"es_crash": (H,), "link_factor": (H, n_devices),
+            "straggler_factor": (H, n_devices),
+            "lost": (H, n_devices, n_jobs, n_attempts)}
+    got = dict(zip(want, (es_crash, link, strag, lost)))
+    for name, shape in want.items():
+        if H == 0 or tuple(got[name].shape) != shape:
+            raise ValueError(
+                f"fault_trace.{name} must be {shape} (periods, devices, "
+                f"jobs, max_retries + 1); got {tuple(got[name].shape)}")
+    return FaultRealization(es_crash=es_crash.to(torch.bool),
+                            link_factor=link.to(torch.float64),
+                            straggler_factor=strag.to(torch.float64),
+                            lost=lost.to(torch.bool))
+
+
+def params_from_arrays(arrays: Dict[str, object], device: torch.device, *,
+                       faults: Optional[FaultModel] = None,
+                       mobility: Optional[MobilityModel] = None,
+                       fault_trace=None, **config) -> EngineParams:
     """`EngineParams` from NumPy arrays/scalars named like its tensor
-    fields (`PARAM_ARRAYS`) plus config keywords (`PARAM_CONFIG`)."""
+    fields (`PARAM_ARRAYS`), config keywords (`PARAM_CONFIG`, the
+    ``chaos`` and ``mobility_mode`` flags taken as given) and the scenario
+    models, carried to ``device``."""
     missing = set(PARAM_ARRAYS) - set(arrays)
     if missing:
         raise ValueError(f"missing param arrays {sorted(missing)}")
@@ -267,7 +420,15 @@ def params_from_arrays(arrays: Dict[str, object], device: torch.device,
                            dtype=_PARAM_DTYPES.get(name, torch.float64),
                            device=device)
         for name in PARAM_ARRAYS}
-    return EngineParams(**tensors, **config)
+    D = tensors["base_p_ed"].shape[0]
+    trace = _fault_trace_on(fault_trace, device, D,
+                            config.get("batch_max", 12),
+                            config.get("max_retries", 2) + 1)
+    mob = mobility if mobility is not None else MobilityModel.none()
+    return EngineParams(**tensors, faults=faults if faults is not None
+                        else FaultModel.none(),
+                        mobility=mob.to(device), fault_trace=trace,
+                        **config)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -276,8 +437,8 @@ class EngineState:
 
     ``seed`` takes the place of the reference's PRNG key: Poisson
     arrivals draw each period from generators seeded by (seed, period).
-    The reference's positions and serving cells (mobility) and HI learner
-    state belong to parts not ported yet and are not carried."""
+    The reference's HI learner state belongs to a part not ported yet and
+    is not carried."""
 
     period: torch.Tensor       # () int32
     p_ed: torch.Tensor         # (D, c, m) belief latencies (audit state)
@@ -285,15 +446,18 @@ class EngineState:
     head: torch.Tensor         # (D,) int32 replay-stream cursors
     warm_basis: torch.Tensor   # (D, R) int32 previous optimal bases (-1 cold)
     n_updates: torch.Tensor    # (D,) int32 straggler-audit update counts
-    cell_load: torch.Tensor    # (1,) last period's admitted ES load
-    p_es_belief: torch.Tensor  # (D, c) priced ES latencies
+    pos: torch.Tensor          # (D, 2) device positions (mobility)
+    cell: torch.Tensor         # (D,) int32 serving cell (-1: uncovered)
+    cell_load: torch.Tensor    # (S,) last period's admitted load per cell
+    p_es_belief: torch.Tensor  # (D, c) priced ES latencies (chaos audit)
     seed: torch.Tensor         # () int64 Poisson arrival seed
 
 
 STATE_FIELDS = tuple(f.name for f in dataclasses.fields(EngineState))
 _STATE_DTYPES = {"period": torch.int32, "pending": torch.int32,
                  "head": torch.int32, "warm_basis": torch.int32,
-                 "n_updates": torch.int32, "seed": torch.int64}
+                 "n_updates": torch.int32, "cell": torch.int32,
+                 "seed": torch.int64}
 
 
 def state_from_arrays(arrays: Dict[str, object],
@@ -312,10 +476,12 @@ def state_from_arrays(arrays: Dict[str, object],
 @dataclasses.dataclass(frozen=True)
 class PeriodMetrics:
     """One period's fleet-level numbers (0-d tensors; `rollout` stacks them
-    into (periods,) tensors).  Every field of the reference is kept; the
-    ones that belong to unported scenarios hold the values the reference
-    gives with nothing armed (ladder counters 0, ``n_offload_ok ==
-    n_offload_samples``, ``realized_makespan`` = the priced makespan)."""
+    into (periods,) tensors).  Every field of the reference is kept.
+    With chaos off the ladder counters are 0, ``n_offload_ok ==
+    n_offload_samples`` and ``realized_makespan`` is the priced makespan;
+    under chaos ``n_offload_samples == n_offload_ok + n_fallback_local +
+    n_dropped`` every period.  ``n_handover`` counts the devices that
+    changed cells.  The HI fields (not ported) hold their disarmed 0."""
 
     period: torch.Tensor
     n_jobs: torch.Tensor
@@ -349,13 +515,16 @@ METRIC_FIELDS = tuple(f.name for f in dataclasses.fields(PeriodMetrics))
 
 def init_state(params: EngineParams, *, seed: int = 0,
                device: DeviceLike = None) -> EngineState:
-    """A fresh fleet: beliefs = profiles, empty backlog, cold bases.
+    """A fresh fleet: beliefs = profiles, empty backlog, cold bases; with
+    mobility armed, the trace's first positions and no serving cell yet.
     ``seed`` (>= 0) seeds Poisson arrivals and is unused by replay."""
     if seed < 0:
         raise ValueError("seed must be >= 0")
     dev = _entry_device(params, None, device)
     D = params.n_devices
     i32 = dict(dtype=torch.int32, device=dev)
+    f64 = dict(dtype=torch.float64, device=dev)
+    armed = params.mobility_mode != "off"
     return EngineState(
         period=torch.zeros((), **i32),
         p_ed=params.base_p_ed.clone(),
@@ -363,7 +532,10 @@ def init_state(params: EngineParams, *, seed: int = 0,
         head=torch.zeros(D, **i32),
         warm_basis=torch.full((D, params.n_basis_rows), -1, **i32),
         n_updates=torch.zeros(D, **i32),
-        cell_load=torch.zeros(1, dtype=torch.float64, device=dev),
+        pos=(params.mobility.trace[0].clone() if armed
+             else torch.zeros((D, 2), **f64)),
+        cell=torch.full((D,), -1 if armed else 0, **i32),
+        cell_load=torch.zeros(max(params.n_cells, 1), **f64),
         p_es_belief=params.p_es.clone(),
         seed=torch.tensor(seed, dtype=torch.int64, device=dev))
 
@@ -416,27 +588,6 @@ def _recover_unsolved(assign, unsolved, p_ed_jobs, mask, acc, T):
     return torch.where(eligible, local, assign).to(torch.int32)
 
 
-def _generator(seed: int, period: int, stream: int,
-               device: torch.device) -> torch.Generator:
-    """A generator on ``device`` seeded from (seed, period, stream)."""
-    g = torch.Generator(device=device)
-    g.manual_seed(int(np.random.SeedSequence(
-        [seed, period, stream]).generate_state(1, np.uint64)[0]))
-    return g
-
-
-def _slot_sum(x):
-    """Sum (D, n) over the job slots in slot order.  `torch.sum`
-    associates differently on the CPU and the card, and devices whose ES
-    demands tie in exact arithmetic (the same jobs in other slots) would
-    then be admitted in another order; the same additions in the same
-    order agree bit for bit."""
-    out = x[:, 0]
-    for k in range(1, x.shape[1]):
-        out = out + x[:, k]
-    return out
-
-
 def _arrivals(state: EngineState, params: EngineParams, t: int):
     """Release this period's jobs: ``(ci (D, n) int32 class indices,
     take (D,) int32, pending', head')``.  Replay reads the trace; Poisson
@@ -467,15 +618,37 @@ def _arrivals(state: EngineState, params: EngineParams, t: int):
     return ci, take, (avail - take).to(torch.int32), head
 
 
+def _realization(params: EngineParams, t: int) -> FaultRealization:
+    """Period ``t``'s fault realization: entry t mod H of the replayed
+    ``fault_trace``, or drawn for (fault_seed, t) on the params' device."""
+    trace = params.fault_trace
+    if trace is not None:
+        h = t % trace.es_crash.shape[0]
+        return FaultRealization(*(x[h] for x in trace))
+    return sample_realization((params.fault_seed, t), params.faults,
+                              params.n_devices, params.batch_max,
+                              params.max_retries + 1, device=params.device)
+
+
 def _period(belief_p_ed, warm_basis, ci, take, drift_t, outage_t,
-            es_tbl, params: EngineParams):
+            es_tbl, params: EngineParams, *, real=None, link_factor=None,
+            covered=None, cell=None):
     """Everything after arrivals and before the state bookkeeping (the
-    base branch of the reference's `_period_impl`), shared by `step` and
-    the host `FleetEngine`'s delegation.  Returns ``(new_belief,
-    new_warm_basis, upd (D,) bool, factor (D,), cell_load (1,), metrics
-    dict)``; ``factor`` is the EMA rescale each updated device's belief
-    was multiplied by (the delegation applies it to its profile tables).
-    Only amr2 carries a basis forward; dual hands ``warm_basis`` back."""
+    reference's `_period_impl`), shared by `step` and the host
+    `FleetEngine`'s delegation.
+
+    ``es_tbl`` (D, c) is the priced ES table (the audited belief; realized
+    execution prices from the true ``params.p_es``).  ``real`` is the
+    period's `FaultRealization`, read only under ``params.chaos``.
+    Mobility: ``link_factor`` (D,) scales each device's ES times,
+    ``covered`` (D,) False disables a device's ES column like an outage,
+    ``cell`` (D,) routes admission per cell when ``n_cells`` > 1.
+
+    Returns ``(new_belief, new_warm_basis, upd (D,) bool, factor (D,),
+    new_es_belief (D, c), cell_load (S,), metrics dict)``; ``factor`` is
+    the EMA rescale each updated device's belief was multiplied by (the
+    delegation applies it to its profile tables).  Only amr2 carries a
+    basis forward; dual hands ``warm_basis`` back."""
     D, _c, m = belief_p_ed.shape
     n = params.batch_max
     dev = belief_p_ed.device
@@ -485,9 +658,16 @@ def _period(belief_p_ed, warm_basis, ci, take, drift_t, outage_t,
     ci = ci.clamp(0, params.p_es.shape[1] - 1)
     p_ed_jobs = torch.where(mask[..., None], belief_p_ed[rows, ci], 0.0)
     base_jobs = torch.where(mask[..., None], params.base_p_ed[rows, ci], 0.0)
-    p_es_jobs = torch.where(mask, es_tbl[rows, ci], 0.0)
-    p_es_jobs = torch.where(outage_t[:, None] & mask, ES_DISABLED_SENTINEL,
-                            p_es_jobs)
+    if covered is not None:
+        outage_t = outage_t | ~covered      # out of coverage: ES link down
+
+    def _es_jobs(tbl):
+        e = torch.where(mask, tbl[rows, ci], 0.0)
+        if link_factor is not None:
+            e = e * link_factor[:, None]
+        return torch.where(outage_t[:, None] & mask, ES_DISABLED_SENTINEL, e)
+
+    p_es_jobs = _es_jobs(es_tbl)
     Tvec = params.T.expand(D)
     fp = FleetProblem.from_arrays_unchecked(p_ed_jobs, p_es_jobs,
                                             params.acc, Tvec, mask)
@@ -499,10 +679,18 @@ def _period(belief_p_ed, warm_basis, ci, take, drift_t, outage_t,
     assign = _recover_unsolved(assign, unsolved_lane, p_ed_jobs, mask,
                                params.acc, params.T)
 
-    # ---- ES-pool admission ---------------------------------------------
+    # ---- ES-pool admission: one pool, or per cell ----------------------
     demand = _slot_sum(torch.where(mask & (assign == m), p_es_jobs, 0.0))
-    admitted, loads, _inc = admit_mask_pool(demand, params.T,
-                                            params.n_servers)
+    if params.mobility_mode != "off" and params.n_cells > 1:
+        admitted, cloads = admit_mask_segmented(
+            demand, cell, params.T, params.n_cells, params.servers_per_cell)
+        cell_load = _slot_sum(cloads)       # (S,), servers in order
+        loads_total = _slot_sum(cell_load[None])[0]
+    else:
+        admitted, loads, _inc = admit_mask_pool(demand, params.T,
+                                                params.n_servers)
+        loads_total = loads.sum()
+        cell_load = loads_total[None]
     offl = demand > 0
     bumped = offl & ~admitted
 
@@ -522,7 +710,7 @@ def _period(belief_p_ed, warm_basis, ci, take, drift_t, outage_t,
         assign = torch.where(bumped[:, None], assign_bp, assign)
         n_unsolved = n_unsolved + unsolved_bp.to(torch.int32)
 
-    # ---- pricing, violations, straggler audit ---------------------------
+    # ---- pricing --------------------------------------------------------
     acc_jobs = params.acc[rows, assign]
     i32 = torch.int32
     n_jobs = mask.sum().to(i32)
@@ -534,19 +722,63 @@ def _period(belief_p_ed, warm_basis, ci, take, drift_t, outage_t,
                           0.0).sum(dim=1) * drift_t
     es_wall = torch.where(admitted, demand, 0.0)
     es_samp = mask & (assign == m)          # admitted offloads (post-replan)
-    total_acc = torch.where(mask, acc_jobs, 0.0).sum()
-    wall = torch.maximum(ed_wall, es_wall)
+
+    # ---- realized execution (chaos): inject faults, walk the ladder -----
+    # under a null model every factor is 1.0 and every mask empty, so the
+    # realized quantities equal the priced ones bit for bit
+    zero_i = torch.zeros((), dtype=i32, device=dev)
+    thr = params.straggler_threshold
+    if params.chaos:
+        lat_local = base_jobs * (drift_t * real.straggler_factor
+                                 )[:, None, None]
+        rx = realize_execution(
+            params.faults, real, mask=mask, es_samp=es_samp,
+            acc_jobs=acc_jobs, p_es_jobs=_es_jobs(params.p_es),
+            ed_wall=ed_wall, lat_local=lat_local, acc=params.acc,
+            T=params.T, max_retries=params.max_retries)
+        total_acc = torch.where(mask, rx.acc, 0.0).sum()
+        wall = rx.wall
+        ed_audit = rx.ed_audit     # excl. fallback: the audit tracks the
+        #                            per-op slowdown, not the load
+        # chaos -> planner feedback: a device whose realized ES time blew
+        # past its priced demand (or that dropped offloads) has its ES
+        # belief EMA-inflated
+        es_ratio = rx.es_wall / torch.clamp_min(es_wall, 1e-9)
+        es_upd = (es_wall > 0) & ((es_ratio > thr) | (rx.n_dropped > 0))
+        es_factor = (1.0 - params.ema) + params.ema * torch.clamp_min(
+            es_ratio, thr)
+        new_es_belief = torch.where(es_upd[:, None],
+                                    es_tbl * es_factor[:, None], es_tbl)
+        ladder = {
+            "n_offload_samples": rx.n_offload.sum().to(i32),
+            "n_offload_ok": rx.n_offload_ok.sum().to(i32),
+            "n_deadline_miss": rx.n_deadline_miss.sum().to(i32),
+            "n_retries": rx.n_retries.sum().to(i32),
+            "n_fallback_local": rx.n_fallback_local.sum().to(i32),
+            "n_dropped": rx.n_dropped.sum().to(i32),
+            "n_es_audit_updates": es_upd.sum().to(i32),
+        }
+    else:
+        total_acc = torch.where(mask, acc_jobs, 0.0).sum()
+        wall = torch.maximum(ed_wall, es_wall)
+        ed_audit = ed_wall
+        new_es_belief = es_tbl
+        n_off = es_samp.sum().to(i32)
+        ladder = {
+            "n_offload_samples": n_off, "n_offload_ok": n_off,
+            "n_deadline_miss": zero_i, "n_retries": zero_i,
+            "n_fallback_local": zero_i, "n_dropped": zero_i,
+            "n_es_audit_updates": zero_i,
+        }
     viol = torch.clamp_min(wall / params.T - 1.0, 0.0)
 
-    ratio = ed_wall / torch.clamp_min(ed_pred, 1e-9)
-    upd = (ed_pred > 0) & (ratio > params.straggler_threshold)
+    # ---- EMA straggler audit --------------------------------------------
+    ratio = ed_audit / torch.clamp_min(ed_pred, 1e-9)
+    upd = (ed_pred > 0) & (ratio > thr)
     factor = (1.0 - params.ema) + params.ema * ratio
     new_belief = torch.where(upd[:, None, None],
                              belief_p_ed * factor[:, None, None],
                              belief_p_ed)
-
-    n_off = es_samp.sum().to(i32)
-    zero_i = torch.zeros((), dtype=i32, device=dev)
 
     metrics = {
         "n_jobs": n_jobs,
@@ -558,72 +790,115 @@ def _period(belief_p_ed, warm_basis, ci, take, drift_t, outage_t,
         "n_outage": outage_t.sum().to(i32),
         "n_straggler_updates": upd.sum().to(i32),
         "n_unsolved": n_unsolved.sum().to(i32),
-        "es_utilization": loads.sum() / (params.n_servers * params.T),
+        "es_utilization": loads_total / (params.n_servers * params.T),
         "realized_makespan": torch.clamp_min(wall.amax(), 0.0),
-        "n_offload_samples": n_off, "n_offload_ok": n_off,
-        "n_deadline_miss": zero_i, "n_retries": zero_i,
-        "n_fallback_local": zero_i, "n_dropped": zero_i,
-        "n_es_audit_updates": zero_i,
+        **ladder,
         "n_hi_offloaded": zero_i, "n_hi_local_final": zero_i,
         "hi_regret": torch.zeros((), dtype=f64, device=dev),
     }
     new_warm = basis if params.policy == "amr2" else warm_basis
-    return new_belief, new_warm, upd, factor, loads.sum()[None], metrics
+    return (new_belief, new_warm, upd, factor, new_es_belief, cell_load,
+            metrics)
+
+
+def _positions(state: EngineState, params: EngineParams, t: int):
+    """Period ``t``'s device positions: the replayed trace (cycled), or
+    under the walk the last positions plus ``walk_sigma`` x normal steps
+    drawn for (mobility_seed, t) on the params' device."""
+    mob = params.mobility
+    if params.mobility_mode == "replay":
+        return mob.trace[t % mob.trace.shape[0]]
+    steps = torch.randn((params.n_devices, 2), generator=_generator(
+        params.mobility_seed, t, 5, params.device), dtype=torch.float64,
+        device=params.device)
+    return state.pos + mob.walk_sigma * steps
 
 
 def _step(state: EngineState, params: EngineParams
           ) -> Tuple[EngineState, PeriodMetrics]:
-    """One period: arrivals, `_period`, state and metric assembly."""
+    """One period: mobility, arrivals, `_period`, state and metric
+    assembly."""
     t = int(state.period)
+    dev = params.device
+    D = params.n_devices
     H = params.drift.shape[1]
     drift_t = params.drift[:, t % H]
     outage_t = params.outage[:, t % H]
     # a basis optimal for last period's LP is meaningless when the ES
     # column set changed underneath it (outage flipped on/off): cold-start
     # those lanes
-    if t > 0:
-        stale = params.outage[:, (t - 1) % H] != outage_t
-        warm0 = torch.where(stale[:, None], -1, state.warm_basis)
-    else:
-        warm0 = state.warm_basis
+    stale = (params.outage[:, (t - 1) % H] != outage_t if t > 0
+             else torch.zeros(D, dtype=torch.bool, device=dev))
+    # ---- mobility: move, route, detect handover -------------------------
+    link_factor = covered = None
+    es_belief0 = state.p_es_belief
+    pos_t, cell_t = state.pos, state.cell
+    n_handover = torch.zeros((), dtype=torch.int32, device=dev)
+    if params.mobility_mode != "off":
+        mob = params.mobility
+        pos_t = _positions(state, params, t)
+        load_frac = state.cell_load / (params.servers_per_cell * params.T)
+        cell_t, covered, link_factor = route_cells(pos_t, mob, load_frac,
+                                                   params.routing)
+        # handover: the old cell's basis labels an LP whose ES column was
+        # priced for another link — cold-start it, and reset the ES belief
+        # to the nominal table
+        if t > 0:
+            switched = cell_t != state.cell
+            stale = stale | switched
+            es_belief0 = torch.where(switched[:, None], params.p_es,
+                                     state.p_es_belief)
+            n_handover = switched.sum().to(torch.int32)
+    warm0 = torch.where(stale[:, None], -1, state.warm_basis)
     ci, take, pending, head = _arrivals(state, params, t)
-    new_belief, new_warm, upd, _factor, cell_load, m = _period(
-        state.p_ed, warm0, ci, take, drift_t, outage_t, state.p_es_belief,
-        params)
+    real = _realization(params, t) if params.chaos else None
+    new_belief, new_warm, upd, _factor, new_es_belief, cell_load, m = \
+        _period(state.p_ed, warm0, ci, take, drift_t, outage_t, es_belief0,
+                params, real=real, link_factor=link_factor,
+                covered=covered, cell=cell_t)
     n_jobs = m["n_jobs"]
     metrics = PeriodMetrics(
         period=state.period.clone(),
         mean_job_accuracy=torch.where(
             n_jobs > 0, m["total_accuracy"] / torch.clamp_min(n_jobs, 1),
             0.0),
-        backlog=pending.sum().to(torch.int32),
-        n_handover=torch.zeros((), dtype=torch.int32, device=params.device),
-        **m)
+        backlog=pending.sum().to(torch.int32), n_handover=n_handover, **m)
     new_state = EngineState(
         period=state.period + 1, p_ed=new_belief, pending=pending,
         head=head, warm_basis=new_warm.to(torch.int32),
         n_updates=(state.n_updates + upd.to(torch.int32)),
-        cell_load=cell_load, p_es_belief=state.p_es_belief,
-        seed=state.seed)
+        pos=pos_t, cell=cell_t.to(torch.int32), cell_load=cell_load,
+        p_es_belief=new_es_belief, seed=state.seed)
     return new_state, metrics
 
 
 # --------------------------------------------------------------------------
 # entry points
 # --------------------------------------------------------------------------
+def _leaves(obj, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """Every tensor of a params/state value by dotted name, those of its
+    scenario models (dataclasses, named tuples) included."""
+    if isinstance(obj, tuple):
+        items = obj._asdict().items()
+    else:
+        items = ((f.name, getattr(obj, f.name))
+                 for f in dataclasses.fields(obj))
+    out = {}
+    for name, leaf in items:
+        if isinstance(leaf, torch.Tensor):
+            out[prefix + name] = leaf
+        elif dataclasses.is_dataclass(leaf) or hasattr(leaf, "_asdict"):
+            out.update(_leaves(leaf, f"{prefix}{name}."))
+    return out
+
+
 def _require_f64(tag: str, obj) -> None:
     """Reject floating tensors that are not float64 instead of computing
     with them: the engine is float64 end to end (the LP parity contract)."""
-    for f in dataclasses.fields(obj):
-        leaf = getattr(obj, f.name)
-        if (isinstance(leaf, torch.Tensor) and leaf.is_floating_point()
-                and leaf.dtype != torch.float64):
-            raise TypeError(f"{tag}.{f.name} is {leaf.dtype} but the engine "
+    for name, leaf in _leaves(obj).items():
+        if leaf.is_floating_point() and leaf.dtype != torch.float64:
+            raise TypeError(f"{tag}.{name} is {leaf.dtype} but the engine "
                             f"is float64-only; build tensors as float64")
-
-
-def _tensors(obj) -> Dict[str, torch.Tensor]:
-    return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
 
 
 def _entry_device(params: EngineParams, state: Optional[EngineState],
@@ -631,9 +906,9 @@ def _entry_device(params: EngineParams, state: Optional[EngineState],
     """Resolve the call's device (CUDA unless named) and check that params
     and state live there."""
     dev = resolve_device(device)
-    check_device("params", _tensors(params), dev)
+    check_device("params", _leaves(params), dev)
     if state is not None:
-        check_device("state", _tensors(state), dev)
+        check_device("state", _leaves(state), dev)
     return dev
 
 

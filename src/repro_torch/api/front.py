@@ -277,6 +277,14 @@ def _solve_fleet(fleet: FleetProblem, policy: str, backend: str, device,
                                  **_filter_opts(solver.solve_fleet,
                                                 _take_rows(opts, rest)))
         out.put(rest, sub, name)
+        if len(rest) == B:
+            # a solver's extras (routed's cell and link_factor) survive
+            # when it planned the whole fleet
+            sol = out.solution(fleet, t0)
+            for extra in ("cell", "link_factor"):
+                if hasattr(sub, extra):
+                    setattr(sol, extra, getattr(sub, extra))
+            return sol
     return out.solution(fleet, t0)
 
 

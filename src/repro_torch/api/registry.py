@@ -3,8 +3,8 @@
 
 Each solver registers itself with a declared capability set, and
 `repro_torch.api.solve` dispatches on those capabilities.  The reference's
-``routed``, ``hi_threshold`` and ``hi_bandit`` entries are not ported yet:
-asking for one raises `NotImplementedError` naming its ROADMAP item.
+``hi_threshold`` and ``hi_bandit`` entries are not ported yet: asking for
+one raises `NotImplementedError` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -15,7 +15,6 @@ from ..core.problem import FleetProblem, Problem, Solution
 
 # registry entries of the reference that wait for a later slice
 _NOT_PORTED = {
-    "routed": "ROADMAP §1 item 9, mobility",
     "hi_threshold": "ROADMAP §1 item 9, online hierarchical inference",
     "hi_bandit": "ROADMAP §1 item 9, online hierarchical inference",
 }

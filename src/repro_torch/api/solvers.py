@@ -1,6 +1,7 @@
 """The registry entries (port of `repro.api.solvers`): the paper's AMR^2
-and AMDP, the Greedy-RRA baseline, the beyond-paper dual scheduler and
-the LP bound behind the uniform `Solver` protocol.
+and AMDP, the Greedy-RRA baseline, the beyond-paper dual scheduler, the
+mobility scenario's routed AMR^2 and the LP bound behind the uniform
+`Solver` protocol.
 
 ``solve_one`` plans one `Problem`; ``solve_fleet`` plans a same-shape
 `FleetProblem` in one batched call.  What runs on the card — the LP
@@ -18,8 +19,9 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+import torch
 
-from .._device import DeviceLike
+from .._device import DeviceLike, resolve_device
 from ..core.amdp import amdp, amdp_arrays
 from ..core.amr2 import (ST_INFEASIBLE, ST_UNSOLVED, amr2_batch_arrays,
                          build_lp_arrays_batch, round_relaxation,
@@ -27,8 +29,9 @@ from ..core.amr2 import (ST_INFEASIBLE, ST_UNSOLVED, amr2_batch_arrays,
 from ..core.dual import dual_schedule, dual_schedule_batch_arrays
 from ..core.greedy import greedy_rra
 from ..core.lp import INFEASIBLE, OPTIMAL, solve_lp_batch
-from ..core.problem import (SOLUTION_STATUS_NAMES, ST_BOUND, FleetProblem,
-                            Problem, Solution)
+from ..core.mobility import route_cells, validate_mobility
+from ..core.problem import (ES_DISABLED_SENTINEL, SOLUTION_STATUS_NAMES,
+                            ST_BOUND, FleetProblem, Problem, Solution)
 from .registry import register_solver
 
 _STATUS_CODE = {name: code for code, name in enumerate(SOLUTION_STATUS_NAMES)}
@@ -70,6 +73,61 @@ class AMR2Solver:
                         solver=np.full(B, "amr2", dtype=object),
                         lp_accuracy=lp_acc, n_fractional=n_frac,
                         basis=np.asarray(basis, np.int64))
+
+
+@register_solver(
+    "routed", batched=True, exact_on_identical=False,
+    supports_es_disabled=True, warm_start=True,
+    description="geometry-aware amr2: route each lane to its best covered "
+                "cell, price ES by the link factor, then delegate "
+                "(core.mobility; uncovered lanes plan local-only)")
+class RoutedSolver:
+    """Multi-cell front end over `AMR2Solver`, the host twin of the
+    engine's routing pass.  Each lane gets a serving cell from its
+    position (`core.mobility.route_cells` at zero cell load: nearest or
+    least response time under the coverage radius), its ES column is
+    scaled by that cell's link factor, and uncovered lanes get the
+    ES-disabled sentinel (local-only plans).  The LP is amr2 unchanged, so
+    its guarantees hold per lane under the routed prices.  The solution
+    reports against the caller's problem, with ``cell`` and
+    ``link_factor`` attached."""
+
+    def solve_fleet(self, fleet: FleetProblem, *, positions: np.ndarray,
+                    mobility, routing: str = "nearest",
+                    frac_tol: float = 1e-4,
+                    maxiter: Optional[int] = None,
+                    warm_start: Optional[np.ndarray] = None,
+                    on_error: str = "raise",
+                    device: DeviceLike = None) -> Solution:
+        B = len(fleet)
+        pos = np.asarray(positions, np.float64)
+        if pos.shape != (B, 2):
+            raise ValueError(
+                f"positions must be ({B}, 2) to match the fleet; got "
+                f"{pos.shape}")
+        validate_mobility(mobility, n_devices=B,
+                          n_servers=mobility.n_cells,    # 1 server / cell
+                          mode="replay", routing=routing)
+        dev = resolve_device(device)
+        cell, covered, link_factor = (
+            t.cpu().numpy() for t in route_cells(
+                torch.as_tensor(pos, device=dev), mobility.to(dev),
+                torch.zeros(mobility.n_cells, dtype=torch.float64,
+                            device=dev),
+                routing))
+        p_es = fleet.p_es * link_factor[:, None]
+        p_es = np.where((~covered[:, None]) & fleet.real_mask,
+                        ES_DISABLED_SENTINEL, p_es)
+        routed = FleetProblem(p_ed=fleet.p_ed, p_es=p_es, acc=fleet.acc,
+                              T=fleet.T, real_mask=fleet.real_mask)
+        sol = AMR2Solver().solve_fleet(
+            routed, frac_tol=frac_tol, maxiter=maxiter,
+            warm_start=warm_start, on_error=on_error, device=dev)
+        sol.problem = fleet
+        sol.solver = np.full(B, "routed", dtype=object)
+        sol.cell = cell.astype(np.int64)
+        sol.link_factor = link_factor
+        return sol
 
 
 @register_solver(

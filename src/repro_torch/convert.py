@@ -4,8 +4,13 @@ packages in a parity test start from the same arrays.
 * `params_from_numpy` / `state_from_numpy`: the reference engine's
   `EngineParams` / `EngineState` fields, given as NumPy arrays and plain
   scalars keyed by the reference's field names, as the port's values on
-  ``device``.  Arrivals cross as the replayed trace (``counts`` /
-  ``stream``): `jax.random` streams cannot be redrawn in torch.
+  ``device``, the chaos and mobility fields included.  Arrivals cross as
+  the replayed trace (``counts`` / ``stream``) and faults as a replayed
+  realization trace: `jax.random` streams cannot be redrawn in torch.
+* `fault_model_from_numpy`, `fault_trace_from_numpy`,
+  `mobility_from_numpy`: the reference's `FaultModel`, a list of its
+  per-period `FaultRealization` draws (stacked into the port's
+  ``fault_trace``) and its `MobilityModel`.
 * `fleet_problem_from_numpy`: a reference `FleetProblem` or
   `InstanceBatch` (anything with its array fields) as the port's
   `FleetProblem`.
@@ -35,33 +40,74 @@ from .serving.profile import TierProfile
 from .api.engine import (PARAM_ARRAYS, PARAM_CONFIG, EngineParams,
                          EngineState, _not_ported, params_from_arrays,
                          state_from_arrays)
+from .core.faults import FAULT_FIELDS, FaultModel, FaultRealization
+from .core.mobility import MOBILITY_FIELDS, MobilityModel
 
 # reference config fields whose non-default value arms a part of the
 # engine that is not ported yet
-_ARMED = {"chaos": ("chaos", False), "mobility_mode": ("mobility", "off"),
-          "hi_rule": ("hi", "off"), "differentiable": ("differentiable",
-                                                       False)}
+_ARMED = {"hi_rule": ("hi", "off"),
+          "differentiable": ("differentiable", False),
+          "shard_by_cell": ("sharded", False)}
+
+
+def fault_model_from_numpy(fm) -> FaultModel:
+    """The port's `FaultModel` from the reference's (float64 scalar
+    fields)."""
+    return FaultModel(**{f: float(np.asarray(getattr(fm, f)))
+                         for f in FAULT_FIELDS})
+
+
+def fault_trace_from_numpy(realizations: Sequence,
+                           device: DeviceLike = None) -> FaultRealization:
+    """A replayed fault trace (``EngineParams.fault_trace``) from the
+    reference's per-period `FaultRealization` draws (NumPy fields), stacked
+    on a leading period axis: period t of a rollout reads entry t mod H."""
+    dev = resolve_device(device)
+    return FaultRealization(*(
+        torch.as_tensor(np.stack([np.asarray(getattr(r, f))
+                                  for r in realizations]), device=dev)
+        for f in FaultRealization._fields))
+
+
+def mobility_from_numpy(mm) -> MobilityModel:
+    """The port's `MobilityModel` (NumPy float64 fields) from the
+    reference's."""
+    return MobilityModel(**{f: np.array(getattr(mm, f), np.float64)
+                            for f in MOBILITY_FIELDS})
 
 
 def params_from_numpy(fields: Dict[str, object],
                       device: DeviceLike = None) -> EngineParams:
     """The port's `EngineParams` from the reference's fields.  Tensor
-    fields come from `PARAM_ARRAYS`, configuration from `PARAM_CONFIG`;
-    the reference's scenario leaves and knobs are ignored as long as
-    nothing is armed, and an armed scenario raises."""
+    fields come from `PARAM_ARRAYS`, configuration (the ``chaos`` and
+    ``mobility_mode`` flags among it) from `PARAM_CONFIG`; ``faults`` and
+    ``mobility`` are the reference's models, and the port-only
+    ``fault_trace`` a list of its per-period draws.  The reference's HI,
+    differentiable and ``shard_by_cell`` knobs are ignored as long as they
+    are off; armed, they raise."""
     for key, (what, off) in _ARMED.items():
         if key in fields and fields[key] != off:
             raise _not_ported(what)
+    dev = resolve_device(device)
     arrays = {k: np.asarray(fields[k]) for k in PARAM_ARRAYS}
     config = {k: fields[k] for k in PARAM_CONFIG if k in fields}
-    return params_from_arrays(arrays, resolve_device(device), **config)
+    scenarios = {}
+    if fields.get("faults") is not None:
+        scenarios["faults"] = fault_model_from_numpy(fields["faults"])
+    if fields.get("mobility") is not None:
+        scenarios["mobility"] = mobility_from_numpy(fields["mobility"])
+    if fields.get("fault_trace") is not None:
+        scenarios["fault_trace"] = fault_trace_from_numpy(
+            fields["fault_trace"], dev)
+    return params_from_arrays(arrays, dev, **scenarios, **config)
 
 
 def state_from_numpy(fields: Dict[str, object],
                      device: DeviceLike = None) -> EngineState:
-    """The port's `EngineState` from the reference's state fields (the
-    Poisson key, mobility and HI leaves are not carried; the Poisson seed
-    is ``fields["seed"]``, 0 when absent)."""
+    """The port's `EngineState` from the reference's state fields, the
+    mobility leaves (``pos``, ``cell``, ``cell_load``) and the ES belief
+    included (the Poisson key and the HI learner are not carried; the
+    Poisson seed is ``fields["seed"]``, 0 when absent)."""
     return state_from_arrays({"seed": 0, **fields}, resolve_device(device))
 
 

@@ -39,6 +39,18 @@ ES_DISABLED_SENTINEL = 1e9
 _FLEET_FIELDS = ("p_ed", "p_es", "acc", "T", "real_mask")
 
 
+def slot_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum (D, n) over its second axis in slot order.  `torch.sum`
+    associates differently on the CPU and the card, and devices whose
+    sums tie in exact arithmetic (the same jobs in other slots) would then
+    be ordered otherwise; the same additions in the same order agree bit
+    for bit."""
+    out = x[:, 0]
+    for k in range(1, x.shape[1]):
+        out = out + x[:, k]
+    return out
+
+
 @dataclasses.dataclass(frozen=True)
 class Problem:
     """One device's offloading problem."""

@@ -6,11 +6,14 @@ Ported: `profile` (`TierProfile`, `measure_latency`, `measure_profiles`,
 status codes), `runtime` (`ServingRuntime`, `PeriodStats`,
 `audit_profile`), `queue` (`RequestQueue`), `fleet` (`FleetEngine` and its
 delegation to the tensor engine, `FleetConfig`, `UnsolvedPeriodError`,
-`make_fleet`, ...), `engine_v2` (the tensor engine under the serving
-namespace) and the deprecated `planner` shims.  Not ported yet: the
-reference's `faults` and `hi` (ROADMAP §1 item 9).
+`make_fleet`, ...), `faults` (the chaos fault model and degradation
+ladder), `engine_v2` (the tensor engine under the serving namespace) and
+the deprecated `planner` shims.  Not ported yet: the reference's `hi`
+(ROADMAP §1 item 9).
 """
 from . import engine_v2
+from .faults import (FaultModel, FaultRealization, greedy_local_fill,
+                     realize_execution, sample_realization)
 from .executor import (EXEC_DROPPED, EXEC_FALLBACK_LOCAL, EXEC_OK_ED,
                        EXEC_OK_ES, EXEC_STATUS_NAMES, ExecutionReport,
                        execute)
@@ -36,5 +39,7 @@ __all__ = [
     "DeviceSpec", "EdgeServerPool", "FleetConfig", "FleetEngine",
     "FleetPeriodStats", "UnsolvedPeriodError", "make_fleet",
     "paper_style_profile", "roofline_style_profile",
+    "FaultModel", "FaultRealization", "sample_realization",
+    "greedy_local_fill", "realize_execution",
     "engine_v2",
 ]

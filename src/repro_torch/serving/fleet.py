@@ -13,7 +13,9 @@
   torch backend) hands each period to the tensor engine's period core
   (`api.engine._period`) on ``device``: the host only polls the queue,
   maps arrival values to class indices and books the stats, so `run(P)`
-  equals `api.engine.rollout` of the same config bit for bit.  A period
+  equals `api.engine.rollout` of the same config bit for bit, the chaos
+  scenario included (``faults=``: the host threads the audited ES belief
+  and each period's fault realization as the rollout does).  A period
   that leaves LP lanes unsolved raises `UnsolvedPeriodError` (or warns
   under ``strict="warn"``).  Every other fleet runs the host period
   pipeline (the reference's `_run_period_host`): per shape group one
@@ -27,9 +29,11 @@
   stripping, sequential replans, per-device audit), the oracle and
   baseline the array-resident loop is held to.
 
-Not ported yet: the chaos and hierarchical-inference scenarios and
-mobility; asking for them raises `NotImplementedError` naming the ROADMAP
-item.
+Chaos needs the delegation (an armed model on the host pipeline raises
+`ValueError`, as in the reference), and mobility runs on the tensor engine
+only (`from_config` with an armed model raises `ValueError`).  Not ported
+yet: hierarchical inference, which raises `NotImplementedError` naming the
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -48,7 +52,9 @@ from ..api.front import batched_policies, solve, solve_many
 from ..api.registry import get_solver
 from ..core.instances import (PAPER_ACC, PAPER_COMM, PAPER_P_ED,
                               PAPER_P_ES_PROC)
+from ..core.faults import FaultModel, FaultRealization
 from ..core.lp import _check_backend
+from ..core.mobility import MobilityModel
 from ..core.problem import ES_DISABLED_SENTINEL, FleetProblem, Problem
 from ..core.types import OffloadInstance, Schedule
 from .profile import TierProfile, roofline_profile
@@ -56,11 +62,8 @@ from .queue import RequestQueue
 from .runtime import audit_profile
 
 _NOT_PORTED = {
-    "faults": "the chaos scenario is not ported yet (ROADMAP §1 item 9)",
     "hi": "online hierarchical inference is not ported yet (ROADMAP §1 "
           "item 9)",
-    "mobility": "the mobility scenario is not ported yet (ROADMAP §1 "
-                "item 9)",
 }
 
 
@@ -232,9 +235,9 @@ class FleetPeriodStats:
     n_straggler_updates: int
     es_utilization: float       # admitted demand / (n_servers * T)
     backlog: int                # jobs still queued after this period
-    # realized execution: fault-free periods report n_offload_ok ==
-    # n_offload_samples, zero ladder counters, and realized_makespan ==
-    # the priced fleet makespan (the chaos scenario is not ported)
+    # realized execution (chaos; see serving.faults): fault-free periods
+    # report n_offload_ok == n_offload_samples, zero ladder counters, and
+    # realized_makespan == the priced fleet makespan
     n_offload_samples: int = 0
     n_offload_ok: int = 0
     n_deadline_miss: int = 0
@@ -343,9 +346,11 @@ class FleetConfig:
     ``es_peak_flops`` / ``es_hbm_bw`` (required: the reference's defaults
     are TPU v5e figures).  ``backend`` is "torch" or "numpy"; the
     reference's "jax" is refused.  ``lp_method`` picks the delegated LP's
-    pivot representation (the reference's engine fixes "tableau").  The
-    chaos, mobility and HI scenarios are not ported: their fields must
-    stay None."""
+    pivot representation (the reference's engine fixes "tableau").
+    ``faults`` arms chaos (delegation only); ``fault_trace`` (port-only)
+    replays a fault realization per period instead of drawing.
+    ``mobility`` arms mobility for `EngineParams.from_config` (the tensor
+    engine only).  HI is not ported: ``hi`` must stay None."""
 
     # engine
     n_devices: int
@@ -363,9 +368,19 @@ class FleetConfig:
     # "raise": an unsolved delegated period raises UnsolvedPeriodError;
     # "warn": warn and book it
     strict: str = "raise"
-    # scenarios (ROADMAP §1 item 9): None only
-    faults: Optional[object] = None
-    mobility: Optional[object] = None
+    # chaos: fault injection and the degradation ladder (delegation
+    # only; see serving.faults).  None / FaultModel.none() disarms.
+    faults: Optional[FaultModel] = None
+    max_retries: int = 2
+    fault_seed: int = 0
+    fault_trace: Optional[FaultRealization] = None
+    # multi-cell mobility (the tensor engine only; see core.mobility).
+    # None disarms; `EngineParams.from_config` picks these up.
+    mobility: Optional[MobilityModel] = None
+    mobility_mode: str = "replay"
+    routing: str = "nearest"
+    mobility_seed: int = 0
+    # online hierarchical inference (ROADMAP §1 item 9): None only
     hi: Optional[object] = None
     # traffic (RequestQueue)
     classes: Sequence[int] = (128, 512, 1024)
@@ -413,22 +428,35 @@ class FleetEngine:
                     device: DeviceLike = None) -> "FleetEngine":
         """The engine a `FleetConfig` describes (the same fleet, queue and
         policy as the manual construction)."""
-        if config.mobility is not None:
-            raise NotImplementedError(_NOT_PORTED["mobility"])
+        if config.mobility is not None and not getattr(
+                config.mobility, "is_null", lambda: True)():
+            # positions, cells and handover live in the tensor engine's
+            # state; the host period pipeline has no twin of routing and
+            # per-cell admission
+            raise ValueError(
+                "multi-cell mobility runs on the pure-functional engine "
+                "only: build EngineParams.from_config(config) and use "
+                "repro_torch.api.engine.rollout instead of FleetEngine")
         return cls(config.build_devices(), config.build_queue(),
                    n_servers=config.n_servers, T=config.T,
                    policy=config.policy, backend=config.backend,
                    straggler_threshold=config.straggler_threshold,
                    ema=config.ema, delegate=config.delegate,
                    lp_method=config.lp_method, strict=config.strict,
-                   faults=config.faults, hi=config.hi, device=device)
+                   faults=config.faults, max_retries=config.max_retries,
+                   fault_seed=config.fault_seed,
+                   fault_trace=config.fault_trace, hi=config.hi,
+                   device=device)
 
     def __init__(self, devices: Sequence[DeviceSpec], queue: RequestQueue, *,
                  n_servers: int = 1, T: float, policy: str = "auto",
                  backend: str = "torch", straggler_threshold: float = 1.5,
                  ema: float = 0.5, delegate: bool = True,
                  lp_method: str = "tableau", strict: str = "raise",
-                 faults=None, hi=None, device: DeviceLike = None):
+                 faults: Optional[FaultModel] = None, max_retries: int = 2,
+                 fault_seed: int = 0,
+                 fault_trace: Optional[FaultRealization] = None, hi=None,
+                 device: DeviceLike = None):
         if queue.n_devices != len(devices):
             raise ValueError("queue.n_devices must match the fleet size")
         if strict not in ("raise", "warn"):
@@ -452,8 +480,6 @@ class FleetEngine:
                 raise ValueError(
                     f"device {d} ({spec.profile.name}) has no profile entry "
                     f"for queue classes {sorted(missing)}")
-        if faults is not None:
-            raise NotImplementedError(_NOT_PORTED["faults"])
         if hi is not None:
             raise NotImplementedError(_NOT_PORTED["hi"])
         self.devices = [_DeviceState(spec=d, profile=d.profile)
@@ -500,7 +526,9 @@ class FleetEngine:
                 devices, queue, T=T, n_servers=n_servers, policy=policy,
                 horizon=1, arrivals="poisson",
                 straggler_threshold=straggler_threshold, ema=ema,
-                lp_method=lp_method, device=self.device)
+                lp_method=lp_method, faults=faults, max_retries=max_retries,
+                fault_seed=fault_seed, fault_trace=fault_trace,
+                device=self.device)
             g = self._groups[0]
             qcls = np.asarray(queue.classes)
             self._v2_lut = np.searchsorted(np.asarray(g.classes), qcls)
@@ -508,6 +536,19 @@ class FleetEngine:
             # queue class table too
             self._v2_qorder = np.argsort(qcls, kind="stable")
             self._v2_qsorted = qcls[self._v2_qorder]
+            # the audited ES belief, threaded between periods as the
+            # rollout's EngineState.p_es_belief (== p_es until chaos
+            # inflates rows)
+            self._v2_es_belief = self._v2_params.p_es.clone()
+        if faults is not None and not faults.is_null() \
+                and self._v2_params is None:
+            # the ladder lives in the tensor engine's period core; there
+            # is no host twin of the realized-execution pass
+            raise ValueError(
+                "fault injection needs the engine-v2 delegation (torch "
+                "backend, amr2/dual policy, one profile shape group, "
+                "delegate=True); this engine would run the host period "
+                "pipeline")
 
     def run(self, periods: int) -> List[FleetPeriodStats]:
         """Run ``periods`` periods.  Under ``strict="raise"`` an unsolved
@@ -560,13 +601,19 @@ class FleetEngine:
 
         dev = self.device
         t0 = time.perf_counter()
-        _belief, new_warm, upd, factor, _load, m = _engine._period(
-            torch.as_tensor(belief, device=dev),
-            torch.as_tensor(warm, device=dev),
-            torch.as_tensor(ci, device=dev),
-            torch.as_tensor(take, device=dev),
-            torch.as_tensor(drift, device=dev),
-            torch.as_tensor(outage, device=dev), params.p_es, params)
+        # the period's fault realization: the draw (or replayed entry)
+        # `rollout` makes for period t
+        real = _engine._realization(params, t) if params.chaos else None
+        _belief, new_warm, upd, factor, es_belief, _load, m = \
+            _engine._period(
+                torch.as_tensor(belief, device=dev),
+                torch.as_tensor(warm, device=dev),
+                torch.as_tensor(ci, device=dev),
+                torch.as_tensor(take, device=dev),
+                torch.as_tensor(drift, device=dev),
+                torch.as_tensor(outage, device=dev), self._v2_es_belief,
+                params, real=real)
+        self._v2_es_belief = es_belief
         m = {k: v.item() for k, v in m.items()}
         plan_seconds = time.perf_counter() - t0
         if m["n_unsolved"]:

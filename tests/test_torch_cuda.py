@@ -2,8 +2,13 @@
 small rollout, a small host `FleetEngine` run, a 2-layer LM forward,
 recurrentgemma's 2-cycle SMOKE forward and the SMOKE models' generation
 on the card against the same runs on the CPU; the batched dual against
-the CPU exactly, Poisson arrivals by their distribution, and a delegated
-`FleetEngine` run against `rollout` on the card bit for bit.
+the CPU exactly, Poisson arrivals by their distribution, a delegated
+`FleetEngine` run against `rollout` on the card bit for bit (chaos
+armed too); the chaos and mobility rollouts against the CPU under one
+replayed trace (drawn on
+the card, copied to the CPU), and the segmented admission bit for bit
+against the CPU, across two card runs and, in its admitted set, against
+the sequential oracle.
 
 Every test here is marked ``gpu`` and skips (with the reason) where no
 card is visible.  The file imports no JAX — it compares the port with
@@ -1013,3 +1018,149 @@ def test_cuda_delegated_run_equals_rollout(cuda_device, policy, lp_method):
                                       eng._groups[0].warm_basis)
     else:
         assert (state.warm_basis == -1).all()
+
+
+
+@pytest.mark.gpu
+def test_cuda_delegated_chaos_run_equals_rollout(cuda_device):
+    """Chaos armed: the delegated `FleetEngine.run` threads the ES belief
+    and draws each period's faults on the card as `rollout` does, bit for
+    bit."""
+    from repro_torch.core.faults import FaultModel
+    P = 6
+    cfg = FleetConfig(n_devices=64, T=1.2, n_servers=4, policy="amr2",
+                      rate=10.0, batch_max=12, horizon=P + 2, seed=3,
+                      lp_method="revised", es_peak_flops=989e12,
+                      es_hbm_bw=3.35e12, fault_seed=11,
+                      faults=FaultModel.make(
+                          es_crash_prob=0.08, link_degrade_prob=0.25,
+                          link_degrade_mag=0.6, straggler_prob=0.2,
+                          straggler_mult=1.8, loss_rate=0.15))
+    eng = FleetEngine.from_config(cfg, device=cuda_device)
+    assert eng._v2_params.chaos
+    params = E.EngineParams.from_config(cfg, horizon=P + 2,
+                                        device=cuda_device)
+    state, metrics = E.rollout(E.init_state(params, device=cuda_device),
+                               params, P, device=cuda_device)
+    stats = eng.run(P)
+    for i, st in enumerate(stats):
+        for f in E.METRIC_FIELDS:
+            if hasattr(st, f):
+                assert getattr(metrics, f)[i].item() == getattr(st, f), \
+                    (i, f)
+    assert torch.equal(eng._v2_es_belief, state.p_es_belief)
+    assert int(metrics.n_retries.sum()) > 0
+
+# ---------------------------------------------------------------------------
+# the chaos and mobility scenarios: the card against the CPU
+# ---------------------------------------------------------------------------
+def _scenario_params(device, D, periods, **kw):
+    """A roofline-heavy fleet (tied ES demands) with 16 servers a cell's
+    worth of pool, audited at 1.4 (ROADMAP §3 item 1)."""
+    devices = make_fleet(D, seed=6, horizon=periods, es_peak_flops=989e12,
+                         es_hbm_bw=3.35e12, roofline_frac=0.8)
+    queue = RequestQueue(D, (128, 512, 1024), rate=10.0, batch_max=12,
+                         seed=6)
+    return E.EngineParams.from_fleet(devices, queue, T=1.2,
+                                     n_servers=D // 16, horizon=periods,
+                                     straggler_threshold=1.4, device=device,
+                                     **kw)
+
+
+def _assert_rollouts_equal(mg, mc, sg, sc):
+    for f in E.METRIC_FIELDS:
+        a, b = getattr(mg, f).cpu(), getattr(mc, f)
+        if a.is_floating_point():
+            assert (a - b).abs().max().item() <= 1e-9, f
+        else:
+            assert torch.equal(a, b), (f, a.tolist(), b.tolist())
+    for f in ("n_updates", "cell", "pending", "head"):
+        assert torch.equal(getattr(sg, f).cpu(), getattr(sc, f)), f
+    for f in ("p_ed", "p_es_belief", "pos", "cell_load"):
+        d = (getattr(sg, f).cpu() - getattr(sc, f)).abs().max().item()
+        assert d <= 1e-9, (f, d)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lp_method", ["tableau", "revised"])
+def test_cuda_chaos_rollout_matches_cpu_under_one_trace(cuda_device,
+                                                        lp_method):
+    """The reference bench's harsh model: the fault trace drawn once on
+    the card, replayed on the card and, copied, on the CPU."""
+    from repro_torch.core.faults import FaultModel, sample_trace
+    D, P = 1024, 6
+    fm = FaultModel.make(es_crash_prob=0.08, link_degrade_prob=0.25,
+                         link_degrade_mag=0.6, straggler_prob=0.2,
+                         straggler_mult=1.8, loss_rate=0.15)
+    gpu = _scenario_params(cuda_device, D, P, lp_method=lp_method)
+    trace = sample_trace(11, fm, D, 12, 3, P, device=cuda_device)
+    gpu = gpu.with_faults(fm, fault_seed=11, fault_trace=trace)
+    cpu = gpu.to("cpu")
+    ops.reset_launches()
+    sg, mg = E.rollout(E.init_state(gpu, device=cuda_device), gpu, P,
+                       device=cuda_device)
+    assert ops.pivot_update.launches + ops.reduced_pivot.launches > 0
+    sc, mc = E.rollout(E.init_state(cpu, device="cpu"), cpu, P,
+                       device="cpu")
+    _assert_rollouts_equal(mg, mc, sg, sc)
+    assert int(mc.n_es_audit_updates.sum()) > 0
+    assert torch.equal(mc.n_offload_samples, mc.n_offload_ok
+                       + mc.n_fallback_local + mc.n_dropped)
+
+
+def _grid_mobility(D, periods, seed=0):
+    """The reference bench's geometry: 16 cells on a 4 x 4 grid of pitch
+    20, radius 30, link_alpha 0.2; positions home cell + normal(6)."""
+    from repro_torch.core.mobility import MobilityModel
+    cxy = np.array([[20.0 * i, 20.0 * j] for i in range(4)
+                    for j in range(4)])
+    rng = np.random.default_rng(seed)
+    home = rng.integers(0, 16, D)
+    trace = cxy[home][None] + rng.normal(scale=6.0, size=(periods, D, 2))
+    return MobilityModel.make(cell_xy=cxy, trace=trace, radius=30.0,
+                              link_alpha=0.2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("routing", ["nearest", "min_time"])
+def test_cuda_mobility_rollout_matches_cpu(cuda_device, routing):
+    D, P = 1024, 6
+    gpu = _scenario_params(cuda_device, D, P, mobility=_grid_mobility(D, P),
+                           routing=routing, lp_method="revised")
+    cpu = gpu.to("cpu")
+    sg, mg = E.rollout(E.init_state(gpu, device=cuda_device), gpu, P,
+                       device=cuda_device)
+    sc, mc = E.rollout(E.init_state(cpu, device="cpu"), cpu, P,
+                       device="cpu")
+    _assert_rollouts_equal(mg, mc, sg, sc)
+    assert int(mc.n_handover.sum()) > 0 and int(mc.n_backpressured.sum())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_cells,k", [(16, 64), (3, 5), (1, 8)])
+def test_cuda_segmented_admission_is_bitwise_and_deterministic(
+        cuda_device, n_cells, k):
+    """Tie-heavy demands over 16384 devices (running loads in the
+    thousands of seconds on a one-cell pool): the card's admitted set and
+    per-server loads equal the CPU's bit for bit, and two card runs are
+    equal; the admitted set equals the sequential oracle's."""
+    from repro_torch.core.mobility import (admit_mask_cells_np,
+                                           admit_mask_segmented)
+    D = 16384
+    rng = np.random.default_rng(n_cells)
+    demands = rng.choice([0.0, 0.1, 0.2, 0.25, 0.3, 0.45, 0.7], D)
+    cell = rng.integers(0, n_cells, D).astype(np.int32)
+    cell[rng.uniform(size=D) < 0.05] = -1
+    T = 0.6 * D / n_cells * 0.3 / k
+    args = (torch.as_tensor(demands), torch.as_tensor(cell),
+            torch.tensor(T, dtype=torch.float64))
+    want = admit_mask_segmented(*args, n_cells, k)
+    runs = [admit_mask_segmented(*(a.to(cuda_device) for a in args),
+                                 n_cells, k) for _ in range(2)]
+    for got in runs:
+        assert got[0].is_cuda
+        assert torch.equal(got[0].cpu(), want[0])
+        assert torch.equal(got[1].cpu(), want[1])
+    oracle, _ = admit_mask_cells_np(demands, cell, T, n_cells, k)
+    np.testing.assert_array_equal(want[0].numpy(), oracle)
+    assert oracle.any() and not oracle.all()

@@ -27,8 +27,8 @@ from repro.serving.queue import RequestQueue as RefQueue
 from repro_torch import convert
 from repro_torch.api import engine as PE
 from repro_torch.core import instances
-from repro_torch.core.faults import greedy_local_fill
-from repro_torch.core.mobility import admit_mask_pool
+from repro_torch.core.faults import FaultModel, greedy_local_fill
+from repro_torch.core.mobility import MobilityModel, admit_mask_pool
 from repro_torch.serving.fleet import make_fleet
 from repro_torch.serving.queue import RequestQueue
 from test_torch_parity_util import reference_x64, to_numpy
@@ -240,32 +240,41 @@ def test_step_sequence_equals_rollout():
 
 
 def test_unported_paths_raise_with_roadmap_item():
-    """Dual and Poisson arrivals (items 5 and 4) now build and step; the
-    scenarios (item 9) and the sharded engine (item 10) still raise."""
+    """Dual and Poisson arrivals (items 5 and 4) and the chaos and
+    mobility scenarios (item 9) now build and step; HI and the
+    differentiable rollout (item 9) and the sharded engine (item 10, with
+    ``shard_by_cell``) still raise."""
     _, port = _fleet_pair("tableau", 1.5)
     devs = make_fleet(4, seed=0, horizon=4, **V5E)
     q = RequestQueue(4, CLASSES, rate=4.0, batch_max=6, seed=0)
-    for kwargs in (dict(policy="dual"), dict(arrivals="poisson")):
+    mob = MobilityModel.make(cell_xy=np.zeros((1, 2)),
+                             trace=np.zeros((4, 4, 2)))
+    for kwargs in (dict(policy="dual"), dict(arrivals="poisson"),
+                   dict(faults=FaultModel.make(loss_rate=0.5)),
+                   dict(mobility=mob)):
         params = PE.EngineParams.from_fleet(devs, q, T=1.2, horizon=4,
                                             device="cpu", **kwargs)
         state, m = PE.step(PE.init_state(params, device="cpu"), params,
                            device="cpu")
         assert int(state.period) == 1 and int(m.n_unsolved) == 0
         assert int(m.n_jobs) + int(m.backlog) > 0
-    for kwargs, item in ((dict(faults=object()), "item 9"),
-                         (dict(mobility=object()), "item 9")):
-        with pytest.raises(NotImplementedError, match=item):
-            PE.EngineParams.from_fleet(devs, q, T=1.2, horizon=4,
-                                       device="cpu", **kwargs)
+    assert params.mobility_mode == "replay" and params.n_cells == 1
     with pytest.raises(NotImplementedError, match="item 9"):
         port.with_hi(object())
     with pytest.raises(NotImplementedError, match="item 9"):
         port.with_differentiable(True)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        params.with_mobility(mob, shard_by_cell=True)
     for fn in (PE.shard, PE.step_sharded, PE.rollout_sharded):
         with pytest.raises(NotImplementedError, match="item 10"):
             fn()
     with pytest.raises(NotImplementedError, match="item 9"):
-        convert.params_from_numpy({"chaos": True}, "cpu")
+        convert.params_from_numpy({"hi_rule": "threshold"}, "cpu")
+    with pytest.raises(NotImplementedError, match="item 10"):
+        convert.params_from_numpy({"shard_by_cell": True}, "cpu")
+    with pytest.raises(ValueError, match="max_retries"):
+        PE.EngineParams.from_fleet(devs, q, T=1.2, horizon=4, device="cpu",
+                                   max_retries=-1)
 
 
 def test_float64_and_horizon_guards():

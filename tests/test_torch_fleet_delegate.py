@@ -21,6 +21,7 @@ import pytest
 from repro.serving import FleetConfig as RefConfig
 from repro.serving import FleetEngine as RefEngine
 from repro_torch.api import engine as E
+from repro_torch.core.mobility import MobilityModel
 from repro_torch.core.problem import ST_UNSOLVED
 from repro_torch.serving import (DeviceSpec, FleetConfig, FleetEngine,
                                  FleetPeriodStats, RequestQueue, TierProfile,
@@ -194,9 +195,14 @@ def test_backend_and_config_guards():
     with pytest.raises(ValueError, match="'torch'"):
         FleetEngine.from_config(dataclasses.replace(cfg, backend="jax"),
                                 device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        FleetEngine.from_config(dataclasses.replace(cfg, mobility=object()),
+    mob = MobilityModel.make(cell_xy=np.zeros((1, 2)),
+                             trace=np.zeros((4, 4, 2)))
+    with pytest.raises(ValueError, match="pure-functional engine"):
+        FleetEngine.from_config(dataclasses.replace(cfg, mobility=mob),
                                 device="cpu")
+    with pytest.raises(ValueError, match="max_retries"):
+        E.EngineParams.from_config(dataclasses.replace(cfg, max_retries=-1),
+                                   device="cpu")
     with pytest.raises(NotImplementedError, match="item 9"):
         E.EngineParams.from_config(dataclasses.replace(cfg, hi=object()),
                                    device="cpu")

@@ -25,6 +25,7 @@ from repro.serving.fleet import FleetEngine as RefEngine
 from repro.serving.fleet import make_fleet as ref_make_fleet
 from repro.serving.queue import RequestQueue as RefQueue
 from repro_torch import convert
+from repro_torch.core.faults import FaultModel
 from repro_torch.serving.fleet import FleetEngine, FleetPeriodStats, make_fleet
 from repro_torch.serving.queue import RequestQueue
 from test_torch_parity_util import reference_x64
@@ -115,16 +116,22 @@ def test_unported_configurations_raise():
                            device="cpu", **kw)
 
     # a one-group amr2 / dual fleet delegates to the tensor engine now
-    # (ROADMAP §1 items 5 and 7) and runs; the scenarios (item 9) raise
+    # (ROADMAP §1 items 5 and 7) and runs, chaos armed too (item 9);
+    # chaos on the host pipeline raises the reference's ValueError, HI
+    # (item 9) is not ported
+    fm = FaultModel.make(loss_rate=0.5)
     for policy in ("amr2", "dual"):
-        eng = engine(policy=policy)
-        assert eng._v2_params is not None
-        assert eng.run(1)[0].n_devices == 4
+        for faults in (None, fm):
+            eng = engine(policy=policy, faults=faults)
+            assert eng._v2_params is not None
+            assert eng._v2_params.chaos == (faults is not None)
+            assert eng.run(1)[0].n_devices == 4
     assert engine(policy="auto")._v2_params is None
+    assert engine(policy="auto", faults=FaultModel.none()).run(1)
     with pytest.raises(ValueError, match="'torch'"):
         engine(policy="amr2", backend="jax")
-    with pytest.raises(NotImplementedError, match="chaos"):
-        engine(faults=object())
+    with pytest.raises(ValueError, match="delegation"):
+        engine(policy="auto", faults=fm)
     with pytest.raises(NotImplementedError, match="hierarchical"):
         engine(hi=object())
     with pytest.raises(ValueError, match="bound-only"):

@@ -163,15 +163,20 @@ def test_typo_guard_and_registry():
         PAPI.solve(fp, policy="amr2", max_iter=10, device="cpu")
     with pytest.raises(TypeError, match="does not accept"):
         RAPI.solve(_fleet(4, seed=1), policy="amr2", max_iter=10)
-    # dual is registered (ROADMAP §1 item 5) with the reference's flags;
-    # the mobility and HI entries (item 9) still raise
-    assert PAPI.solver_names() == ["amdp", "amr2", "dual", "greedy", "lp"]
+    # dual (ROADMAP §1 item 5) and routed (item 9, mobility) are
+    # registered with the reference's flags; the HI entries (item 9)
+    # still raise
+    assert PAPI.solver_names() == ["amdp", "amr2", "dual", "greedy", "lp",
+                                   "routed"]
     assert set(PAPI.solver_names()) < set(RAPI.solver_names())
-    assert (dataclasses.asdict(PAPI.solvers()["dual"])
-            == dataclasses.asdict(RAPI.solvers()["dual"]))
+    for name in ("dual", "routed"):
+        assert (dataclasses.asdict(PAPI.solvers()[name])
+                == dataclasses.asdict(RAPI.solvers()[name]))
     assert (PAPI.solve(fp, policy="dual", device="cpu").solver
             == "dual").all()
-    for name in ("routed", "hi_threshold", "hi_bandit"):
+    with pytest.raises(TypeError, match="positions"):
+        PAPI.solve(fp, policy="routed", device="cpu")
+    for name in ("hi_threshold", "hi_bandit"):
         with pytest.raises(NotImplementedError, match="item 9"):
             PAPI.solve(fp, policy=name, device="cpu")
     with pytest.raises(ValueError, match="unknown solver"):

@@ -52,7 +52,10 @@ def test_port_imports_neither_jax_nor_the_reference():
             "repro_torch.configs.mamba2_130m",
             # the dual scheduler, the serving engine_v2 name, the shims
             "repro_torch.core.dual", "repro_torch.serving.engine_v2",
-            "repro_torch.serving.planner"} <= walked
+            "repro_torch.serving.planner",
+            # the chaos and mobility scenarios
+            "repro_torch.core.faults", "repro_torch.core.mobility",
+            "repro_torch.serving.faults"} <= walked
 
 
 def test_chip_smoke_imports_neither_jax_nor_the_reference():

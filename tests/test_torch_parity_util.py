@@ -112,3 +112,17 @@ def test_port_calls_keep_torch_defaults():
     simplex_batch_core(A, b, c, None, nv=12, maxiter=64)
     assert torch.get_default_dtype() == dtype
     assert torch.get_num_threads() == threads
+
+
+def reference_fault_draws(fm, fault_seed, n_devices, n_jobs, max_retries,
+                          periods):
+    """The reference's fault realizations of ``periods`` periods, drawn
+    with the key its engine step builds for period t
+    (``fold_in(PRNGKey(fault_seed), t)``), as NumPy named tuples: what
+    `repro_torch.convert.fault_trace_from_numpy` stacks into the port's
+    replayed ``fault_trace``."""
+    from repro.core.faults import sample_realization
+    with reference_x64():
+        return [jax.tree.map(np.asarray, sample_realization(
+            jax.random.fold_in(jax.random.PRNGKey(fault_seed), t), fm,
+            n_devices, n_jobs, max_retries + 1)) for t in range(periods)]
