@@ -153,6 +153,34 @@ Phases, each printing JSON lines; any failure exits non-zero:
               4096-device fleet's rollout on the card against the CPU at
               1.4; pivots per period beside the plain rollout's; the walk's
               steps by distribution on the card's generator.
+     rollout_hi  online hierarchical inference on the rollouts' recipe
+              with a 64-period horizon (16384 devices): each rule (fixed
+              at 0.5, threshold, ucb, exp3; 9 arms, seed 3) for 64
+              periods, no port kernel launched, n_hi_offloaded +
+              n_hi_local_final = n_jobs every period, the bandits' arm
+              counts equal to each device's periods with jobs; wall, wall
+              per period beside the plain revised rollout's, launches per
+              period and busy share (profiled), final regret; the
+              clairvoyant fixed rule (theta0 = clip(acc_es - beta, 0, 1))
+              at regret exactly 0; the threshold learner below the fixed
+              rule's regret, its second-half increment below its first,
+              mean |theta - theta*| < 0.1; EXP3 replayed from
+              `presample_stream` and the drawn arm uniforms bit for bit the
+              drawn rollout; each rule at 4096 devices on the card against
+              the CPU under one trace drawn on the card (audit at 1.4); a
+              disarmed `with_hi(None)` rollout bit for bit the plain one.
+     rollout_grad  the differentiable rollout on the rollouts' fleet, 4
+              periods, per LP method: the straight-through value against
+              the hard rollout's summed accuracy (relative 1e-9); at a
+              jittered p_es (`tests/test_grad.py`'s recipe) the soft
+              relaxation's value-and-grad, timed in turns with the relaxed
+              forward, its peak memory and the forward's pivot launches;
+              central differences (eps 1e-5; where the one-sided slopes
+              disagree, a kink inside +-eps, again at eps / 100) against
+              two p_es coordinates, T and one acc (rtol 1e-4, atol 1e-6);
+              the backward alone profiled, `kkt_vjp_ref`'s device time in
+              it; value and gradients on the card against the CPU at 1024
+              devices (rtol 1e-9).
   7. lm_forward  gemma3-1b at full width (26 layers, d 1152, GQA 4:1 at
               head_dim 256, vocabulary 262144): `init_params` on the card
               from a seed, 2 requests of 2048 `TokenPipeline` tokens,
@@ -201,7 +229,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
   9. parity   the card-marked tests (`pytest -m gpu tests/test_torch_cuda.py`,
               in a child process): each kernel against its plain version,
               a 32-device rollout, a 64-device `FleetEngine` run, the
-              chaos and mobility rollouts and segmented admission, a
+              chaos, mobility and HI rollouts, segmented and one-pool
+              admission, the gradient rollout and `kkt_vjp_ref`, a
               2-layer LM forward, recurrentgemma's 2-cycle SMOKE forward
               and the SMOKE models' generation on the card against the
               same runs on the CPU.
@@ -1507,8 +1536,8 @@ def phase_rollout_dual(torch, dev, params, amr2_metrics):
         torch, lambda: E.rollout(state, params, PERIODS, device=dev))
     cpu = params.to("cpu")
     # period 0: the plan on the card, on the CPU and by the NumPy oracle
-    fp, (assign, _st, _basis) = first_plan(torch, E, params, dev)
-    _fp, (want0, _st, _basis) = first_plan(torch, E, cpu, "cpu")
+    fp, (assign, _st, _basis, _x) = first_plan(torch, E, params, dev)
+    _fp, (want0, _st, _basis, _x) = first_plan(torch, E, cpu, "cpu")
     got0 = assign.cpu()
     flips = torch.nonzero((got0 != want0).any(dim=1)).flatten().tolist()
     check(not flips, f"rollout_dual: period-0 lanes {flips[:8]} "
@@ -2044,6 +2073,434 @@ def phase_rollout_mobility(torch, dev, params, plain, plain_launches):
     emit("rollout_mobility", run="walk", step_mean=mean, step_std=std,
          walk_sigma=WALK_SIGMA, n_steps=n, n_handover=mw.n_handover.tolist())
     return {"reduced_pivot": launched}
+
+# the HI phase: a 64-period horizon, the rules of `core.hi`, one seed
+HI_PERIODS, HI_SEED, HI_ARMS = 64, 3, 9
+HI_RULES = ("fixed", "threshold", "ucb", "exp3")
+
+
+def hi_fleet(E, dev, D, threshold=1.5):
+    """The rollouts' recipe at ``D`` devices (``D // 16`` servers) with a
+    `HI_PERIODS`-period horizon."""
+    import dataclasses
+    cfg = dataclasses.replace(rollout_config("amr2"), n_devices=D,
+                              n_servers=D // 16, horizon=HI_PERIODS,
+                              straggler_threshold=threshold)
+    return E.EngineParams.from_config(cfg, device=dev)
+
+
+def periods_with_jobs(params):
+    """(D,) periods in which each device released a job, from the
+    replayed arrival trace and the backlog it leaves (host NumPy)."""
+    import numpy as np
+    counts = params.counts.cpu().numpy()[:HI_PERIODS]
+    pending = np.zeros(counts.shape[1], np.int64)
+    busy = np.zeros(counts.shape[1], np.int64)
+    for c in counts:
+        avail = pending + c
+        take = np.minimum(avail, params.batch_max)
+        busy += take > 0
+        pending = avail - take
+    return busy
+
+
+def hi_rollout(torch, E, params, dev):
+    """A synchronised `HI_PERIODS`-period rollout: (state, metrics,
+    seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, metrics = E.rollout(E.init_state(params, device=dev), params,
+                               HI_PERIODS, device=dev)
+    torch.cuda.synchronize()
+    return state, metrics, time.perf_counter() - t0
+
+
+def same_hi_state(torch, what, a, b):
+    from repro_torch.core.hi import HI_STATE_FIELDS
+    for f in HI_STATE_FIELDS:
+        check(torch.equal(getattr(a, f), getattr(b, f)),
+              f"{what}: learner {f} differs")
+
+
+def phase_rollout_hi(torch, dev, params, plain, plain_seconds):
+    """Online hierarchical inference on a 16384-device fleet of the
+    rollouts' recipe with a 64-period horizon: each rule for 64 periods
+    (the accounting identity every period; bandits' arm counts; timed and
+    profiled), the clairvoyant fixed rule at zero regret, the threshold
+    learner against the fixed rule at 0.5 (final regret, sublinear
+    increments, |theta - theta*|), replay == fold on the card, each rule
+    on the card against the CPU at 4096 devices under one trace drawn on
+    the card, and the disarmed round trip bit for bit the plain rollout."""
+    import numpy as np
+
+    from repro_torch.api import engine as E
+    from repro_torch.core.hi import (HIModel, draw_arm_uniforms,
+                                     presample_stream)
+    t0 = time.perf_counter()
+    base = hi_fleet(E, dev, D_FLEET)
+    busy = periods_with_jobs(base)
+    emit("rollout_hi", run="build", devices=D_FLEET, periods=HI_PERIODS,
+         seconds=time.perf_counter() - t0,
+         idle_device_periods=int(D_FLEET * HI_PERIODS - busy.sum()))
+    plain_per_period = plain_seconds / PERIODS
+    runs = {}
+    for rule in HI_RULES:
+        p = base.with_hi(HIModel.make(), rule=rule, n_arms=HI_ARMS,
+                         hi_seed=HI_SEED)
+        reset_launches()
+        state, m, secs = hi_rollout(torch, E, p, dev)
+        launched = {k: v for k, v in kernel_launches().items() if v}
+        check(not launched, f"rollout_hi: {rule} launched {launched}")
+        check(torch.equal(m.n_hi_offloaded + m.n_hi_local_final, m.n_jobs),
+              f"rollout_hi: {rule} accounting identity broken")
+        check(float(m.hi_regret.min()) >= 0.0
+              and bool((m.hi_regret.diff() >= -1e-9).all()),
+              f"rollout_hi: {rule} regret decreases")
+        extra = {}
+        if rule in ("ucb", "exp3"):
+            cnt = state.hi.arms_cnt.sum(dim=1).cpu().numpy()
+            check(np.array_equal(cnt, busy.astype(np.float64)),
+                  f"rollout_hi: {rule} arm counts differ from the periods "
+                  f"with jobs on {int((cnt != busy).sum())} devices")
+            extra["arm_counts_equal_periods_with_jobs"] = True
+        device_s, n_launch, top = profiled(torch, lambda: E.rollout(
+            E.init_state(p, device=dev), p, HI_PERIODS, device=dev))
+        runs[rule] = (state, m)
+        emit("rollout_hi", run=rule, devices=D_FLEET, periods=HI_PERIODS,
+             seconds=secs, seconds_per_period=secs / HI_PERIODS,
+             plain_revised_seconds_per_period=plain_per_period,
+             devices_per_s=D_FLEET * HI_PERIODS / secs,
+             launches_per_period=n_launch / HI_PERIODS,
+             device_seconds=device_s,
+             busy_share=device_s / secs if device_s else None, top=top[:5],
+             final_regret=float(m.hi_regret[-1]),
+             n_hi_offloaded=int(m.n_hi_offloaded.sum()),
+             n_hi_local_final=int(m.n_hi_local_final.sum()),
+             n_backpressured=int(m.n_backpressured.sum()),
+             total_accuracy=float(m.total_accuracy.sum()), **extra)
+    # the clairvoyant and the learner against the miscalibrated fixed rule
+    beta = HIModel.make().offload_cost
+    theta_star = (base.acc[:, base.m] - beta).clamp(0.0, 1.0)
+    clair = base.with_hi(HIModel.make(theta0=theta_star), rule="fixed",
+                         hi_seed=HI_SEED)
+    _s, mc, _secs = hi_rollout(torch, E, clair, dev)
+    check(float(mc.hi_regret[-1]) == 0.0,
+          f"rollout_hi: clairvoyant regret {float(mc.hi_regret[-1])}")
+    s_thr, m_thr = runs["threshold"]
+    reg, reg_fixed = m_thr.hi_regret, runs["fixed"][1].hi_regret
+    half = HI_PERIODS // 2 - 1
+    first, second = float(reg[half] - reg[0]), float(reg[-1] - reg[half])
+    err = float((s_thr.hi.theta - theta_star).abs().mean())
+    check(float(reg[-1]) < float(reg_fixed[-1]),
+          f"rollout_hi: learner regret {float(reg[-1])} not below the "
+          f"fixed rule's {float(reg_fixed[-1])}")
+    check(second < first, f"rollout_hi: regret increments {first}, "
+                          f"{second}: not sublinear")
+    check(err < 0.1, f"rollout_hi: mean |theta - theta*| {err}")
+    emit("rollout_hi", run="learning", clairvoyant_regret=0.0,
+         threshold_regret=float(reg[-1]), fixed_regret=float(reg_fixed[-1]),
+         first_half_increment=first, second_half_increment=second,
+         mean_theta_error=err)
+    # replay == fold on the card: both streams replayed for EXP3
+    tr = presample_stream(HI_SEED, D_FLEET, N_JOBS, HI_PERIODS, device=dev)
+    arms = torch.stack([draw_arm_uniforms(HI_SEED, t, D_FLEET, dev)
+                        for t in range(HI_PERIODS)])
+    rep = base.with_hi(HIModel.make(conf_trace=tr), rule="exp3",
+                       n_arms=HI_ARMS, stream="replay", hi_seed=HI_SEED,
+                       hi_arm_trace=arms)
+    s_rep, m_rep, _secs = hi_rollout(torch, E, rep, dev)
+    same_rollout(torch, E, "rollout_hi replay vs fold", m_rep,
+                 runs["exp3"][1])
+    same_hi_state(torch, "rollout_hi replay vs fold", s_rep.hi,
+                  runs["exp3"][0].hi)
+    del tr, arms, rep, runs
+    # the card against the CPU at 4096 devices under one replayed trace
+    small = hi_fleet(E, dev, D_CHECK, SCENARIO_CHECK_THRESHOLD)
+    tr = presample_stream(HI_SEED, D_CHECK, N_JOBS, HI_PERIODS, device=dev)
+    arms = torch.stack([draw_arm_uniforms(HI_SEED, t, D_CHECK, dev)
+                        for t in range(HI_PERIODS)])
+    cpu_seconds = {}
+    for rule in HI_RULES:
+        card = small.with_hi(HIModel.make(conf_trace=tr), rule=rule,
+                             n_arms=HI_ARMS, stream="replay",
+                             hi_seed=HI_SEED, hi_arm_trace=arms)
+        cpu = card.to("cpu")
+        sg, mg = E.rollout(E.init_state(card, device=dev), card, HI_PERIODS,
+                           device=dev)
+        t1 = time.perf_counter()
+        sc, mcpu = E.rollout(E.init_state(cpu, device="cpu"), cpu,
+                             HI_PERIODS, device="cpu")
+        cpu_seconds[rule] = time.perf_counter() - t1
+        compare_hi(torch, E, f"rollout_hi {rule} card vs CPU", mg, mcpu,
+                   sg, sc)
+    emit("rollout_hi", run="card_vs_cpu_replay", devices=D_CHECK,
+         periods=HI_PERIODS, threshold=SCENARIO_CHECK_THRESHOLD,
+         cpu_seconds=cpu_seconds, equal=True)
+    # disarmed: bit for bit the plain rollout
+    off = params["revised"].with_hi(HIModel.make(), rule="exp3").with_hi(None)
+    _s, m_off, secs, _l, _mem = timed_rollout(torch, E, off, dev)
+    same_rollout(torch, E, "rollout_hi disarmed vs plain", m_off,
+                 plain["revised"])
+    emit("rollout_hi", run="disarmed", seconds=secs, bitwise_vs_plain=True)
+
+
+def compare_hi(torch, E, what, mg, mc, sg, sc):
+    """Card against CPU: integer metrics and state exact, floats and the
+    learner to 1e-9."""
+    from repro_torch.core.hi import HI_STATE_FIELDS
+    for f in E.METRIC_FIELDS:
+        a, b = getattr(mg, f).cpu(), getattr(mc, f)
+        if a.is_floating_point():
+            d = (a - b).abs().max().item()
+            check(d <= 1e-9, f"{what}: {f} differs by {d}")
+        else:
+            check(torch.equal(a, b), f"{what}: {f} differs")
+    for f in ("p_ed", "pending", "head", "n_updates"):
+        a, b = getattr(sg, f).cpu(), getattr(sc, f)
+        check((a.double() - b.double()).abs().max().item() <= 1e-9
+              if a.is_floating_point() else torch.equal(a, b),
+              f"{what}: state {f} differs")
+    for f in HI_STATE_FIELDS:
+        a, b = getattr(sg.hi, f).cpu(), getattr(sc.hi, f)
+        check((a - b).abs().max().item() <= 1e-9 if a.is_floating_point()
+              else torch.equal(a, b), f"{what}: learner {f} differs")
+
+
+# the gradient phase: the reference test's recipe at the fleet's size
+GRAD_PERIODS, GRAD_EPS, GRAD_RTOL, GRAD_ATOL = 4, 1e-5, 1e-4, 1e-6
+GRAD_CHECK_DEVICES = 1024
+GRAD_WRT = ("p_es", "T", "acc", "base_p_ed")
+
+
+def jittered(torch, params, seed=0):
+    """``p_es`` nudged by +-U(1e-3, 3e-3) (`tests/test_grad.py`'s
+    `_diff_params`): off the LP vertex boundaries the profiles put it on."""
+    import dataclasses
+
+    import numpy as np
+    rng = np.random.default_rng(1000 + seed)
+    shape = tuple(params.p_es.shape)
+    nudge = (rng.uniform(1e-3, 3e-3, size=shape)
+             * rng.choice([-1.0, 1.0], size=shape))
+    return dataclasses.replace(params, p_es=params.p_es + torch.as_tensor(
+        nudge, device=params.device))
+
+
+def grad_value(torch, E, params, dev):
+    """The relaxed forward's summed accuracy (no graph)."""
+    _s, m = E.rollout(E.init_state(params, device=dev), params,
+                      GRAD_PERIODS, device=dev)
+    return m.total_accuracy.sum().item()
+
+
+def fd_check(torch, E, params, dev, leaf, idx, analytic, what):
+    """Central finite differences at ``GRAD_EPS`` against ``analytic``
+    (rtol `GRAD_RTOL`, atol `GRAD_ATOL`).  Where the two one-sided slopes
+    disagree by more than the tolerance, the probe spans a kink of the
+    piecewise-smooth rollout (an LP basis or admission change within
+    +-eps), where central differences average two slopes; the probe is
+    then repeated at eps / 100.  Returns the row to print."""
+    import dataclasses
+    base = getattr(params, leaf)
+
+    def at(e):
+        x = base.clone().reshape(-1)
+        x[idx] += e
+        return grad_value(torch, E, dataclasses.replace(
+            params, **{leaf: x.reshape(base.shape)}), dev)
+
+    def close(a, b):
+        return abs(a - b) <= GRAD_ATOL or abs(a - b) <= GRAD_RTOL * max(
+            abs(a), abs(b))
+
+    v0 = grad_value(torch, E, params, dev)
+    row = dict(leaf=leaf, index=int(idx), analytic=analytic)
+    for eps in (GRAD_EPS, GRAD_EPS / 100):
+        vp, vm = at(eps), at(-eps)
+        central, up, down = (vp - vm) / (2 * eps), (vp - v0) / eps, \
+            (v0 - vm) / eps
+        row.update(eps=eps, fd=central, one_sided=(down, up),
+                   kink=not close(up, down))
+        if close(central, analytic) or not row["kink"]:
+            break
+    check(close(row["fd"], analytic),
+          f"{what}: {leaf}[{idx}] finite differences {row['fd']} vs "
+          f"analytic {analytic} (eps {row['eps']})")
+    return row
+
+
+def phase_rollout_grad(torch, dev, params):
+    """The differentiable rollout on the rollouts' 16384-device fleet, 4
+    periods, once per LP method: the straight-through value against the
+    hard rollout; at a jittered ``p_es`` the soft relaxation's gradients
+    against central finite differences (two ``p_es`` coordinates, ``T``,
+    one ``acc``, and the ``base_p_ed`` coordinate of largest gradient,
+    which must be non-zero); value-and-grad wall against the forward's in turns,
+    peak memory, the pivot kernels' launches in the forward, the
+    backward's device time and `kkt_vjp_ref`'s share; the card against
+    the CPU at 1024 devices.  Returns the pivot launches of the counted
+    runs."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.api import engine as E
+    from repro_torch.core import lp
+    from repro_torch.kernels.simplex_pivot import ops
+    pivots = {"simplex_pivot": 0, "reduced_pivot": 0}
+    for method in ("tableau", "revised"):
+        kname = "simplex_pivot" if method == "tableau" else "reduced_pivot"
+        hard = params[method]
+        # (1) straight-through: the value is the hard rollout's accuracy
+        st = hard.with_differentiable(smooth_mode="st")
+        _s, m_hard = E.rollout(E.init_state(hard, device=dev), hard,
+                               GRAD_PERIODS, device=dev)
+        want = m_hard.total_accuracy.sum().item()
+        val_st, _g = E.rollout_value_and_grad(
+            E.init_state(st, device=dev), st, GRAD_PERIODS, device=dev)
+        diff = abs(val_st.item() - want)
+        check(diff <= 1e-9 * abs(want), f"rollout_grad: {method} "
+              f"straight-through value {val_st.item()} vs hard {want}")
+        # (2) soft at the jittered base point, timed in turns.  Audited
+        # off the 1.5 tie (ROADMAP §3 item 1): the devices whose ED row
+        # binds are the audited stragglers, whose measured / predicted
+        # ratio equals 1.5 to the last bit there, so a 1e-9 nudge of
+        # their base_p_ed flips the audit and finite differences jump
+        soft = jittered(torch, dataclasses.replace(
+            hard, straggler_threshold=SCENARIO_CHECK_THRESHOLD
+        ).with_differentiable(smooth_mode="soft"))
+        walls = {"forward": [], "value_and_grad": []}
+        for kind in ("forward", "value_and_grad", "value_and_grad",
+                     "forward"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            t0 = time.perf_counter()
+            if kind == "forward":
+                E.rollout(E.init_state(soft, device=dev), soft,
+                          GRAD_PERIODS, device=dev)
+            else:
+                value, grads = E.rollout_value_and_grad(
+                    E.init_state(soft, device=dev), soft, GRAD_PERIODS,
+                    wrt=GRAD_WRT, device=dev)
+            torch.cuda.synchronize()
+            walls[kind].append(time.perf_counter() - t0)
+            if kind == "value_and_grad":
+                mem = torch.cuda.max_memory_allocated()
+                launched = kernel_launches()[kname]
+        pivots[kname] += launched
+        check(launched > 0, f"rollout_grad: {kname} never launched")
+        rng = np.random.default_rng(55)
+        g_es, g_acc = grads["p_es"].reshape(-1), grads["acc"].reshape(-1)
+        probes = [("p_es", int(i), g_es[int(i)].item())
+                  for i in rng.choice(g_es.numel(), size=2, replace=False)]
+        probes.append(("T", 0, grads["T"].item()))
+        i = int(rng.integers(g_acc.numel()))
+        probes.append(("acc", i, g_acc[i].item()))
+        g_ed = grads["base_p_ed"].reshape(-1)
+        i = int(g_ed.abs().argmax())
+        check(g_ed[i].item() != 0.0,
+              f"rollout_grad: {method} base_p_ed gradient is all zero")
+        probes.append(("base_p_ed", i, g_ed[i].item()))
+        rows = [fd_check(torch, E, soft, dev, leaf, idx, an,
+                         f"rollout_grad {method}")
+                for leaf, idx, an in probes]
+        # (3) the backward alone: device time, and kkt_vjp_ref's share
+        backward = backward_profile(torch, E, lp, soft, dev)
+        emit("rollout_grad", lp_method=method, devices=D_FLEET,
+             periods=GRAD_PERIODS, st_value=val_st.item(), hard_value=want,
+             st_abs_diff=diff, soft_value=value.item(),
+             forward_seconds=walls["forward"],
+             value_and_grad_seconds=walls["value_and_grad"],
+             value_and_grad_vs_forward=min(walls["value_and_grad"])
+             / min(walls["forward"]),
+             peak_mem_bytes=mem,
+             pivot_launches_forward={kname: launched},
+             pivot_launches_per_period=launched / GRAD_PERIODS,
+             fd=rows, **backward,
+             grad_norms={k: v.norm().item() for k, v in grads.items()})
+        del grads
+        # (4) the card against the CPU at 1024 devices
+        cfg = dataclasses.replace(
+            rollout_config("amr2"), n_devices=GRAD_CHECK_DEVICES,
+            n_servers=GRAD_CHECK_DEVICES // 16,
+            straggler_threshold=SCENARIO_CHECK_THRESHOLD)
+        small = jittered(torch, E.EngineParams.from_config(
+            cfg, lp_method=method, device=dev).with_differentiable(
+                smooth_mode="soft"))
+        cpu = small.to("cpu")
+        wrt = GRAD_WRT
+        vg, gg = E.rollout_value_and_grad(E.init_state(small, device=dev),
+                                          small, GRAD_PERIODS, wrt=wrt,
+                                          device=dev)
+        t0 = time.perf_counter()
+        vc, gc = E.rollout_value_and_grad(E.init_state(cpu, device="cpu"),
+                                          cpu, GRAD_PERIODS, wrt=wrt,
+                                          device="cpu")
+        cpu_s = time.perf_counter() - t0
+        check(abs(vg.item() - vc.item()) <= 1e-9 * abs(vc.item()),
+              f"rollout_grad: {method} value card {vg.item()} CPU "
+              f"{vc.item()}")
+        rel = {}
+        for f in wrt:
+            scale = max(gc[f].abs().max().item(), 1e-30)
+            rel[f] = (gg[f].cpu() - gc[f]).abs().max().item() / scale
+            check(rel[f] <= 1e-9, f"rollout_grad: {method} {f} card vs "
+                                  f"CPU {rel[f]}")
+        emit("rollout_grad", lp_method=method, run="card_vs_cpu",
+             devices=small.n_devices, cpu_seconds=cpu_s,
+             max_rel_diff=rel)
+    return pivots
+
+
+def backward_profile(torch, E, lp, params, dev):
+    """The gradient's backward alone under `torch.profiler`: its device
+    time and `kkt_vjp_ref`'s (a stand-in in `core.lp` wraps each call in a
+    profiler range), and its wall."""
+    import dataclasses
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    real = lp.kkt_vjp_ref
+
+    def ranged(*a, **k):
+        with record_function("kkt_vjp"):
+            return real(*a, **k)
+
+    leaves = {f: getattr(params, f).detach().clone().requires_grad_(True)
+              for f in GRAD_WRT}
+    with torch.enable_grad():
+        p = dataclasses.replace(params, **leaves)
+        s = dataclasses.replace(E.init_state(params, device=dev),
+                                p_ed=p.base_p_ed, p_es_belief=p.p_es)
+        total = []
+        for _ in range(GRAD_PERIODS):
+            s, m = E._step(s, p)
+            total.append(m.total_accuracy)
+        value = torch.stack(total).sum()
+        torch.cuda.synchronize()
+        lp.kkt_vjp_ref = ranged
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                torch.autograd.grad(value, list(leaves.values()))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            lp.kkt_vjp_ref = real
+    device_us = sum(ev.time_range.elapsed_us() for ev in prof.events()
+                    if ev.device_type == DeviceType.CUDA)
+    kkt_us, kkt_calls = 0.0, 0
+    for ev in prof.key_averages():
+        if ev.key == "kkt_vjp":
+            kkt_calls = ev.count
+            kkt_us = getattr(ev, "device_time_total",
+                             getattr(ev, "cuda_time_total", 0.0))
+    return dict(backward_seconds=wall, backward_device_seconds=device_us
+                / 1e6, kkt_vjp_device_seconds=kkt_us / 1e6,
+                kkt_vjp_calls=kkt_calls,
+                kkt_vjp_share=kkt_us / device_us if device_us else None)
+
 
 # --------------------------------------------------------------------------
 # phases 7 and 8: the LM forward and the serving runtime
@@ -3092,7 +3549,10 @@ def main() -> int:
         torch, dev, params, amr2_metrics)
     mobility_launches = phase_rollout_mobility(
         torch, dev, params, amr2_metrics, plain_launches)
-    for counted in (chaos_launches, mobility_launches):
+    phase_rollout_hi(torch, dev, params, amr2_metrics,
+                     _plain_seconds["revised"])
+    grad_launches = phase_rollout_grad(torch, dev, params)
+    for counted in (chaos_launches, mobility_launches, grad_launches):
         for name, n in counted.items():
             launches[name] += n
     del dual_params, amr2_metrics, fleet

@@ -1,7 +1,8 @@
 """Fleet engine: `EngineParams`, `EngineState`, `step` and `rollout`.
 
 Port of `repro.api.engine` — ``policy="amr2"`` or ``"dual"``, replayed or
-Poisson arrivals, and the chaos and mobility scenarios.  Each period:
+Poisson arrivals, the chaos, mobility and online hierarchical inference
+(HI) scenarios, and the differentiable rollout.  Each period:
 
   * moves and routes the devices when mobility is armed (replayed
     positions or a random walk; `mobility.route_cells`), and cold-starts
@@ -15,13 +16,16 @@ Poisson arrivals, and the chaos and mobility scenarios.  Each period:
   * plans every device in one batched solve (`_plan`): under amr2
     `amr2.build_lp_arrays_torch` -> `lp.simplex_batch_core` (warm from last
     period's basis) -> `amr2.round_relaxation_torch`; under dual the
-    bisection `dual.dual_one_batch`, which carries no basis;
+    bisection `dual.dual_one_batch`, which carries no basis.  Under HI the
+    confidence gate replaces the plan (`hi.sample_confidence`,
+    `hi.hi_period`): every sample runs the local model ``hi_local``, and
+    the gate offloads the low-confidence ones;
   * recovers lanes whose LP did not finish with the greedy local fill
     (`_recover_unsolved`);
   * admits offloads to the ES pool (`mobility.admit_mask_pool`; per cell
     with `mobility.admit_mask_segmented` when there are several);
   * replans the devices admission bumped, ES disabled, in a lane-masked
-    cold solve;
+    cold solve (under HI a bumped device's samples stay local);
   * prices the plan; under chaos, replays it through the period's fault
     realization and walks the degradation ladder
     (`faults.realize_execution`), and EMA-inflates the ES belief of
@@ -33,38 +37,50 @@ Python loop over `step`, and the simplex phases inside read their loop
 condition on the host.  Everything is float64 (`_require_f64`): a float32
 simplex cycles until ``maxiter``.
 
+The differentiable rollout (`EngineParams.with_differentiable`,
+`rollout_value_and_grad`) runs the same periods under autograd: the LP
+through `lp.simplex_batch_grad` (the pivot kernels forward, the implicit
+KKT adjoint backward), Algorithm 2's rounding and the first-fit admission
+relaxed (``smooth_mode`` "st": the hard forward with the relaxed
+Jacobians; "soft": the relaxed forward), the value the epoch's summed
+``total_accuracy``.
+
 Random streams cannot redraw jax's threefry streams.  Poisson arrivals,
-faults and the mobility walk are drawn on the params' device from
-generators seeded by (seed, period) (`_device.seeded_generator`), for the
-whole fleet at once, so a device's draw depends only on the seed, the
-period and its index in the fleet; they match the reference in
-distribution, not draw for draw.  Parity runs replay: arrivals from the
-presampled trace, positions from ``mobility.trace``, and faults from
-``EngineParams.fault_trace`` — a port-only field holding a realization
-per period (period t reads entry t mod H), which `sample_realization`
-fills when it is None.
+faults, the mobility walk and HI's confidences and EXP3 arm draws are
+drawn on the params' device from generators seeded by (seed, period)
+(`_device.seeded_generator`), for the whole fleet at once, so a device's
+draw depends only on the seed, the period and its index in the fleet;
+they match the reference in distribution, not draw for draw.  Parity runs
+replay: arrivals from the presampled trace, positions from
+``mobility.trace``, confidences from ``hi.conf_trace`` (``hi_stream=
+"replay"``), and two port-only fields — ``fault_trace`` (a realization
+per period) and ``hi_arm_trace`` (EXP3's arm uniforms, (H, D)); period t
+reads entry t mod H, and the draw fills in when a trace is None.
 
 Entry points run on the CUDA card unless given ``device="cpu"``; with no
-card and no device they raise.  Not ported yet (each raises
-`NotImplementedError` naming its ROADMAP item): online hierarchical
-inference, the differentiable rollout and the sharded entry points
-(``shard_by_cell`` among them).
+card and no device they raise.  Not ported yet: the sharded entry points
+(``shard_by_cell`` among them), which raise `NotImplementedError` naming
+ROADMAP §1 item 10.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .._device import (DeviceLike, check_device, resolve_device,
                        seeded_generator as _generator)
-from ..core.amr2 import build_lp_arrays_torch, round_relaxation_torch
+from ..core.amr2 import (build_lp_arrays_torch, round_relaxation_torch,
+                         soft_assignment_weights, straight_through_weights)
 from ..core.dual import dual_one_batch
 from ..core.faults import (FaultModel, FaultRealization, greedy_local_fill,
                            realize_execution, sample_realization)
-from ..core.lp import _bucket_maxiter, simplex_batch_core
+from ..core.hi import (HILearnerState, HIModel, draw_arm_uniforms,
+                       draw_uniforms, hi_period, sample_confidence,
+                       validate_hi)
+from ..core.lp import _bucket_maxiter, simplex_batch_core, simplex_batch_grad
 from ..core.mobility import (MobilityModel, admit_mask_pool,
                              admit_mask_segmented, route_cells,
                              validate_mobility)
@@ -74,12 +90,12 @@ from ..core.problem import (ES_DISABLED_SENTINEL, ST_UNSOLVED, FleetProblem,
 TRACEABLE_POLICIES = ("amr2", "dual")
 
 _ROADMAP = {
-    "hi": "online hierarchical inference is not ported yet (ROADMAP §1 "
-          "item 9)",
-    "differentiable": "the differentiable rollout is not ported yet "
-                      "(ROADMAP §1 item 9)",
     "sharded": "the sharded engine is not ported yet (ROADMAP §1 item 10)",
 }
+
+# EngineParams tensors `rollout_grad` may differentiate: the continuous
+# fleet knobs
+GRAD_LEAVES = ("p_es", "base_p_ed", "acc", "T")
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -102,11 +118,13 @@ class EngineParams:
 
     Scenarios: ``faults`` is read only while ``chaos`` is set
     (`with_faults`), ``mobility`` (float64 tensors on the params' device)
-    only while ``mobility_mode`` is not "off" (`with_mobility`).
-    ``fault_trace`` is port-only: a `FaultRealization` with a leading
-    period axis on every field that replaces the per-period draw (period
-    t reads entry t mod H; parity runs fill it with the reference's
-    draws)."""
+    only while ``mobility_mode`` is not "off" (`with_mobility`), ``hi``
+    only while ``hi_rule`` is not "off" (`with_hi`).  Two fields are
+    port-only replays of a draw: ``fault_trace``, a `FaultRealization`
+    with a leading period axis on every field, and ``hi_arm_trace``, (H,
+    D) EXP3 arm uniforms (period t reads entry t mod H; parity runs fill
+    them with the reference's draws).  ``differentiable`` arms the
+    relaxed rollout (`with_differentiable`)."""
 
     base_p_ed: torch.Tensor    # (D, c, m) ground-truth ED latencies
     p_es: torch.Tensor         # (D, c) ES latencies (comm incl.)
@@ -122,6 +140,8 @@ class EngineParams:
     mobility: MobilityModel = dataclasses.field(
         default_factory=MobilityModel.none)
     fault_trace: Optional[FaultRealization] = None
+    hi: HIModel = dataclasses.field(default_factory=HIModel.none)
+    hi_arm_trace: Optional[torch.Tensor] = None
     policy: str = "amr2"
     arrivals: str = "replay"
     n_servers: int = 1
@@ -146,6 +166,25 @@ class EngineParams:
     routing: str = "nearest"
     n_cells: int = 1
     mobility_seed: int = 0
+    # HI: ``hi_rule`` "off" or one of `hi.HI_RULES`; ``hi_stream`` "fold"
+    # (drawn from ``hi_seed``) or "replay" (``hi.conf_trace``);
+    # ``hi_arms`` sizes the bandits' grid; ``hi_local`` is the local model
+    # every sample runs on
+    hi_rule: str = "off"
+    hi_stream: str = "fold"
+    hi_arms: int = 9
+    hi_seed: int = 0
+    hi_local: int = 0
+    # the differentiable rollout: ``smooth_mode`` "st" (hard forward,
+    # relaxed Jacobians) or "soft" (relaxed forward); ``smooth_tau``
+    # tempers the assignment softmax, ``admit_tau`` the sigmoid capacity
+    # test (in units of T); ``grad_leaves`` the default leaves of
+    # `rollout_grad`
+    differentiable: bool = False
+    smooth_mode: str = "st"
+    smooth_tau: float = 0.25
+    admit_tau: float = 0.05
+    grad_leaves: Tuple[str, ...] = ("p_es", "T", "acc")
 
     @property
     def device(self) -> torch.device:
@@ -164,6 +203,16 @@ class EngineParams:
     def servers_per_cell(self) -> int:
         """ES servers fronted by each cell (the whole pool when S = 1)."""
         return self.n_servers // max(self.n_cells, 1)
+
+    @property
+    def m(self) -> int:
+        """Local models per device."""
+        return self.base_p_ed.shape[2]
+
+    @property
+    def hi_armed(self) -> bool:
+        """Online hierarchical inference replaces the plan."""
+        return self.hi_rule != "off"
 
     @classmethod
     def from_fleet(cls, devices, queue, *, T: float, n_servers: int = 1,
@@ -261,8 +310,8 @@ class EngineParams:
         """Build params from a `serving.FleetConfig` (the engine's twin of
         `FleetEngine.from_config`).  The replayed trace covers ``horizon``
         periods (default: the config's ``horizon``); ``lp_method``
-        defaults to the config's.  The config's chaos and mobility fields
-        arm those scenarios; an armed HI model raises (not ported)."""
+        defaults to the config's.  The config's chaos, mobility and HI
+        fields arm those scenarios."""
         horizon = horizon if horizon is not None else config.horizon
         return cls.from_fleet(
             config.build_devices(), config.build_queue(), T=config.T,
@@ -280,7 +329,13 @@ class EngineParams:
             mobility_mode=getattr(config, "mobility_mode", "replay"),
             routing=getattr(config, "routing", "nearest"),
             mobility_seed=getattr(config, "mobility_seed", 0),
-            device=device).with_hi(getattr(config, "hi", None))
+            device=device).with_hi(
+                getattr(config, "hi", None),
+                rule=getattr(config, "hi_rule", "threshold"),
+                stream=getattr(config, "hi_stream", "fold"),
+                n_arms=getattr(config, "hi_arms", 9),
+                hi_seed=getattr(config, "hi_seed", 0),
+                local_model=getattr(config, "hi_local", 0))
 
     def with_faults(self, faults: Optional[FaultModel], *,
                     max_retries: Optional[int] = None,
@@ -292,6 +347,12 @@ class EngineParams:
         ``fault_trace`` (port-only) replays those realizations instead of
         drawing; ``None`` draws."""
         fm = faults if faults is not None else FaultModel.none()
+        if self.hi_armed and not fm.is_null():
+            raise ValueError(
+                "chaos needs HI disarmed (hi_rule='off'): the realized-"
+                "execution ladder re-decides admitted samples and would "
+                "corrupt the learner's feedback; disarm with "
+                "with_hi(None) first")
         retries = self.max_retries if max_retries is None else max_retries
         if retries < 0:
             raise ValueError("max_retries must be >= 0")
@@ -315,6 +376,11 @@ class EngineParams:
             raise _not_ported("sharded")
         mob = mobility if mobility is not None else MobilityModel.none()
         mob_mode = mode if mobility is not None else "off"
+        if self.hi_armed and mob_mode != "off":
+            raise ValueError(
+                "mobility needs HI disarmed (hi_rule='off'): per-cell "
+                "admission of confidence-gated offloads is a later rung; "
+                "disarm with with_hi(None) first")
         validate_mobility(mob, n_devices=self.n_devices,
                           n_servers=self.n_servers, mode=mob_mode,
                           routing=routing)
@@ -325,29 +391,105 @@ class EngineParams:
             mobility_seed=(self.mobility_seed if mobility_seed is None
                            else mobility_seed))
 
-    def with_hi(self, hi, **_kw) -> "EngineParams":
-        """Online hierarchical inference: only disarming (``None``) is
-        ported."""
-        if hi is None:
-            return self
-        raise _not_ported("hi")
+    def with_differentiable(self, enabled: bool = True, *,
+                            smooth_mode: str = "st",
+                            smooth_tau: float = 0.25,
+                            admit_tau: float = 0.05,
+                            grad_leaves: Optional[Sequence[str]] = None
+                            ) -> "EngineParams":
+        """Arm (or disarm) the differentiable rollout.  It needs the amr2
+        LP (the implicit gradient lives at the simplex's converged basis)
+        and a deterministic accuracy pipeline, so chaos, mobility and HI
+        must be disarmed; ``smooth_mode``, ``smooth_tau`` and
+        ``admit_tau`` pick the relaxation (class docstring)."""
+        if enabled:
+            if self.policy != "amr2":
+                raise ValueError(
+                    f"differentiable rollouts need policy='amr2' (the LP "
+                    f"relaxation carries the gradient); got "
+                    f"{self.policy!r}")
+            if self.chaos:
+                raise ValueError(
+                    "differentiable rollouts need chaos disarmed: the "
+                    "fault ladder's retry/drop counters are discrete and "
+                    "the realized-execution pass is not relaxed")
+            if self.mobility_mode != "off":
+                raise ValueError(
+                    "differentiable rollouts need mobility off: routing "
+                    "and the per-cell admission are not relaxed yet")
+            if self.hi_armed:
+                raise ValueError(
+                    "differentiable rollouts need HI disarmed "
+                    "(hi_rule='off'): the per-sample threshold gate and "
+                    "the learner's argmax/draw updates are discrete and "
+                    "not relaxed; disarm with with_hi(None) first")
+            if smooth_mode not in ("st", "soft"):
+                raise ValueError(f"unknown smooth_mode {smooth_mode!r}; "
+                                 f"expected 'st' or 'soft'")
+            if not (smooth_tau > 0 and admit_tau > 0):
+                raise ValueError("smooth_tau and admit_tau must be > 0")
+            gl = (tuple(grad_leaves) if grad_leaves is not None
+                  else self.grad_leaves)
+            _check_grad_leaves("grad_leaves", gl)
+        else:
+            gl = self.grad_leaves
+        return dataclasses.replace(
+            self, differentiable=enabled, smooth_mode=smooth_mode,
+            smooth_tau=smooth_tau, admit_tau=admit_tau, grad_leaves=gl)
 
-    def with_differentiable(self, enabled: bool = True,
-                            **_kw) -> "EngineParams":
-        """The differentiable rollout: only disarming is ported."""
-        if not enabled:
-            return self
-        raise _not_ported("differentiable")
+    def with_hi(self, hi: Optional[HIModel], *, rule: str = "threshold",
+                stream: str = "fold", n_arms: int = 9,
+                hi_seed: Optional[int] = None, local_model: int = 0,
+                hi_arm_trace=None) -> "EngineParams":
+        """Arm (or disarm, with ``None``) online hierarchical inference.
+        Armed, the confidence gate replaces the plan: every sample runs
+        ``local_model`` on the device and is also offloaded iff its
+        confidence falls below the rule's threshold (`core.hi`); the
+        learner's state is `EngineState.hi`.  HI composes with drift,
+        outage and the ES-pool admission, not with chaos, mobility or the
+        differentiable relaxation.  ``hi_arm_trace`` (port-only; (H, D))
+        replays EXP3's arm uniforms; ``None`` draws them."""
+        if hi is None:
+            return dataclasses.replace(
+                self, hi=HIModel.none().to(self.device), hi_rule="off",
+                hi_stream="fold", hi_arm_trace=None)
+        if self.chaos:
+            raise ValueError(
+                "HI needs chaos disarmed: the realized-execution ladder "
+                "re-decides admitted samples and would corrupt the "
+                "learner's feedback; disarm with with_faults(None) first")
+        if self.mobility_mode != "off":
+            raise ValueError(
+                "HI needs mobility off: per-cell admission of confidence-"
+                "gated offloads is a later rung; disarm with "
+                "with_mobility(None) first")
+        if self.differentiable:
+            raise ValueError(
+                "HI needs the differentiable relaxation disarmed: the "
+                "threshold gate and learner updates are discrete; disarm "
+                "with with_differentiable(False) first")
+        validate_hi(hi, n_devices=self.n_devices,
+                    n_classes=self.base_p_ed.shape[1], n_models=self.m,
+                    rule=rule, stream=stream, n_arms=n_arms,
+                    local_model=local_model, batch_max=self.batch_max)
+        return dataclasses.replace(
+            self, hi=hi.to(self.device), hi_rule=rule, hi_stream=stream,
+            hi_arms=n_arms,
+            hi_seed=self.hi_seed if hi_seed is None else hi_seed,
+            hi_local=local_model,
+            hi_arm_trace=_arm_trace_on(hi_arm_trace, self.device,
+                                       self.n_devices))
 
     def to(self, device: DeviceLike) -> "EngineParams":
         """These params with every tensor on ``device``."""
         dev = torch.device(device)
-        trace = self.fault_trace
+        trace, arms = self.fault_trace, self.hi_arm_trace
         return dataclasses.replace(
             self, **{f: getattr(self, f).to(dev) for f in PARAM_ARRAYS},
-            mobility=self.mobility.to(dev),
+            mobility=self.mobility.to(dev), hi=self.hi.to(dev),
             fault_trace=(None if trace is None else FaultRealization(
-                *(x.to(dev) for x in trace))))
+                *(x.to(dev) for x in trace))),
+            hi_arm_trace=None if arms is None else arms.to(dev))
 
 
 # dtypes of the EngineParams tensors; everything else is float64
@@ -355,8 +497,10 @@ _PARAM_DTYPES = {"outage": torch.bool, "counts": torch.int32,
                  "stream": torch.int32}
 PARAM_ARRAYS = tuple(f.name for f in dataclasses.fields(EngineParams)
                      if f.type == "torch.Tensor")
-# the scenario models: objects of their own, carried by `params_from_arrays`
-PARAM_SCENARIOS = ("faults", "mobility", "fault_trace")
+# the scenario models and replayed draws: objects of their own, carried by
+# `params_from_arrays`
+PARAM_SCENARIOS = ("faults", "mobility", "fault_trace", "hi",
+                   "hi_arm_trace")
 PARAM_CONFIG = tuple(f.name for f in dataclasses.fields(EngineParams)
                      if f.type != "torch.Tensor"
                      and f.name not in PARAM_SCENARIOS)
@@ -372,6 +516,27 @@ def _validate_config(*, policy: str, arrivals: str, lp_method: str) -> None:
     if lp_method not in ("tableau", "revised"):
         raise ValueError(f"unknown lp_method {lp_method!r}; expected "
                          f"'tableau' or 'revised'")
+
+
+def _check_grad_leaves(what: str, leaves: Sequence[str]) -> None:
+    bad = [f for f in leaves if f not in GRAD_LEAVES]
+    if bad:
+        raise ValueError(f"{what} {bad} not differentiable; the continuous "
+                         f"EngineParams knobs are {GRAD_LEAVES}")
+
+
+def _arm_trace_on(trace, device: torch.device,
+                  n_devices: int) -> Optional[torch.Tensor]:
+    """A replayed EXP3 arm-uniform trace (H, D) as float64 on ``device``."""
+    if trace is None:
+        return None
+    t = torch.as_tensor(trace if isinstance(trace, torch.Tensor)
+                        else np.asarray(trace), dtype=torch.float64,
+                        device=device)
+    if t.dim() != 2 or t.shape[1] != n_devices or t.shape[0] == 0:
+        raise ValueError(f"hi_arm_trace must be (periods, {n_devices}) "
+                         f"uniforms; got {tuple(t.shape)}")
+    return t
 
 
 def _fault_trace_on(trace, device: torch.device, n_devices: int,
@@ -404,11 +569,13 @@ def _fault_trace_on(trace, device: torch.device, n_devices: int,
 def params_from_arrays(arrays: Dict[str, object], device: torch.device, *,
                        faults: Optional[FaultModel] = None,
                        mobility: Optional[MobilityModel] = None,
-                       fault_trace=None, **config) -> EngineParams:
+                       fault_trace=None, hi: Optional[HIModel] = None,
+                       hi_arm_trace=None, **config) -> EngineParams:
     """`EngineParams` from NumPy arrays/scalars named like its tensor
     fields (`PARAM_ARRAYS`), config keywords (`PARAM_CONFIG`, the
-    ``chaos`` and ``mobility_mode`` flags taken as given) and the scenario
-    models, carried to ``device``."""
+    ``chaos``, ``mobility_mode``, ``hi_rule`` and ``differentiable``
+    flags taken as given) and the scenario models, carried to
+    ``device``."""
     missing = set(PARAM_ARRAYS) - set(arrays)
     if missing:
         raise ValueError(f"missing param arrays {sorted(missing)}")
@@ -428,6 +595,9 @@ def params_from_arrays(arrays: Dict[str, object], device: torch.device, *,
     return EngineParams(**tensors, faults=faults if faults is not None
                         else FaultModel.none(),
                         mobility=mob.to(device), fault_trace=trace,
+                        hi=(hi if hi is not None else HIModel.none()
+                            ).to(device),
+                        hi_arm_trace=_arm_trace_on(hi_arm_trace, device, D),
                         **config)
 
 
@@ -437,8 +607,8 @@ class EngineState:
 
     ``seed`` takes the place of the reference's PRNG key: Poisson
     arrivals draw each period from generators seeded by (seed, period).
-    The reference's HI learner state belongs to a part not ported yet and
-    is not carried."""
+    ``hi`` is the HI learner's state (`init_state` always fills it; it is
+    read and advanced only while HI is armed)."""
 
     period: torch.Tensor       # () int32
     p_ed: torch.Tensor         # (D, c, m) belief latencies (audit state)
@@ -451,9 +621,12 @@ class EngineState:
     cell_load: torch.Tensor    # (S,) last period's admitted load per cell
     p_es_belief: torch.Tensor  # (D, c) priced ES latencies (chaos audit)
     seed: torch.Tensor         # () int64 Poisson arrival seed
+    hi: Optional[HILearnerState] = None
 
 
-STATE_FIELDS = tuple(f.name for f in dataclasses.fields(EngineState))
+# the tensor fields (``hi`` is a learner state of its own)
+STATE_FIELDS = tuple(f.name for f in dataclasses.fields(EngineState)
+                     if f.type == "torch.Tensor")
 _STATE_DTYPES = {"period": torch.int32, "pending": torch.int32,
                  "head": torch.int32, "warm_basis": torch.int32,
                  "n_updates": torch.int32, "cell": torch.int32,
@@ -462,15 +635,17 @@ _STATE_DTYPES = {"period": torch.int32, "pending": torch.int32,
 
 def state_from_arrays(arrays: Dict[str, object],
                       device: torch.device) -> EngineState:
-    """`EngineState` from NumPy arrays named like its fields."""
+    """`EngineState` from NumPy arrays named like its tensor fields, and
+    an optional ``hi`` (`HILearnerState`)."""
     missing = set(STATE_FIELDS) - set(arrays)
     if missing:
         raise ValueError(f"missing state arrays {sorted(missing)}")
+    hi = arrays.get("hi")
     return EngineState(**{
         name: torch.tensor(np.asarray(arrays[name]),
                            dtype=_STATE_DTYPES.get(name, torch.float64),
                            device=device)
-        for name in STATE_FIELDS})
+        for name in STATE_FIELDS}, hi=None if hi is None else hi.to(device))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -481,7 +656,9 @@ class PeriodMetrics:
     n_offload_samples`` and ``realized_makespan`` is the priced makespan;
     under chaos ``n_offload_samples == n_offload_ok + n_fallback_local +
     n_dropped`` every period.  ``n_handover`` counts the devices that
-    changed cells.  The HI fields (not ported) hold their disarmed 0."""
+    changed cells.  Under HI ``n_hi_offloaded + n_hi_local_final ==
+    n_jobs`` every period and ``hi_regret`` is the fleet's cumulative
+    pseudo-regret; all three are 0 while HI is off."""
 
     period: torch.Tensor
     n_jobs: torch.Tensor
@@ -516,8 +693,9 @@ METRIC_FIELDS = tuple(f.name for f in dataclasses.fields(PeriodMetrics))
 def init_state(params: EngineParams, *, seed: int = 0,
                device: DeviceLike = None) -> EngineState:
     """A fresh fleet: beliefs = profiles, empty backlog, cold bases; with
-    mobility armed, the trace's first positions and no serving cell yet.
-    ``seed`` (>= 0) seeds Poisson arrivals and is unused by replay."""
+    mobility armed, the trace's first positions and no serving cell yet;
+    a fresh HI learner at ``hi.theta0``.  ``seed`` (>= 0) seeds Poisson
+    arrivals and is unused by replay."""
     if seed < 0:
         raise ValueError("seed must be >= 0")
     dev = _entry_device(params, None, device)
@@ -537,7 +715,9 @@ def init_state(params: EngineParams, *, seed: int = 0,
         cell=torch.full((D,), -1 if armed else 0, **i32),
         cell_load=torch.zeros(max(params.n_cells, 1), **f64),
         p_es_belief=params.p_es.clone(),
-        seed=torch.tensor(seed, dtype=torch.int64, device=dev))
+        seed=torch.tensor(seed, dtype=torch.int64, device=dev),
+        hi=HILearnerState.init(D, params.hi_arms, params.hi.theta0,
+                               device=dev))
 
 
 # --------------------------------------------------------------------------
@@ -549,8 +729,10 @@ def _plan(params: EngineParams, fp: FleetProblem, warm_basis,
     relaxation (warm-or-cold simplex) and its rounding; dual: the
     bisection over every lane (``lane_mask`` unused), no basis, status 0
     ok and 1 fallback.  Returns ``(assignment (D, n) int32, status (D,)
-    int32, basis (D, R) int32)``; under dual the basis is ``warm_basis``
-    or, without one, all -1.  (The reference's CPU lane chunking,
+    int32, basis (D, R) int32, xbar)``; under dual the basis is
+    ``warm_basis`` or, without one, all -1.  ``xbar`` is None unless
+    ``differentiable`` is armed (amr2 only): then the LP goes through
+    `lp.simplex_batch_grad` and ``xbar`` is its relaxation (D, n, m+1).  (The reference's CPU lane chunking,
     `REPRO_PLAN_LANE_CHUNK`, is bitwise-invisible and has no counterpart
     here.)"""
     D, n = fp.p_es.shape
@@ -561,17 +743,21 @@ def _plan(params: EngineParams, fp: FleetProblem, warm_basis,
         basis = (warm_basis.to(torch.int32) if warm_basis is not None
                  else torch.full((D, params.n_basis_rows), -1,
                                  dtype=torch.int32, device=fp.p_ed.device))
-        return assign.to(torch.int32), st.to(torch.int32), basis
+        return assign.to(torch.int32), st.to(torch.int32), basis, None
     A, b, c_full = build_lp_arrays_torch(fp.p_ed, fp.p_es, fp.acc, fp.T)
     maxiter = params.maxiter if params.maxiter is not None else \
         _bucket_maxiter(50 * (A.shape[1] + 2))
-    x, _fun, st, _ni, basis, _ok = simplex_batch_core(
+    solve = (simplex_batch_grad if params.differentiable
+             else simplex_batch_core)
+    x, _fun, st, _ni, basis, _ok = solve(
         A, b, c_full, warm_basis, nv=n * (m + 1), maxiter=maxiter,
         tol=params.tol, lane_mask=lane_mask, method=params.lp_method)
+    xbar = x.reshape(D, n, m + 1)
     assign, sched_status, _nf = round_relaxation_torch(
-        fp.p_ed, fp.p_es, fp.acc, fp.T, x.reshape(D, n, m + 1), st,
+        fp.p_ed, fp.p_es, fp.acc, fp.T, xbar.detach(), st,
         frac_tol=params.frac_tol)
-    return assign, sched_status, basis.to(torch.int32)
+    return (assign, sched_status, basis.to(torch.int32),
+            xbar if params.differentiable else None)
 
 
 def _recover_unsolved(assign, unsolved, p_ed_jobs, mask, acc, T):
@@ -630,9 +816,30 @@ def _realization(params: EngineParams, t: int) -> FaultRealization:
                               params.max_retries + 1, device=params.device)
 
 
+def _hi_draws(params: EngineParams, t: int):
+    """Period ``t``'s HI draws ``(uniforms (D, n, 3), arm_u (D,) or
+    None)``: the confidence uniforms from ``hi.conf_trace`` (stream
+    "replay", entry t mod H) or drawn for (hi_seed, t); EXP3's arm
+    uniforms from ``hi_arm_trace`` (entry t mod H) or drawn for (hi_seed,
+    t), None under the other rules."""
+    dev, D = params.device, params.n_devices
+    if params.hi_stream == "replay":
+        trace = params.hi.conf_trace
+        uni = trace[t % trace.shape[0]]
+    else:
+        uni = draw_uniforms(params.hi_seed, t, D, params.batch_max, dev)
+    arm_u = None
+    if params.hi_rule == "exp3":
+        arms = params.hi_arm_trace
+        arm_u = (arms[t % arms.shape[0]] if arms is not None
+                 else draw_arm_uniforms(params.hi_seed, t, D, dev))
+    return uni, arm_u
+
+
 def _period(belief_p_ed, warm_basis, ci, take, drift_t, outage_t,
             es_tbl, params: EngineParams, *, real=None, link_factor=None,
-            covered=None, cell=None):
+            covered=None, cell=None, hi_state=None, hi_t=None,
+            hi_draws=None):
     """Everything after arrivals and before the state bookkeeping (the
     reference's `_period_impl`), shared by `step` and the host
     `FleetEngine`'s delegation.
@@ -642,17 +849,19 @@ def _period(belief_p_ed, warm_basis, ci, take, drift_t, outage_t,
     period's `FaultRealization`, read only under ``params.chaos``.
     Mobility: ``link_factor`` (D,) scales each device's ES times,
     ``covered`` (D,) False disables a device's ES column like an outage,
-    ``cell`` (D,) routes admission per cell when ``n_cells`` > 1.
+    ``cell`` (D,) routes admission per cell when ``n_cells`` > 1.  HI
+    (read only while armed): ``hi_state`` the incoming `HILearnerState`,
+    ``hi_t`` the period, ``hi_draws`` its `_hi_draws`.
 
     Returns ``(new_belief, new_warm_basis, upd (D,) bool, factor (D,),
-    new_es_belief (D, c), cell_load (S,), metrics dict)``; ``factor`` is
-    the EMA rescale each updated device's belief was multiplied by (the
-    delegation applies it to its profile tables).  Only amr2 carries a
-    basis forward; dual hands ``warm_basis`` back."""
+    new_es_belief (D, c), cell_load (S,), new_hi_state, metrics dict)``;
+    ``factor`` is the EMA rescale each updated device's belief was
+    multiplied by (the delegation applies it to its profile tables).  Only
+    amr2 carries a basis forward; dual and HI hand ``warm_basis`` back."""
     D, _c, m = belief_p_ed.shape
     n = params.batch_max
     dev = belief_p_ed.device
-    f64 = torch.float64
+    f64, i32 = torch.float64, torch.int32
     mask = torch.arange(n, device=dev)[None, :] < take[:, None]
     rows = torch.arange(D, device=dev)[:, None]
     ci = ci.clamp(0, params.p_es.shape[1] - 1)
@@ -672,12 +881,35 @@ def _period(belief_p_ed, warm_basis, ci, take, drift_t, outage_t,
     fp = FleetProblem.from_arrays_unchecked(p_ed_jobs, p_es_jobs,
                                             params.acc, Tvec, mask)
 
-    # ---- plan the whole fleet in one batched solve ----------------------
-    assign, status, basis = _plan(params, fp, warm_basis)
-    unsolved_lane = status == ST_UNSOLVED
-    n_unsolved = unsolved_lane.to(torch.int32)
-    assign = _recover_unsolved(assign, unsolved_lane, p_ed_jobs, mask,
-                               params.acc, params.T)
+    # ---- plan the whole fleet in one batched solve, or gate it (HI) -----
+    diff = params.differentiable
+    hi_armed = params.hi_armed
+    new_hi = hi_state
+    if hi_armed:
+        # every sample runs ``hi_local``; the gate also offloads the
+        # low-confidence ones.  No LP runs: the basis passes through.  An
+        # outage needs no special case: the disabled ES column prices the
+        # intended offloads out of admission, and they stay local below
+        lm = params.hi_local
+        acc_es_col = params.acc[:, m]
+        uni, arm_u = hi_draws
+        conf, correct_local, correct_es = sample_confidence(
+            None, params.hi, params.acc[:, lm], acc_es_col, ci, uniforms=uni)
+        offload_int, _theta, new_hi, _reg = hi_period(
+            params.hi_rule, params.hi, hi_state, conf, correct_local,
+            correct_es, mask, acc_es_col, hi_t, (params.hi_seed, hi_t),
+            params.hi_arms, arm_u=arm_u)
+        assign = torch.where(offload_int, m, lm).to(i32)
+        basis = (warm_basis.to(i32) if warm_basis is not None
+                 else torch.full((D, params.n_basis_rows), -1, dtype=i32,
+                                 device=dev))
+        n_unsolved = torch.zeros(D, dtype=i32, device=dev)
+    else:
+        assign, status, basis, xbar = _plan(params, fp, warm_basis)
+        unsolved_lane = status == ST_UNSOLVED
+        n_unsolved = unsolved_lane.to(i32)
+        assign = _recover_unsolved(assign, unsolved_lane, p_ed_jobs, mask,
+                                   params.acc, params.T)
 
     # ---- ES-pool admission: one pool, or per cell ----------------------
     demand = _slot_sum(torch.where(mask & (assign == m), p_es_jobs, 0.0))
@@ -687,39 +919,64 @@ def _period(belief_p_ed, warm_basis, ci, take, drift_t, outage_t,
         cell_load = _slot_sum(cloads)       # (S,), servers in order
         loads_total = _slot_sum(cell_load[None])[0]
     else:
-        admitted, loads, _inc = admit_mask_pool(demand, params.T,
-                                                params.n_servers)
+        admitted, loads, inc = admit_mask_pool(demand, params.T,
+                                               params.n_servers)
         loads_total = loads.sum()
         cell_load = loads_total[None]
     offl = demand > 0
     bumped = offl & ~admitted
 
-    # ---- backpressure: lane-masked ES-disabled replan -------------------
-    # skipped on no-bump periods; cold (no basis to factor) and only the
-    # bumped lanes pivot
-    if bool(bumped.any()):
+    # ---- backpressure ---------------------------------------------------
+    def _bp_problem():
         p_es_crippled = torch.where(mask, ES_DISABLED_SENTINEL, 0.0)
-        fp_bp = FleetProblem.from_arrays_unchecked(
+        return FleetProblem.from_arrays_unchecked(
             p_ed_jobs, p_es_crippled, params.acc, Tvec, mask)
-        assign_bp, st_bp, _ = _plan(
-            params, fp_bp, None,
+
+    if hi_armed:
+        # no second plan: a bumped device's intended offloads stay on the
+        # local model, which every sample ran already
+        assign = torch.where(bumped[:, None] & mask, params.hi_local, assign)
+    elif diff:
+        # the relaxed admission gives every offloader weight on its
+        # ES-disabled alternative, so the replan runs on every offloading
+        # lane; the hard merge still reads only the bumped ones
+        assign_bp, st_bp, _bas, xbar_bp = _plan(params, _bp_problem(), None,
+                                                lane_mask=offl)
+        unsolved_bp = bumped & (st_bp == ST_UNSOLVED)
+        assign_bp = _recover_unsolved(assign_bp, unsolved_bp, p_ed_jobs,
+                                      mask, params.acc, params.T)
+        assign_pre = assign                 # primary plan, post-recovery
+        assign = torch.where(bumped[:, None], assign_bp, assign)
+        n_unsolved = n_unsolved + unsolved_bp.to(i32)
+    elif bool(bumped.any()):
+        # lane-masked ES-disabled replan, skipped on no-bump periods; cold
+        # (no basis to factor) and only the bumped lanes pivot
+        assign_bp, st_bp, _bas, _x = _plan(
+            params, _bp_problem(), None,
             lane_mask=bumped if params.policy == "amr2" else None)
         unsolved_bp = bumped & (st_bp == ST_UNSOLVED)
         assign_bp = _recover_unsolved(assign_bp, unsolved_bp, p_ed_jobs,
                                       mask, params.acc, params.T)
         assign = torch.where(bumped[:, None], assign_bp, assign)
-        n_unsolved = n_unsolved + unsolved_bp.to(torch.int32)
+        n_unsolved = n_unsolved + unsolved_bp.to(i32)
 
     # ---- pricing --------------------------------------------------------
     acc_jobs = params.acc[rows, assign]
-    i32 = torch.int32
     n_jobs = mask.sum().to(i32)
-    on_ed = mask & (assign < m)
-    picked = assign.clamp(0, m - 1).long()[..., None]
-    ed_pred = torch.where(on_ed, torch.gather(p_ed_jobs, 2, picked)[..., 0],
-                          0.0).sum(dim=1)
-    ed_wall = torch.where(on_ed, torch.gather(base_jobs, 2, picked)[..., 0],
-                          0.0).sum(dim=1) * drift_t
+    if hi_armed:
+        # every sample runs the local model, offloaded ones too: the ED
+        # load prices the whole batch at ``hi_local``
+        ed_pred = p_ed_jobs[..., params.hi_local].sum(dim=1)
+        ed_wall = base_jobs[..., params.hi_local].sum(dim=1) * drift_t
+    else:
+        on_ed = mask & (assign < m)
+        picked = assign.clamp(0, m - 1).long()[..., None]
+        ed_pred = torch.where(on_ed,
+                              torch.gather(p_ed_jobs, 2, picked)[..., 0],
+                              0.0).sum(dim=1)
+        ed_wall = torch.where(on_ed,
+                              torch.gather(base_jobs, 2, picked)[..., 0],
+                              0.0).sum(dim=1) * drift_t
     es_wall = torch.where(admitted, demand, 0.0)
     es_samp = mask & (assign == m)          # admitted offloads (post-replan)
 
@@ -759,7 +1016,19 @@ def _period(belief_p_ed, warm_basis, ci, take, drift_t, outage_t,
             "n_es_audit_updates": es_upd.sum().to(i32),
         }
     else:
-        total_acc = torch.where(mask, acc_jobs, 0.0).sum()
+        if diff:
+            total_acc = _smoothed_accuracy(
+                params, mask, xbar, xbar_bp, assign_pre, assign_bp, inc,
+                admitted, offl)
+        elif hi_armed:
+            # expected served accuracy under perfect calibration: an
+            # admitted offload scores the ES accuracy, a local sample its
+            # own confidence (E[correct | conf] == conf)
+            total_acc = torch.where(
+                mask, torch.where(es_samp, acc_es_col[:, None], conf),
+                0.0).sum()
+        else:
+            total_acc = torch.where(mask, acc_jobs, 0.0).sum()
         wall = torch.maximum(ed_wall, es_wall)
         ed_audit = ed_wall
         new_es_belief = es_tbl
@@ -793,12 +1062,50 @@ def _period(belief_p_ed, warm_basis, ci, take, drift_t, outage_t,
         "es_utilization": loads_total / (params.n_servers * params.T),
         "realized_makespan": torch.clamp_min(wall.amax(), 0.0),
         **ladder,
-        "n_hi_offloaded": zero_i, "n_hi_local_final": zero_i,
-        "hi_regret": torch.zeros((), dtype=f64, device=dev),
     }
+    if hi_armed:
+        metrics.update(n_hi_offloaded=es_samp.sum().to(i32),
+                       n_hi_local_final=(mask & (assign != m)).sum().to(i32),
+                       hi_regret=new_hi.cum_regret.sum())
+    else:
+        metrics.update(n_hi_offloaded=zero_i, n_hi_local_final=zero_i,
+                       hi_regret=torch.zeros((), dtype=f64, device=dev))
     new_warm = basis if params.policy == "amr2" else warm_basis
     return (new_belief, new_warm, upd, factor, new_es_belief, cell_load,
-            metrics)
+            new_hi, metrics)
+
+
+def _smoothed_accuracy(params: EngineParams, mask, xbar, xbar_bp,
+                       assign_pre, assign_bp, inc, admitted, offl):
+    """The differentiable twin of the served accuracy.  Two discrete
+    stages are relaxed: Algorithm 2's rounding (temperature-softened
+    assignment weights over the LP relaxation) and first-fit admission (a
+    sigmoid capacity test on each offloader's inclusive server load
+    ``inc``, the value the first fit compared with T).  Per device: the
+    primary plan's accuracy and the ES-disabled replan's, blended by the
+    admission weight.  Under "st" the forward is the hard decision
+    (one-hot weights, the boolean admission) with the soft Jacobians."""
+    tau = params.smooth_tau
+    if params.smooth_mode == "st":
+        wP = straight_through_weights(xbar, assign_pre, tau=tau)
+        wBP = straight_through_weights(xbar_bp, assign_bp, tau=tau)
+    else:
+        wP = soft_assignment_weights(xbar, tau=tau)
+        wBP = soft_assignment_weights(xbar_bp, tau=tau)
+    accP = torch.where(mask, torch.einsum("dsi,di->ds", wP, params.acc),
+                       0.0).sum(dim=1)
+    accBP = torch.where(mask, torch.einsum("dsi,di->ds", wBP, params.acc),
+                        0.0).sum(dim=1)
+    adm_soft = torch.sigmoid((params.T + 1e-12 - inc)
+                             / (params.admit_tau * params.T))
+    if params.smooth_mode == "st":
+        adm_use = adm_soft + (admitted.to(adm_soft.dtype)
+                              - adm_soft).detach()
+    else:
+        adm_use = adm_soft
+    dev_acc = torch.where(offl, adm_use * accP + (1.0 - adm_use) * accBP,
+                          accP)
+    return dev_acc.sum()
 
 
 def _positions(state: EngineState, params: EngineParams, t: int):
@@ -852,10 +1159,12 @@ def _step(state: EngineState, params: EngineParams
     warm0 = torch.where(stale[:, None], -1, state.warm_basis)
     ci, take, pending, head = _arrivals(state, params, t)
     real = _realization(params, t) if params.chaos else None
-    new_belief, new_warm, upd, _factor, new_es_belief, cell_load, m = \
-        _period(state.p_ed, warm0, ci, take, drift_t, outage_t, es_belief0,
-                params, real=real, link_factor=link_factor,
-                covered=covered, cell=cell_t)
+    hi_draws = _hi_draws(params, t) if params.hi_armed else None
+    (new_belief, new_warm, upd, _factor, new_es_belief, cell_load, new_hi,
+     m) = _period(state.p_ed, warm0, ci, take, drift_t, outage_t,
+                  es_belief0, params, real=real, link_factor=link_factor,
+                  covered=covered, cell=cell_t, hi_state=state.hi, hi_t=t,
+                  hi_draws=hi_draws)
     n_jobs = m["n_jobs"]
     metrics = PeriodMetrics(
         period=state.period.clone(),
@@ -868,7 +1177,7 @@ def _step(state: EngineState, params: EngineParams
         head=head, warm_basis=new_warm.to(torch.int32),
         n_updates=(state.n_updates + upd.to(torch.int32)),
         pos=pos_t, cell=cell_t.to(torch.int32), cell_load=cell_load,
-        p_es_belief=new_es_belief, seed=state.seed)
+        p_es_belief=new_es_belief, seed=state.seed, hi=new_hi)
     return new_state, metrics
 
 
@@ -930,6 +1239,9 @@ def _checked(state, params, periods, device) -> None:
     _require_f64("state", state)
     _require_f64("params", params)
     _check_horizon(state, params, periods)
+    if params.hi_armed and state.hi is None:
+        raise ValueError("HI is armed but the state carries no learner "
+                         "(EngineState.hi); build it with init_state")
 
 
 def step(state: EngineState, params: EngineParams, *,
@@ -952,6 +1264,107 @@ def rollout(state: EngineState, params: EngineParams, periods: int, *,
     return state, PeriodMetrics(**{
         f: torch.stack([getattr(m, f) for m in history])
         for f in METRIC_FIELDS})
+
+
+# --------------------------------------------------------------------------
+# differentiation: the float / non-float split and rollout gradients
+# --------------------------------------------------------------------------
+# the placeholder of a tensor in the half it does not belong to
+_NONDIFF = None
+
+
+def _split(obj, floating: bool):
+    if isinstance(obj, torch.Tensor):
+        return obj if obj.is_floating_point() == floating else _NONDIFF
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        out = object.__new__(type(obj))
+        for f in dataclasses.fields(obj):
+            object.__setattr__(out, f.name,
+                               _split(getattr(obj, f.name), floating))
+        return out
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*(_split(x, floating) for x in obj))
+    return obj                 # configuration: kept in both halves
+
+
+def partition_diff(obj):
+    """Split a params or state value into ``(diff, nondiff)`` halves of
+    its own type: floating tensors keep their value in ``diff`` and are
+    ``None`` in ``nondiff``; integer and bool tensors (warm bases, cursors,
+    counters, masks) go the other way; configuration stays in both.
+    Nested models (faults, mobility, HI) split the same way, and
+    `combine_diff` reassembles the value."""
+    return _split(obj, True), _split(obj, False)
+
+
+def combine_diff(diff, nondiff):
+    """Inverse of `partition_diff`: each tensor from whichever half holds
+    it."""
+    if isinstance(diff, torch.Tensor) or isinstance(nondiff, torch.Tensor):
+        return diff if nondiff is _NONDIFF else nondiff
+    if dataclasses.is_dataclass(diff) and not isinstance(diff, type):
+        out = object.__new__(type(diff))
+        for f in dataclasses.fields(diff):
+            object.__setattr__(out, f.name, combine_diff(
+                getattr(diff, f.name), getattr(nondiff, f.name)))
+        return out
+    if isinstance(diff, tuple) and hasattr(diff, "_fields"):
+        return type(diff)(*(combine_diff(a, b)
+                            for a, b in zip(diff, nondiff)))
+    return diff
+
+
+def rollout_value_and_grad(state: EngineState, params: EngineParams,
+                           periods: int, *,
+                           wrt: Optional[Sequence[str]] = None,
+                           device: DeviceLike = None):
+    """``(value, grads)``: the epoch's summed ``total_accuracy`` and its
+    gradient with respect to the named `EngineParams` tensors (default:
+    ``params.grad_leaves``), as a dict keyed by name, each shaped like its
+    tensor.
+
+    The periods run under autograd: the LP differentiated implicitly at
+    its converged basis (`lp.simplex_batch_grad`), rounding and admission
+    relaxed per ``smooth_mode`` ("st": the value is the hard rollout's
+    served accuracy; "soft": the relaxed surrogate finite differences
+    check).  The beliefs are re-rooted at the differentiated tables (the
+    period prices from ``state.p_ed`` and ``state.p_es_belief``, which
+    `init_state` copies from them); without that every gradient with
+    respect to ``p_es`` and ``base_p_ed`` would be zero.  Needs
+    `EngineParams.with_differentiable`."""
+    if not params.differentiable:
+        raise ValueError(
+            "rollout_grad/rollout_value_and_grad need "
+            "params.with_differentiable(): with the flag off the period is "
+            "the hard (piecewise-constant) path and every gradient would "
+            "be zero")
+    _checked(state, params, int(periods), device)
+    wrt = tuple(wrt) if wrt is not None else tuple(params.grad_leaves)
+    _check_grad_leaves("wrt", wrt)
+    leaves = {f: getattr(params, f).detach().clone().requires_grad_(True)
+              for f in wrt}
+    with torch.enable_grad():
+        p = dataclasses.replace(params, **leaves)
+        s = dataclasses.replace(state, p_ed=p.base_p_ed,
+                                p_es_belief=p.p_es)
+        total = []
+        for _ in range(int(periods)):
+            s, m = _step(s, p)
+            total.append(m.total_accuracy)
+        value = torch.stack(total).sum()
+        grads = torch.autograd.grad(value, [leaves[f] for f in wrt],
+                                    allow_unused=True)
+    return value.detach(), {
+        f: (g if g is not None else torch.zeros_like(leaves[f]))
+        for f, g in zip(wrt, grads)}
+
+
+def rollout_grad(state: EngineState, params: EngineParams, periods: int,
+                 *, wrt: Optional[Sequence[str]] = None,
+                 device: DeviceLike = None):
+    """`rollout_value_and_grad` without the value."""
+    return rollout_value_and_grad(state, params, periods, wrt=wrt,
+                                  device=device)[1]
 
 
 def fleet_mesh(*_args, **_kwargs):

@@ -278,10 +278,11 @@ def _solve_fleet(fleet: FleetProblem, policy: str, backend: str, device,
                                                 _take_rows(opts, rest)))
         out.put(rest, sub, name)
         if len(rest) == B:
-            # a solver's extras (routed's cell and link_factor) survive
-            # when it planned the whole fleet
+            # a solver's extras (routed's cell and link_factor, the HI
+            # entries' learner state and threshold) survive when it
+            # planned the whole fleet
             sol = out.solution(fleet, t0)
-            for extra in ("cell", "link_factor"):
+            for extra in ("cell", "link_factor", "hi_state", "hi_theta"):
                 if hasattr(sub, extra):
                     setattr(sol, extra, getattr(sub, extra))
             return sol

@@ -2,9 +2,7 @@
 `repro.api.registry`).
 
 Each solver registers itself with a declared capability set, and
-`repro_torch.api.solve` dispatches on those capabilities.  The reference's
-``hi_threshold`` and ``hi_bandit`` entries are not ported yet: asking for
-one raises `NotImplementedError` naming its ROADMAP item.
+`repro_torch.api.solve` dispatches on those capabilities.
 """
 from __future__ import annotations
 
@@ -12,13 +10,6 @@ import dataclasses
 from typing import Callable, Dict, Protocol, runtime_checkable
 
 from ..core.problem import FleetProblem, Problem, Solution
-
-# registry entries of the reference that wait for a later slice
-_NOT_PORTED = {
-    "hi_threshold": "ROADMAP §1 item 9, online hierarchical inference",
-    "hi_bandit": "ROADMAP §1 item 9, online hierarchical inference",
-}
-
 
 @dataclasses.dataclass(frozen=True)
 class SolverInfo:
@@ -73,10 +64,6 @@ def get_solver(name: str) -> Solver:
     try:
         return _REGISTRY[name]
     except KeyError:
-        if name in _NOT_PORTED:
-            raise NotImplementedError(
-                f"solver {name!r} is not ported yet "
-                f"({_NOT_PORTED[name]})") from None
         raise ValueError(
             f"unknown solver {name!r}; registered: "
             f"{sorted(_REGISTRY)} (or policy='auto')") from None

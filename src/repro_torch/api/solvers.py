@@ -1,6 +1,7 @@
 """The registry entries (port of `repro.api.solvers`): the paper's AMR^2
 and AMDP, the Greedy-RRA baseline, the beyond-paper dual scheduler, the
-mobility scenario's routed AMR^2 and the LP bound behind the uniform
+mobility scenario's routed AMR^2, the online hierarchical-inference rules
+(``hi_threshold``, ``hi_bandit``) and the LP bound behind the uniform
 `Solver` protocol.
 
 ``solve_one`` plans one `Problem`; ``solve_fleet`` plans a same-shape
@@ -28,6 +29,7 @@ from ..core.amr2 import (ST_INFEASIBLE, ST_UNSOLVED, amr2_batch_arrays,
                          solve_lp_relaxation)
 from ..core.dual import dual_schedule, dual_schedule_batch_arrays
 from ..core.greedy import greedy_rra
+from ..core.hi import HILearnerState, HIModel, hi_period, validate_hi
 from ..core.lp import INFEASIBLE, OPTIMAL, solve_lp_batch
 from ..core.mobility import route_cells, validate_mobility
 from ..core.problem import (ES_DISABLED_SENTINEL, SOLUTION_STATUS_NAMES,
@@ -128,6 +130,117 @@ class RoutedSolver:
         sol.cell = cell.astype(np.int64)
         sol.link_factor = link_factor
         return sol
+
+
+class _HISolverBase:
+    """Host front end of the online hierarchical-inference rules
+    (`core.hi`): one period of per-sample decisions from an observed
+    confidence matrix, the learner advanced when the caller feeds back the
+    realized outcomes.  The decision needs no accuracy table: ``fleet.acc``
+    is read only for the regret.  The engine's twin is
+    `EngineParams.with_hi` + `rollout`; this entry is its single-period
+    host mirror (``solve_fleet`` only)."""
+
+    def _solve(self, fleet: FleetProblem, rule: str, *,
+               confidence: np.ndarray, hi=None, state=None,
+               observed_local=None, observed_es=None, t: int = 0,
+               seed: int = 0, n_arms: int = 9, local_model: int = 0,
+               device: DeviceLike = None) -> Solution:
+        """Decide this period's assignments from ``confidence`` (B, n).
+
+        ``hi`` is a `core.hi.HIModel` (default `HIModel.make()`),
+        ``state`` the incoming `HILearnerState` (default: fresh at the
+        model's ``theta0``).  With both ``observed_local`` and
+        ``observed_es`` (B, n) bool outcomes the learner advances;
+        without them the period is decide-only and the state comes back
+        unchanged.  The state (tensors on ``device``, to feed back) and
+        the served threshold (NumPy) ride on the solution as
+        ``sol.hi_state`` / ``sol.hi_theta``.  EXP3 draws its arm uniforms
+        for (seed, t)."""
+        B, n = fleet.p_es.shape
+        m = fleet.p_ed.shape[2]
+        dev = resolve_device(device)
+        hm = (hi if hi is not None else HIModel.make()).to(dev)
+        # the host mirror gets confidences directly (it never samples the
+        # calibration curves), so spread's class count is its own
+        validate_hi(hm, n_devices=B, n_classes=hm.spread.shape[0],
+                    n_models=m, rule=rule, stream="fold", n_arms=n_arms,
+                    local_model=local_model)
+        conf = np.asarray(confidence, np.float64)
+        if conf.shape != (B, n):
+            raise ValueError(
+                f"confidence must be ({B}, {n}) to match the fleet; got "
+                f"{conf.shape}")
+        hst = (state.to(dev) if state is not None else HILearnerState.init(
+            B, n_arms, hm.theta0, device=dev))
+        have_obs = observed_local is not None and observed_es is not None
+        cl = (np.asarray(observed_local, bool) if have_obs
+              else np.zeros((B, n), bool))
+        ces = (np.asarray(observed_es, bool) if have_obs
+               else np.zeros((B, n), bool))
+        acc_es = np.asarray(fleet.acc, np.float64)[:, m]
+        offload, theta_t, new_hst, _reg = hi_period(
+            rule, hm, hst, *(torch.as_tensor(a, device=dev)
+                             for a in (conf, cl, ces, fleet.real_mask)),
+            torch.as_tensor(acc_es, device=dev), t, (seed, t), n_arms)
+        offload = offload.cpu().numpy()
+        # phantoms follow the fleet convention: free ES columns
+        assignment = np.where(offload | ~fleet.real_mask, m, local_model
+                              ).astype(np.int64)
+        sol = Solution(problem=fleet, assignment=assignment,
+                       status=np.full(B, _STATUS_CODE["ok"], np.int64),
+                       solver=np.full(B, self.info.name, dtype=object))
+        # a decide-only call keeps the incoming state: the update above
+        # ran on all-False placeholder outcomes
+        sol.hi_state = new_hst if have_obs else hst
+        sol.hi_theta = theta_t.cpu().numpy()
+        return sol
+
+
+@register_solver(
+    "hi_threshold", batched=True, exact_on_identical=False,
+    supports_es_disabled=False, online=True,
+    description="online hierarchical inference: offload sample j iff "
+                "conf_j < theta, theta learned in-stream by OGD "
+                "(arXiv 2304.00891); engine twin: "
+                "EngineParams.with_hi(rule='threshold')")
+class HIThresholdSolver(_HISolverBase):
+    def solve_fleet(self, fleet: FleetProblem, *, confidence: np.ndarray,
+                    hi=None, state=None, observed_local=None,
+                    observed_es=None, t: int = 0, seed: int = 0,
+                    n_arms: int = 9, local_model: int = 0,
+                    device: DeviceLike = None) -> Solution:
+        return self._solve(
+            fleet, "threshold", confidence=confidence, hi=hi, state=state,
+            observed_local=observed_local, observed_es=observed_es, t=t,
+            seed=seed, n_arms=n_arms, local_model=local_model,
+            device=device)
+
+
+@register_solver(
+    "hi_bandit", batched=True, exact_on_identical=False,
+    supports_es_disabled=False, online=True,
+    description="online hierarchical inference: UCB over discretized "
+                "thresholds (rule='ucb'; EXP3 via rule='exp3'); engine "
+                "twin: EngineParams.with_hi(rule='ucb')")
+class HIBanditSolver(_HISolverBase):
+    """The rule is an argument of each call (the registry's one instance
+    keeps no per-call state)."""
+
+    def solve_fleet(self, fleet: FleetProblem, *,
+                    confidence: np.ndarray, rule: str = "ucb", hi=None,
+                    state=None, observed_local=None, observed_es=None,
+                    t: int = 0, seed: int = 0, n_arms: int = 9,
+                    local_model: int = 0,
+                    device: DeviceLike = None) -> Solution:
+        if rule not in ("ucb", "exp3"):
+            raise ValueError(f"hi_bandit rule must be 'ucb' or 'exp3'; "
+                             f"got {rule!r}")
+        return self._solve(
+            fleet, rule, confidence=confidence, hi=hi, state=state,
+            observed_local=observed_local, observed_es=observed_es, t=t,
+            seed=seed, n_arms=n_arms, local_model=local_model,
+            device=device)
 
 
 @register_solver(

@@ -4,13 +4,16 @@ packages in a parity test start from the same arrays.
 * `params_from_numpy` / `state_from_numpy`: the reference engine's
   `EngineParams` / `EngineState` fields, given as NumPy arrays and plain
   scalars keyed by the reference's field names, as the port's values on
-  ``device``, the chaos and mobility fields included.  Arrivals cross as
-  the replayed trace (``counts`` / ``stream``) and faults as a replayed
-  realization trace: `jax.random` streams cannot be redrawn in torch.
+  ``device``, the chaos, mobility, HI and differentiable fields
+  included.  Arrivals cross as the replayed trace (``counts`` /
+  ``stream``), faults as a replayed realization trace and HI's
+  confidences as its ``conf_trace`` (``hi_stream="replay"``): `jax.random`
+  streams cannot be redrawn in torch.
 * `fault_model_from_numpy`, `fault_trace_from_numpy`,
-  `mobility_from_numpy`: the reference's `FaultModel`, a list of its
-  per-period `FaultRealization` draws (stacked into the port's
-  ``fault_trace``) and its `MobilityModel`.
+  `mobility_from_numpy`, `hi_model_from_numpy`, `hi_state_from_numpy`:
+  the reference's `FaultModel`, a list of its per-period
+  `FaultRealization` draws (stacked into the port's ``fault_trace``), its
+  `MobilityModel`, `HIModel` and `HILearnerState`.
 * `fleet_problem_from_numpy`: a reference `FleetProblem` or
   `InstanceBatch` (anything with its array fields) as the port's
   `FleetProblem`.
@@ -41,13 +44,13 @@ from .api.engine import (PARAM_ARRAYS, PARAM_CONFIG, EngineParams,
                          EngineState, _not_ported, params_from_arrays,
                          state_from_arrays)
 from .core.faults import FAULT_FIELDS, FaultModel, FaultRealization
+from .core.hi import HI_STATE_FIELDS, HILearnerState, HIModel
 from .core.mobility import MOBILITY_FIELDS, MobilityModel
 
 # reference config fields whose non-default value arms a part of the
 # engine that is not ported yet
-_ARMED = {"hi_rule": ("hi", "off"),
-          "differentiable": ("differentiable", False),
-          "shard_by_cell": ("sharded", False)}
+_ARMED = {"shard_by_cell": ("sharded", False)}
+_HI_TENSORS = ("spread", "theta0", "conf_trace")
 
 
 def fault_model_from_numpy(fm) -> FaultModel:
@@ -76,15 +79,39 @@ def mobility_from_numpy(mm) -> MobilityModel:
                             for f in MOBILITY_FIELDS})
 
 
+def hi_model_from_numpy(hm) -> HIModel:
+    """The port's `HIModel` from the reference's (float64 array fields):
+    ``spread``, ``theta0`` and ``conf_trace`` as CPU tensors, the rest as
+    Python floats."""
+    return HIModel(**{
+        f: (torch.as_tensor(np.array(getattr(hm, f), np.float64))
+            if f in _HI_TENSORS else float(np.asarray(getattr(hm, f))))
+        for f in ("spread", "offload_cost", "lr", "tau", "theta0",
+                  "explore", "conf_trace")})
+
+
+def hi_state_from_numpy(hst, device: DeviceLike = None) -> HILearnerState:
+    """The port's `HILearnerState` on ``device`` from the reference's
+    (NumPy fields; ``arm`` int32, the rest float64)."""
+    dev = resolve_device(device)
+    return HILearnerState(**{
+        f: torch.as_tensor(np.array(getattr(hst, f)), device=dev,
+                           dtype=torch.int32 if f == "arm"
+                           else torch.float64)
+        for f in HI_STATE_FIELDS})
+
+
 def params_from_numpy(fields: Dict[str, object],
                       device: DeviceLike = None) -> EngineParams:
     """The port's `EngineParams` from the reference's fields.  Tensor
-    fields come from `PARAM_ARRAYS`, configuration (the ``chaos`` and
-    ``mobility_mode`` flags among it) from `PARAM_CONFIG`; ``faults`` and
-    ``mobility`` are the reference's models, and the port-only
-    ``fault_trace`` a list of its per-period draws.  The reference's HI,
-    differentiable and ``shard_by_cell`` knobs are ignored as long as they
-    are off; armed, they raise."""
+    fields come from `PARAM_ARRAYS`, configuration (the ``chaos``,
+    ``mobility_mode``, ``hi_rule`` and ``differentiable`` flags and the
+    HI and relaxation knobs among it) from `PARAM_CONFIG`; ``faults``,
+    ``mobility`` and ``hi`` are the reference's models, the port-only
+    ``fault_trace`` a list of its per-period draws and ``hi_arm_trace``
+    (H, D) EXP3 arm uniforms.  The reference's ``shard_by_cell`` is
+    ignored while off; armed, it raises (the sharded engine is not
+    ported)."""
     for key, (what, off) in _ARMED.items():
         if key in fields and fields[key] != off:
             raise _not_ported(what)
@@ -99,16 +126,24 @@ def params_from_numpy(fields: Dict[str, object],
     if fields.get("fault_trace") is not None:
         scenarios["fault_trace"] = fault_trace_from_numpy(
             fields["fault_trace"], dev)
+    if fields.get("hi") is not None:
+        scenarios["hi"] = hi_model_from_numpy(fields["hi"])
+    if fields.get("hi_arm_trace") is not None:
+        scenarios["hi_arm_trace"] = np.asarray(fields["hi_arm_trace"])
     return params_from_arrays(arrays, dev, **scenarios, **config)
 
 
 def state_from_numpy(fields: Dict[str, object],
                      device: DeviceLike = None) -> EngineState:
     """The port's `EngineState` from the reference's state fields, the
-    mobility leaves (``pos``, ``cell``, ``cell_load``) and the ES belief
-    included (the Poisson key and the HI learner are not carried; the
-    Poisson seed is ``fields["seed"]``, 0 when absent)."""
-    return state_from_arrays({"seed": 0, **fields}, resolve_device(device))
+    mobility leaves (``pos``, ``cell``, ``cell_load``), the ES belief and
+    the HI learner (``hi``, a reference `HILearnerState`) included (the
+    Poisson key is not carried; the Poisson seed is ``fields["seed"]``, 0
+    when absent)."""
+    dev = resolve_device(device)
+    hi = fields.get("hi")
+    return state_from_arrays({"seed": 0, **fields, "hi": None if hi is None
+                              else hi_state_from_numpy(hi, dev)}, dev)
 
 
 def fleet_problem_from_numpy(obj) -> FleetProblem:

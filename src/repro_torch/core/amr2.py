@@ -9,7 +9,8 @@ sub-ILP by (m+1)^2 enumeration, so the makespan stays within 2T
 
 * the engine's tensor path: `build_lp_arrays_torch` (counterpart of
   `build_lp_arrays_jnp`) and `round_relaxation_torch` (of
-  `round_relaxation_jnp`);
+  `round_relaxation_jnp`), and the differentiable rollout's relaxed
+  rounding, `soft_assignment_weights` and `straight_through_weights`;
 * the front door's host path: `build_lp_arrays(_batch)`, the batched LP
   solve (`lp.solve_lp_batch`, on the card) and the NumPy rounding
   `round_relaxation_batch`, whose rare >2-fractional rows drop to the
@@ -156,6 +157,29 @@ def round_relaxation_torch(p_ed, p_es, acc, T, xbar, status, *,
     assignment = torch.where(two[:, None] & (cols == j2[:, None]),
                              i2[:, None].to(torch.int32), assignment)
     return assignment, sched_status.to(torch.int32), n_frac
+
+
+def soft_assignment_weights(xbar, *, tau: float = 0.25):
+    """The smoothed twin of Algorithm 2's rounding: temperature-sharpened
+    assignment weights (B, n, m+1) from the LP relaxation ``xbar``,
+    ``softmax(log(clip(xbar, 1e-12, 1)) / tau)`` over the model axis (at
+    tau = 1 the renormalized ``xbar``; as tau -> 0 the rounding's argmax
+    on integral rows).  The clip is ``minimum(maximum(.))``, whose
+    gradient splits at the bounds as the reference's ``jnp.clip`` does."""
+    lo = torch.tensor(1e-12, dtype=xbar.dtype, device=xbar.device)
+    hi = torch.tensor(1.0, dtype=xbar.dtype, device=xbar.device)
+    lx = torch.log(torch.minimum(torch.maximum(xbar, lo), hi))
+    return torch.softmax(lx / tau, dim=2)
+
+
+def straight_through_weights(xbar, assignment, *, tau: float = 0.25):
+    """Straight-through twin: the forward is the one-hot of the hard
+    ``assignment`` (sub-ILP fix-ups included), the backward
+    `soft_assignment_weights`' Jacobian."""
+    soft = soft_assignment_weights(xbar, tau=tau)
+    hard = torch.nn.functional.one_hot(assignment.long(),
+                                       xbar.shape[2]).to(xbar.dtype)
+    return soft + (hard - soft).detach()
 
 
 # --------------------------------------------------------------------------

@@ -4,7 +4,9 @@ Port of the engine path of `repro.core.lp`: `simplex_batch_core` with its
 dense-tableau (`_two_phase_virtual` -> `_phase_batched`) and reduced
 revised (`_revised_core` -> `_revised_two_phase` -> `_revised_phase`)
 methods, the warm start (`_warm_init`, `_warm_init_reduced`,
-`_batched_inverse`) and the iteration budget (`_bucket_maxiter`).
+`_batched_inverse`), the iteration budget (`_bucket_maxiter`) and
+`simplex_batch_grad`, the same solve with an implicit-function gradient
+(a `torch.autograd.Function`).
 
 Problem form (canonicalised, ``b >= 0``): minimize ``c @ x`` subject to
 ``A x == b``, ``x >= 0``, batched over a leading lane axis.  Every
@@ -45,7 +47,8 @@ import torch
 
 from .._device import DeviceLike, resolve_device
 from ..kernels.simplex_pivot import ops as pivot_ops
-from ..kernels.simplex_pivot.ref import INT32_MAX, price_reduced_ref
+from ..kernels.simplex_pivot.ref import (INT32_MAX, kkt_vjp_ref,
+                                        price_reduced_ref)
 from .types import next_pow2
 
 OPTIMAL, ITERATION_LIMIT, INFEASIBLE, UNBOUNDED = 0, 1, 2, 3
@@ -380,6 +383,57 @@ def simplex_batch_core(A, b, c_full, basis0, *, nv: int, maxiter: int,
         tabA, rhs, bas.to(torch.int32), b, c_full, nv=nv, maxiter=maxiter,
         tol=tol, bland_after=bland_after, lane_mask=lane_mask)
     return x, fun, status, niter, bases, warm_ok
+
+
+# --------------------------------------------------------------------------
+# implicit differentiation: the VJP at the converged basis
+# --------------------------------------------------------------------------
+class _SimplexImplicit(torch.autograd.Function):
+    """`simplex_batch_core` forward; `kkt_vjp_ref` at the converged bases
+    backward.  The pivot loops never enter the graph: only their fixed
+    point, the optimal basis, feeds the backward."""
+
+    @staticmethod
+    def forward(ctx, A, b, c_full, basis0, lane_mask, cfg):
+        out = simplex_batch_core(A, b, c_full, basis0, lane_mask=lane_mask,
+                                 **cfg)
+        _x, _fun, status, niter, bases, warm_ok = out
+        ctx.save_for_backward(A, b, c_full, bases, status, lane_mask)
+        ctx.nv = cfg["nv"]
+        ctx.mark_non_differentiable(status, niter, bases, warm_ok)
+        return out
+
+    @staticmethod
+    def backward(ctx, gx, gfun, *_int_cotangents):
+        A, b, c_full, bases, status, lane_mask = ctx.saved_tensors
+        valid = status == OPTIMAL
+        if lane_mask is not None:
+            valid = valid & lane_mask
+        A_bar, b_bar, c_bar = kkt_vjp_ref(A, b, c_full, bases, gx, gfun,
+                                          valid, nv=ctx.nv)
+        return A_bar, b_bar, c_bar, None, None, None
+
+
+def simplex_batch_grad(A, b, c_full, basis0, *, nv: int, maxiter: int,
+                       tol: float = 1e-7, bland_after: int = BLAND_AFTER,
+                       lane_mask=None, method: str = "tableau"):
+    """`simplex_batch_core` with an implicit-function gradient.
+
+    The forward is `simplex_batch_core` itself (the same pivots, on a CUDA
+    tensor the ``simplex_pivot`` or ``reduced_pivot`` kernel by
+    ``method``; outputs bit for bit).  The backward never differentiates
+    the pivot loops: at the converged basis ``B`` the optimum is locally
+    ``x_B = B^{-1} b``, so the cotangents of ``(A, b, c_full)`` come from
+    one adjoint (R, R) solve per lane (`kernels.simplex_pivot.ref.
+    kkt_vjp_ref`).  ``status``, ``niter``, ``bases`` and ``warm_ok`` are
+    not differentiable; ``basis0`` and ``lane_mask`` get no gradient.
+
+    Non-OPTIMAL and masked lanes give exact zeros.  At a degenerate
+    optimal basis the optimum is not differentiable and the backward
+    returns the subgradient of the converged basis."""
+    cfg = dict(nv=nv, maxiter=maxiter, tol=tol, bland_after=bland_after,
+               method=method)
+    return _SimplexImplicit.apply(A, b, c_full, basis0, lane_mask, cfg)
 
 
 # --------------------------------------------------------------------------

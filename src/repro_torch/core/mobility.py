@@ -281,9 +281,11 @@ def admit_mask_pool(demands, T, n_servers: int):
 
     The first-index least-loaded rule places the sorted demands round-robin
     on the servers (see the reference's docstring for the induction), so
-    the running per-server loads are ``ceil(D/k)`` vectorized k-wide adds
-    — the same per-server floating-point addition order as a D-step
-    sequential first fit.  Rejections form a suffix of the sorted order.
+    the running per-server loads are a ``cumsum`` down the round axis of
+    the (ceil(D/k), k) matrix — one sequential sum per server on the CPU
+    and the card, the same addition order as a D-step sequential first
+    fit.  Rejections form a suffix of the sorted order.  Gradients flow
+    from ``demands`` to ``inc`` through the sort's gather.
 
     Returns ``(admitted (D,) bool, loads (n_servers,), inc (D,))`` with
     ``inc`` each device's inclusive server load at its placement (device
@@ -296,14 +298,13 @@ def admit_mask_pool(demands, T, n_servers: int):
     order = torch.argsort(eff, stable=True)
     sd = torch.where(active[order], demands[order], 0.0)
     rounds = -(-D // k)
-    mat = torch.cat([sd, torch.zeros(rounds * k - D, dtype=dtype,
-                                     device=dev)]).reshape(rounds, k)
-    inc_rows = []
-    loads = torch.zeros(k, dtype=dtype, device=dev)
-    for row in mat:
-        loads = loads + row
-        inc_rows.append(loads)
-    inc_mat = torch.stack(inc_rows)                   # (rounds, k)
+    # one column per server, and at least two: the card scans a (rounds,
+    # 1) matrix as a flat array, in parallel (another association), and a
+    # matrix of several columns one column at a time, in order
+    mat = torch.zeros((rounds, max(k, 2)), dtype=dtype, device=dev)
+    mat[:, :k] = torch.cat([sd, torch.zeros(rounds * k - D, dtype=dtype,
+                                            device=dev)]).reshape(rounds, k)
+    inc_mat = mat.cumsum(dim=0)[:, :k]                # (rounds, k)
     inc_sorted = inc_mat.reshape(rounds * k)[:D]
     fits = inc_sorted <= T + 1e-12
     posv = torch.arange(D, device=dev)

@@ -7,6 +7,11 @@ are held against on the card, and the pricing step `core.lp` runs after
 a revised phase.  Every function here is out of place; the `ops` wrappers
 carry the in-place contract of the kernels.
 
+`basis_columns_ref` and `kkt_vjp_ref` are the backward of the implicit-
+gradient simplex (`core.lp.simplex_batch_grad`): two (R, R) solves per
+lane at the converged basis, plain PyTorch on every device (the
+reference computes them in jnp, outside any Pallas kernel).
+
 The rank-1 updates ``x - u * v`` are `torch.addcmul(x, u, v, value=-1)`:
 one fused multiply-add, a single rounding — what XLA emits for the
 reference's expression on the CPU, and what the CUDA kernels compute with
@@ -109,3 +114,70 @@ def reduced_pivot_ref(A, c_phase, Binv, xB, basis, use_bland, may_pivot,
                         basis)
     return (F[:, :, :R], F[:, :, R], basis.to(torch.int32),
             has_enter, unbounded, rmin <= tol)
+
+
+def basis_columns_ref(A, basis):
+    """Each lane's basis matrix gathered from the column data.
+
+    A: (B, R, C0); basis: (B, R) labels, labels >= C0 virtual artificials
+    whose column is the unit vector ``e_{label - C0}`` (never
+    materialized).  Returns ``(Bmat (B, R, R), real (B, R) bool)``,
+    ``real`` marking the non-artificial members.  The sign a warm repair
+    gave an artificial is dropped: the adjoint zeroes artificial entries
+    (`kkt_vjp_ref`), and flipping such a column only rescales the adjoint
+    component that multiplies that zero."""
+    B, R, C0 = A.shape
+    real = basis < C0
+    basJ = basis.long().clamp(0, C0 - 1)
+    cols = torch.gather(A, 2, basJ[:, None, :].expand(B, R, R))
+    art_row = (basis.long() - C0).clamp(0, R - 1)
+    unit = (torch.arange(R, device=A.device)[None, :, None]
+            == art_row[:, None, :]).to(A.dtype)
+    return torch.where(real[:, None, :], cols, unit), real
+
+
+def kkt_vjp_ref(A, b, c_full, basis, gx, gfun, valid, *, nv: int):
+    """The implicit-function VJP of a converged simplex optimum.
+
+    At an optimal basis ``B`` the optimum is locally ``x_B = B^{-1} b``
+    with every nonbasic variable at 0 and ``fun = c_B^T x_B``, so given
+    output cotangents ``gx`` (B, nv) and ``gfun`` (B,), one adjoint solve
+    per lane yields every input cotangent:
+
+        g_B   = gx[basis] + gfun * c_B          (artificials: 0)
+        y     = B^{-T} g_B
+        b-bar = y
+        A-bar = -y (x_B scattered to the basic columns)^T
+        c-bar = gfun * x_B scattered to the basic columns
+
+    ``valid`` (B,) bool marks lanes whose basis means something (OPTIMAL,
+    unmasked): the others get an identity factor before the solve (gating
+    after it would leak ``NaN * 0`` from singular garbage factors) and
+    exact zeros.  Each lane's (R, R) solve is `torch.linalg.solve_ex`
+    (no error check, no host sync: like the reference's solve, a singular
+    valid factor gives inf/nan rather than raising).  Returns ``(A_bar,
+    b_bar, c_bar)`` shaped like A, b and c_full."""
+    B, R, C0 = A.shape
+    dtype, dev = A.dtype, A.device
+    Bmat, real = basis_columns_ref(A, basis)
+    eye = torch.eye(R, dtype=dtype, device=dev).expand(B, R, R)
+    Bsafe = torch.where(valid[:, None, None], Bmat, eye)
+    basJ = basis.long().clamp(0, C0 - 1)
+
+    xB = torch.linalg.solve_ex(Bsafe, b[..., None])[0][..., 0]
+    gxp = torch.cat([gx, torch.zeros((B, C0 - nv), dtype=dtype, device=dev)],
+                    dim=1)                                  # slacks: 0
+    gB = (torch.gather(gxp, 1, basJ)
+          + gfun[:, None] * torch.gather(c_full, 1, basJ))
+    keep = real & valid[:, None]
+    gB = torch.where(keep, gB, 0.0)
+    y = torch.linalg.solve_ex(Bsafe.transpose(1, 2), gB[..., None])[0][..., 0]
+
+    w = torch.where(keep, xB, 0.0)
+    b_bar = torch.where(valid[:, None], y, 0.0)
+    wcol = torch.zeros((B, C0), dtype=dtype, device=dev).scatter_add(
+        1, basJ, w)
+    A_bar = -b_bar[:, :, None] * wcol[:, None, :]
+    c_bar = torch.zeros((B, C0), dtype=dtype, device=dev).scatter_add(
+        1, basJ, gfun[:, None] * w)
+    return A_bar, b_bar, c_bar

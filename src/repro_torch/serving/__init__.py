@@ -7,11 +7,10 @@ status codes), `runtime` (`ServingRuntime`, `PeriodStats`,
 `audit_profile`), `queue` (`RequestQueue`), `fleet` (`FleetEngine` and its
 delegation to the tensor engine, `FleetConfig`, `UnsolvedPeriodError`,
 `make_fleet`, ...), `faults` (the chaos fault model and degradation
-ladder), `engine_v2` (the tensor engine under the serving namespace) and
-the deprecated `planner` shims.  Not ported yet: the reference's `hi`
-(ROADMAP §1 item 9).
+ladder), `hi` (online hierarchical inference), `engine_v2` (the tensor
+engine under the serving namespace) and the deprecated `planner` shims.
 """
-from . import engine_v2
+from . import engine_v2, hi
 from .faults import (FaultModel, FaultRealization, greedy_local_fill,
                      realize_execution, sample_realization)
 from .executor import (EXEC_DROPPED, EXEC_FALLBACK_LOCAL, EXEC_OK_ED,
@@ -41,5 +40,5 @@ __all__ = [
     "paper_style_profile", "roofline_style_profile",
     "FaultModel", "FaultRealization", "sample_realization",
     "greedy_local_fill", "realize_execution",
-    "engine_v2",
+    "engine_v2", "hi",
 ]

@@ -14,8 +14,9 @@
   (`api.engine._period`) on ``device``: the host only polls the queue,
   maps arrival values to class indices and books the stats, so `run(P)`
   equals `api.engine.rollout` of the same config bit for bit, the chaos
-  scenario included (``faults=``: the host threads the audited ES belief
-  and each period's fault realization as the rollout does).  A period
+  and HI scenarios included (``faults=``, ``hi=``: the host threads the
+  audited ES belief, the HI learner and each period's draws as the
+  rollout does).  A period
   that leaves LP lanes unsolved raises `UnsolvedPeriodError` (or warns
   under ``strict="warn"``).  Every other fleet runs the host period
   pipeline (the reference's `_run_period_host`): per shape group one
@@ -29,11 +30,9 @@
   stripping, sequential replans, per-device audit), the oracle and
   baseline the array-resident loop is held to.
 
-Chaos needs the delegation (an armed model on the host pipeline raises
-`ValueError`, as in the reference), and mobility runs on the tensor engine
-only (`from_config` with an armed model raises `ValueError`).  Not ported
-yet: hierarchical inference, which raises `NotImplementedError` naming the
-ROADMAP item.
+Chaos and HI need the delegation (an armed model on the host pipeline
+raises `ValueError`, as in the reference), and mobility runs on the tensor
+engine only (`from_config` with an armed model raises `ValueError`).
 """
 from __future__ import annotations
 
@@ -53,6 +52,7 @@ from ..api.registry import get_solver
 from ..core.instances import (PAPER_ACC, PAPER_COMM, PAPER_P_ED,
                               PAPER_P_ES_PROC)
 from ..core.faults import FaultModel, FaultRealization
+from ..core.hi import HILearnerState, HIModel
 from ..core.lp import _check_backend
 from ..core.mobility import MobilityModel
 from ..core.problem import ES_DISABLED_SENTINEL, FleetProblem, Problem
@@ -60,12 +60,6 @@ from ..core.types import OffloadInstance, Schedule
 from .profile import TierProfile, roofline_profile
 from .queue import RequestQueue
 from .runtime import audit_profile
-
-_NOT_PORTED = {
-    "hi": "online hierarchical inference is not ported yet (ROADMAP §1 "
-          "item 9)",
-}
-
 
 class UnsolvedPeriodError(RuntimeError):
     """A delegated period left ``n_unsolved`` LP lanes uncertified under
@@ -246,7 +240,8 @@ class FleetPeriodStats:
     n_dropped: int = 0
     realized_makespan: float = 0.0
     n_es_audit_updates: int = 0
-    # online hierarchical inference (not ported): zeros
+    # online hierarchical inference: every sample runs the local model, so
+    # n_hi_offloaded + n_hi_local_final == n_jobs; zeros while HI is off
     n_hi_offloaded: int = 0
     n_hi_local_final: int = 0
     hi_regret: float = 0.0
@@ -350,7 +345,9 @@ class FleetConfig:
     ``faults`` arms chaos (delegation only); ``fault_trace`` (port-only)
     replays a fault realization per period instead of drawing.
     ``mobility`` arms mobility for `EngineParams.from_config` (the tensor
-    engine only).  HI is not ported: ``hi`` must stay None."""
+    engine only).  ``hi`` arms online hierarchical inference (delegation
+    only; ``hi_rule`` picks the rule, the confidence gate replaces the
+    plan)."""
 
     # engine
     n_devices: int
@@ -380,8 +377,14 @@ class FleetConfig:
     mobility_mode: str = "replay"
     routing: str = "nearest"
     mobility_seed: int = 0
-    # online hierarchical inference (ROADMAP §1 item 9): None only
-    hi: Optional[object] = None
+    # online hierarchical inference (delegation only; see serving.hi).
+    # None disarms; `EngineParams.from_config` picks these up.
+    hi: Optional[HIModel] = None
+    hi_rule: str = "threshold"
+    hi_stream: str = "fold"
+    hi_arms: int = 9
+    hi_seed: int = 0
+    hi_local: int = 0
     # traffic (RequestQueue)
     classes: Sequence[int] = (128, 512, 1024)
     rate: float = 10.0
@@ -446,7 +449,9 @@ class FleetEngine:
                    faults=config.faults, max_retries=config.max_retries,
                    fault_seed=config.fault_seed,
                    fault_trace=config.fault_trace, hi=config.hi,
-                   device=device)
+                   hi_rule=config.hi_rule, hi_stream=config.hi_stream,
+                   hi_arms=config.hi_arms, hi_seed=config.hi_seed,
+                   hi_local=config.hi_local, device=device)
 
     def __init__(self, devices: Sequence[DeviceSpec], queue: RequestQueue, *,
                  n_servers: int = 1, T: float, policy: str = "auto",
@@ -455,7 +460,10 @@ class FleetEngine:
                  lp_method: str = "tableau", strict: str = "raise",
                  faults: Optional[FaultModel] = None, max_retries: int = 2,
                  fault_seed: int = 0,
-                 fault_trace: Optional[FaultRealization] = None, hi=None,
+                 fault_trace: Optional[FaultRealization] = None,
+                 hi: Optional[HIModel] = None, hi_rule: str = "threshold",
+                 hi_stream: str = "fold", hi_arms: int = 9,
+                 hi_seed: int = 0, hi_local: int = 0,
                  device: DeviceLike = None):
         if queue.n_devices != len(devices):
             raise ValueError("queue.n_devices must match the fleet size")
@@ -480,8 +488,6 @@ class FleetEngine:
                 raise ValueError(
                     f"device {d} ({spec.profile.name}) has no profile entry "
                     f"for queue classes {sorted(missing)}")
-        if hi is not None:
-            raise NotImplementedError(_NOT_PORTED["hi"])
         self.devices = [_DeviceState(spec=d, profile=d.profile)
                         for d in devices]
         self.queue = queue
@@ -540,6 +546,17 @@ class FleetEngine:
             # rollout's EngineState.p_es_belief (== p_es until chaos
             # inflates rows)
             self._v2_es_belief = self._v2_params.p_es.clone()
+            self._v2_hi_state = None
+            if hi is not None:
+                # arm HI on the delegated params (chaos must be off) and
+                # carry the learner between periods as the rollout's
+                # EngineState.hi
+                self._v2_params = self._v2_params.with_hi(
+                    hi, rule=hi_rule, stream=hi_stream, n_arms=hi_arms,
+                    hi_seed=hi_seed, local_model=hi_local)
+                self._v2_hi_state = HILearnerState.init(
+                    len(devices), hi_arms, self._v2_params.hi.theta0,
+                    device=self.device)
         if faults is not None and not faults.is_null() \
                 and self._v2_params is None:
             # the ladder lives in the tensor engine's period core; there
@@ -549,6 +566,14 @@ class FleetEngine:
                 "backend, amr2/dual policy, one profile shape group, "
                 "delegate=True); this engine would run the host period "
                 "pipeline")
+        if hi is not None and self._v2_params is None:
+            # the confidence gate and the learner live in the tensor
+            # engine's period core; the host pipeline has no twin
+            raise ValueError(
+                "online hierarchical inference needs the engine-v2 "
+                "delegation (torch backend, amr2/dual policy, one profile "
+                "shape group, delegate=True); this engine would run the "
+                "host period pipeline")
 
     def run(self, periods: int) -> List[FleetPeriodStats]:
         """Run ``periods`` periods.  Under ``strict="raise"`` an unsolved
@@ -604,7 +629,9 @@ class FleetEngine:
         # the period's fault realization: the draw (or replayed entry)
         # `rollout` makes for period t
         real = _engine._realization(params, t) if params.chaos else None
-        _belief, new_warm, upd, factor, es_belief, _load, m = \
+        # HI: the period's draws and the learner, as `rollout` threads them
+        hi_draws = _engine._hi_draws(params, t) if params.hi_armed else None
+        _belief, new_warm, upd, factor, es_belief, _load, new_hi, m = \
             _engine._period(
                 torch.as_tensor(belief, device=dev),
                 torch.as_tensor(warm, device=dev),
@@ -612,8 +639,10 @@ class FleetEngine:
                 torch.as_tensor(take, device=dev),
                 torch.as_tensor(drift, device=dev),
                 torch.as_tensor(outage, device=dev), self._v2_es_belief,
-                params, real=real)
+                params, real=real, hi_state=self._v2_hi_state, hi_t=t,
+                hi_draws=hi_draws)
         self._v2_es_belief = es_belief
+        self._v2_hi_state = new_hi
         m = {k: v.item() for k, v in m.items()}
         plan_seconds = time.perf_counter() - t0
         if m["n_unsolved"]:

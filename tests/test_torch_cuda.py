@@ -8,7 +8,11 @@ armed too); the chaos and mobility rollouts against the CPU under one
 replayed trace (drawn on
 the card, copied to the CPU), and the segmented admission bit for bit
 against the CPU, across two card runs and, in its admitted set, against
-the sequential oracle.
+the sequential oracle; the one-pool admission bit for bit against the
+CPU; the HI rollout of each rule against the CPU under one trace drawn
+on the card (and replay == fold on the card); the differentiable
+rollout's value and gradients against the CPU's, and the implicit
+gradient's backward (`kkt_vjp_ref`) against the CPU.
 
 Every test here is marked ``gpu`` and skips (with the reason) where no
 card is visible.  The file imports no JAX — it compares the port with
@@ -1164,3 +1168,113 @@ def test_cuda_segmented_admission_is_bitwise_and_deterministic(
     oracle, _ = admit_mask_cells_np(demands, cell, T, n_cells, k)
     np.testing.assert_array_equal(want[0].numpy(), oracle)
     assert oracle.any() and not oracle.all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 3, 1024])
+def test_cuda_pool_admission_is_bitwise(cuda_device, k):
+    """The one-pool admission's running loads (one `cumsum` down the round
+    axis) equal the CPU's bit for bit on tie-heavy demands, inc included."""
+    from repro_torch.core.mobility import admit_mask_pool
+    D = 16384
+    rng = np.random.default_rng(k)
+    demands = rng.choice([0.0, 0.1, 0.2, 0.25, 0.3, 0.45, 0.7], D)
+    T = torch.tensor(0.3 * D * 0.3 / k, dtype=torch.float64)
+    want = admit_mask_pool(torch.as_tensor(demands), T, k)
+    got = admit_mask_pool(torch.as_tensor(demands, device=cuda_device),
+                          T.to(cuda_device), k)
+    for g, w in zip(got, want):
+        assert g.is_cuda and torch.equal(g.cpu(), w)
+    assert bool(want[0].any()) and not bool(want[0].all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rule", ["fixed", "threshold", "ucb", "exp3"])
+def test_cuda_hi_rollout_matches_cpu_under_one_trace(cuda_device, rule):
+    """Online hierarchical inference: the confidence and arm streams drawn
+    once on the card, replayed on the card and, copied, on the CPU
+    (integers exact, floats and the learner to 1e-9); on the card the
+    replayed rollout equals the drawn one bit for bit."""
+    from repro_torch.core.hi import (HI_STATE_FIELDS, HIModel,
+                                     draw_arm_uniforms, presample_stream)
+    D, P = 1024, 6
+    base = _scenario_params(cuda_device, D, P)
+    tr = presample_stream(5, D, 12, P, device=cuda_device)
+    arms = torch.stack([draw_arm_uniforms(5, t, D, cuda_device)
+                        for t in range(P)])
+    fold = base.with_hi(HIModel.make(), rule=rule, n_arms=5, hi_seed=5)
+    gpu = base.with_hi(HIModel.make(conf_trace=tr), rule=rule, n_arms=5,
+                       stream="replay", hi_seed=5, hi_arm_trace=arms)
+    cpu = gpu.to("cpu")
+    sf, mf = E.rollout(E.init_state(fold, device=cuda_device), fold, P,
+                       device=cuda_device)
+    sg, mg = E.rollout(E.init_state(gpu, device=cuda_device), gpu, P,
+                       device=cuda_device)
+    for f in E.METRIC_FIELDS:
+        assert torch.equal(getattr(mf, f), getattr(mg, f)), f
+    sc, mc = E.rollout(E.init_state(cpu, device="cpu"), cpu, P,
+                       device="cpu")
+    _assert_rollouts_equal(mg, mc, sg, sc)
+    for f in HI_STATE_FIELDS:
+        a, b = getattr(sg.hi, f).cpu(), getattr(sc.hi, f)
+        if a.is_floating_point():
+            assert (a - b).abs().max().item() <= 1e-9, f
+        else:
+            assert torch.equal(a, b), f
+    assert torch.equal(mc.n_hi_offloaded + mc.n_hi_local_final, mc.n_jobs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lp_method", ["tableau", "revised"])
+def test_cuda_rollout_grad_matches_cpu(cuda_device, lp_method):
+    """`rollout_value_and_grad` (soft relaxation) on the card: the forward
+    launches the pivot kernel of its method, and the value and every
+    gradient equal the CPU's within rtol 1e-9."""
+    D, P = 256, 3
+    gpu = _scenario_params(cuda_device, D, P, lp_method=lp_method)
+    gpu = gpu.with_differentiable(smooth_mode="soft")
+    cpu = gpu.to("cpu")
+    wrt = ("p_es", "T", "acc", "base_p_ed")
+    ops.reset_launches()
+    vg, gg = E.rollout_value_and_grad(E.init_state(gpu, device=cuda_device),
+                                      gpu, P, wrt=wrt, device=cuda_device)
+    kernel = (ops.pivot_update if lp_method == "tableau"
+              else ops.reduced_pivot)
+    assert kernel.launches > 0
+    vc, gc = E.rollout_value_and_grad(E.init_state(cpu, device="cpu"), cpu,
+                                      P, wrt=wrt, device="cpu")
+    assert abs(vg.item() - vc.item()) <= 1e-9 * abs(vc.item())
+    for f in wrt:
+        scale = max(gc[f].abs().max().item(), 1e-30)
+        assert (gg[f].cpu() - gc[f]).abs().max().item() <= 1e-9 * scale, f
+    assert gc["p_es"].abs().sum().item() > 0
+
+
+@pytest.mark.gpu
+def test_cuda_kkt_vjp_matches_cpu(cuda_device):
+    """The implicit gradient's backward (two batched (R, R) solves a lane)
+    on the card against the CPU, at the fleet LP's shape."""
+    from repro_torch.core.amr2 import build_lp_arrays_torch
+    from repro_torch.core.lp import simplex_batch_core
+    from repro_torch.kernels.simplex_pivot.ref import kkt_vjp_ref
+    g = torch.Generator().manual_seed(3)
+    Bn, n, m = 512, 12, 2
+    p_ed = torch.rand((Bn, n, m), generator=g, dtype=torch.float64) * 0.3
+    p_es = torch.rand((Bn, n), generator=g, dtype=torch.float64) * 0.4
+    acc = torch.sort(torch.rand((Bn, m + 1), generator=g,
+                                dtype=torch.float64), dim=1).values
+    A, b, c = build_lp_arrays_torch(p_ed, p_es, acc,
+                                    torch.full((Bn,), 1.2,
+                                               dtype=torch.float64))
+    nv = n * (m + 1)
+    out = simplex_batch_core(A, b, c, None, nv=nv, maxiter=512)
+    gx = torch.randn((Bn, nv), generator=g, dtype=torch.float64)
+    gfun = torch.randn((Bn,), generator=g, dtype=torch.float64)
+    valid = out[2] == 0
+    want = kkt_vjp_ref(A, b, c, out[4], gx, gfun, valid, nv=nv)
+    got = kkt_vjp_ref(*(x.to(cuda_device) for x in (A, b, c, out[4], gx,
+                                                    gfun, valid)), nv=nv)
+    for a, w in zip(got, want):
+        assert a.is_cuda
+        scale = max(w.abs().max().item(), 1.0)
+        assert (a.cpu() - w).abs().max().item() <= 1e-10 * scale

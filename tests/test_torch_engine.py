@@ -21,6 +21,7 @@ import torch
 from repro.api import engine as RE
 from repro.core import instances as ref_instances
 from repro.core.faults import greedy_local_fill as ref_greedy
+from repro.core import hi as RH
 from repro.core.mobility import admit_mask_pool as ref_admit
 from repro.serving.fleet import make_fleet as ref_make_fleet
 from repro.serving.queue import RequestQueue as RefQueue
@@ -28,6 +29,7 @@ from repro_torch import convert
 from repro_torch.api import engine as PE
 from repro_torch.core import instances
 from repro_torch.core.faults import FaultModel, greedy_local_fill
+from repro_torch.core.hi import HIModel
 from repro_torch.core.mobility import MobilityModel, admit_mask_pool
 from repro_torch.serving.fleet import make_fleet
 from repro_torch.serving.queue import RequestQueue
@@ -240,10 +242,11 @@ def test_step_sequence_equals_rollout():
 
 
 def test_unported_paths_raise_with_roadmap_item():
-    """Dual and Poisson arrivals (items 5 and 4) and the chaos and
-    mobility scenarios (item 9) now build and step; HI and the
-    differentiable rollout (item 9) and the sharded engine (item 10, with
-    ``shard_by_cell``) still raise."""
+    """Dual and Poisson arrivals (items 5 and 4) and item 9 — chaos,
+    mobility, HI and the differentiable rollout — build and step (HI and
+    the relaxation refuse bad arguments with the reference's
+    `ValueError`); the sharded engine (item 10, with ``shard_by_cell``)
+    still raises."""
     _, port = _fleet_pair("tableau", 1.5)
     devs = make_fleet(4, seed=0, horizon=4, **V5E)
     q = RequestQueue(4, CLASSES, rate=4.0, batch_max=6, seed=0)
@@ -259,17 +262,29 @@ def test_unported_paths_raise_with_roadmap_item():
         assert int(state.period) == 1 and int(m.n_unsolved) == 0
         assert int(m.n_jobs) + int(m.backlog) > 0
     assert params.mobility_mode == "replay" and params.n_cells == 1
-    with pytest.raises(NotImplementedError, match="item 9"):
-        port.with_hi(object())
-    with pytest.raises(NotImplementedError, match="item 9"):
-        port.with_differentiable(True)
+    armed = port.with_hi(HIModel.make(), rule="ucb", n_arms=5)
+    state, m = PE.step(PE.init_state(armed, device="cpu"), armed,
+                       device="cpu")
+    assert int(m.n_hi_offloaded + m.n_hi_local_final) == int(m.n_jobs)
+    assert 0 < float(state.hi.arms_cnt.sum()) <= armed.n_devices
+    with pytest.raises(ValueError, match="unknown HI rule"):
+        port.with_hi(HIModel.make(), rule="softmax")
+    diff = port.with_differentiable(True)
+    assert diff.differentiable and diff.smooth_mode == "st"
+    with pytest.raises(ValueError, match="smooth_mode"):
+        port.with_differentiable(True, smooth_mode="gumbel")
     with pytest.raises(NotImplementedError, match="item 10"):
         params.with_mobility(mob, shard_by_cell=True)
     for fn in (PE.shard, PE.step_sharded, PE.rollout_sharded):
         with pytest.raises(NotImplementedError, match="item 10"):
             fn()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        convert.params_from_numpy({"hi_rule": "threshold"}, "cpu")
+    ref, _ = _fleet_pair("tableau", 1.5)
+    ref_hi = ref.with_hi(RH.HIModel.make(theta0=0.4), rule="threshold",
+                         hi_seed=3)
+    carried = convert.params_from_numpy(
+        {**_ref_fields(ref_hi), "hi": ref_hi.hi}, "cpu")
+    assert carried.hi_rule == "threshold" and carried.hi_seed == 3
+    assert float(carried.hi.theta0) == 0.4
     with pytest.raises(NotImplementedError, match="item 10"):
         convert.params_from_numpy({"shard_by_cell": True}, "cpu")
     with pytest.raises(ValueError, match="max_retries"):

@@ -21,6 +21,7 @@ import pytest
 from repro.serving import FleetConfig as RefConfig
 from repro.serving import FleetEngine as RefEngine
 from repro_torch.api import engine as E
+from repro_torch.core.hi import HIModel
 from repro_torch.core.mobility import MobilityModel
 from repro_torch.core.problem import ST_UNSOLVED
 from repro_torch.serving import (DeviceSpec, FleetConfig, FleetEngine,
@@ -203,9 +204,14 @@ def test_backend_and_config_guards():
     with pytest.raises(ValueError, match="max_retries"):
         E.EngineParams.from_config(dataclasses.replace(cfg, max_retries=-1),
                                    device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        E.EngineParams.from_config(dataclasses.replace(cfg, hi=object()),
-                                   device="cpu")
+    hi = E.EngineParams.from_config(
+        dataclasses.replace(cfg, hi=HIModel.make(), hi_rule="exp3",
+                            hi_arms=4, hi_seed=2), device="cpu")
+    assert (hi.hi_rule, hi.hi_arms, hi.hi_seed) == ("exp3", 4, 2)
+    with pytest.raises(ValueError, match="local model"):
+        E.EngineParams.from_config(
+            dataclasses.replace(cfg, hi=HIModel.make(), hi_local=5),
+            device="cpu")
     with pytest.raises(TypeError):
         FleetConfig(n_devices=4, T=1.2)           # no ES rates, no default
     host = FleetEngine.from_config(dataclasses.replace(cfg, delegate=False),

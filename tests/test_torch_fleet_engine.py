@@ -25,6 +25,7 @@ from repro.serving.fleet import FleetEngine as RefEngine
 from repro.serving.fleet import make_fleet as ref_make_fleet
 from repro.serving.queue import RequestQueue as RefQueue
 from repro_torch import convert
+from repro_torch.core.hi import HIModel
 from repro_torch.core.faults import FaultModel
 from repro_torch.serving.fleet import FleetEngine, FleetPeriodStats, make_fleet
 from repro_torch.serving.queue import RequestQueue
@@ -116,9 +117,8 @@ def test_unported_configurations_raise():
                            device="cpu", **kw)
 
     # a one-group amr2 / dual fleet delegates to the tensor engine now
-    # (ROADMAP §1 items 5 and 7) and runs, chaos armed too (item 9);
-    # chaos on the host pipeline raises the reference's ValueError, HI
-    # (item 9) is not ported
+    # (ROADMAP §1 items 5 and 7) and runs, chaos and HI armed too (item
+    # 9); either on the host pipeline raises the reference's ValueError
     fm = FaultModel.make(loss_rate=0.5)
     for policy in ("amr2", "dual"):
         for faults in (None, fm):
@@ -132,8 +132,11 @@ def test_unported_configurations_raise():
         engine(policy="amr2", backend="jax")
     with pytest.raises(ValueError, match="delegation"):
         engine(policy="auto", faults=fm)
-    with pytest.raises(NotImplementedError, match="hierarchical"):
-        engine(hi=object())
+    with pytest.raises(ValueError, match="hierarchical inference needs"):
+        engine(policy="auto", hi=HIModel.make())
+    armed = engine(policy="amr2", hi=HIModel.make(), hi_rule="fixed")
+    stats = armed.run(1)[0]
+    assert stats.n_hi_offloaded + stats.n_hi_local_final == stats.n_jobs
     with pytest.raises(ValueError, match="bound-only"):
         engine(policy="lp")
     with pytest.raises(ValueError, match="unknown solver"):

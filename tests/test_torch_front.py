@@ -163,12 +163,12 @@ def test_typo_guard_and_registry():
         PAPI.solve(fp, policy="amr2", max_iter=10, device="cpu")
     with pytest.raises(TypeError, match="does not accept"):
         RAPI.solve(_fleet(4, seed=1), policy="amr2", max_iter=10)
-    # dual (ROADMAP §1 item 5) and routed (item 9, mobility) are
-    # registered with the reference's flags; the HI entries (item 9)
-    # still raise
-    assert PAPI.solver_names() == ["amdp", "amr2", "dual", "greedy", "lp",
+    # dual (ROADMAP §1 item 5), routed and the HI entries (item 9) are
+    # registered with the reference's flags: the registries agree
+    assert PAPI.solver_names() == ["amdp", "amr2", "dual", "greedy",
+                                   "hi_bandit", "hi_threshold", "lp",
                                    "routed"]
-    assert set(PAPI.solver_names()) < set(RAPI.solver_names())
+    assert PAPI.solver_names() == sorted(RAPI.solver_names())
     for name in ("dual", "routed"):
         assert (dataclasses.asdict(PAPI.solvers()[name])
                 == dataclasses.asdict(RAPI.solvers()[name]))
@@ -177,7 +177,9 @@ def test_typo_guard_and_registry():
     with pytest.raises(TypeError, match="positions"):
         PAPI.solve(fp, policy="routed", device="cpu")
     for name in ("hi_threshold", "hi_bandit"):
-        with pytest.raises(NotImplementedError, match="item 9"):
+        assert (dataclasses.asdict(PAPI.solvers()[name])
+                == dataclasses.asdict(RAPI.solvers()[name]))
+        with pytest.raises(TypeError, match="confidence"):
             PAPI.solve(fp, policy=name, device="cpu")
     with pytest.raises(ValueError, match="unknown solver"):
         PAPI.get_solver("simplex")

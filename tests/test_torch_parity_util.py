@@ -126,3 +126,18 @@ def reference_fault_draws(fm, fault_seed, n_devices, n_jobs, max_retries,
         return [jax.tree.map(np.asarray, sample_realization(
             jax.random.fold_in(jax.random.PRNGKey(fault_seed), t), fm,
             n_devices, n_jobs, max_retries + 1)) for t in range(periods)]
+
+
+def reference_arm_uniforms(hi_seed, period, n_devices):
+    """The (D,) uniforms the reference engine's EXP3 rule draws in period
+    t: the second half of ``split(fold_in(PRNGKey(hi_seed), t))``, folded
+    by global device id, as its `hi_period` does (under a replayed
+    confidence stream too): what the port's ``hi_arm_trace`` replays."""
+    import jax.numpy as jnp
+    with reference_x64():
+        _kc, ka = jax.random.split(jax.random.fold_in(
+            jax.random.PRNGKey(hi_seed), period))
+        kd = jax.vmap(lambda g: jax.random.fold_in(ka, g))(
+            jnp.arange(n_devices, dtype=jnp.int32))
+        return np.asarray(jax.vmap(lambda k: jax.random.uniform(
+            k, dtype=jnp.float64))(kd))
