@@ -57,10 +57,17 @@ replay: arrivals from the presampled trace, positions from
 per period) and ``hi_arm_trace`` (EXP3's arm uniforms, (H, D)); period t
 reads entry t mod H, and the draw fills in when a trace is None.
 
+Sharding (`fleet_mesh`, `shard`, `step_sharded`, `rollout_sharded`) splits
+the fleet axis over the ranks of a `torch.distributed` group, one process
+per shard (`_mesh`): each rank runs the same periods on its block of
+devices; admission gathers the ES demand of the whole fleet (or, under
+``shard_by_cell``, all-reduces the per-cell loads), and each period's
+metrics are reduced in three packed collectives, so every rank returns
+the unsharded run's metrics.  A shard's draws are the whole fleet's draws
+for its (seed, period), of which it keeps its rows.
+
 Entry points run on the CUDA card unless given ``device="cpu"``; with no
-card and no device they raise.  Not ported yet: the sharded entry points
-(``shard_by_cell`` among them), which raise `NotImplementedError` naming
-ROADMAP §1 item 10.
+card and no device they raise.
 """
 from __future__ import annotations
 
@@ -72,12 +79,14 @@ import torch
 
 from .._device import (DeviceLike, check_device, resolve_device,
                        seeded_generator as _generator)
+from .._mesh import FleetAxis, fleet_mesh
 from ..core.amr2 import (build_lp_arrays_torch, round_relaxation_torch,
                          soft_assignment_weights, straight_through_weights)
 from ..core.dual import dual_one_batch
 from ..core.faults import (FaultModel, FaultRealization, greedy_local_fill,
                            realize_execution, sample_realization)
-from ..core.hi import (HILearnerState, HIModel, draw_arm_uniforms,
+from ..core.hi import (HI_STATE_FIELDS, HILearnerState, HIModel,
+                       draw_arm_uniforms,
                        draw_uniforms, hi_period, sample_confidence,
                        validate_hi)
 from ..core.lp import _bucket_maxiter, simplex_batch_core, simplex_batch_grad
@@ -89,17 +98,9 @@ from ..core.problem import (ES_DISABLED_SENTINEL, ST_UNSOLVED, FleetProblem,
 
 TRACEABLE_POLICIES = ("amr2", "dual")
 
-_ROADMAP = {
-    "sharded": "the sharded engine is not ported yet (ROADMAP §1 item 10)",
-}
-
 # EngineParams tensors `rollout_grad` may differentiate: the continuous
 # fleet knobs
 GRAD_LEAVES = ("p_es", "base_p_ed", "acc", "T")
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(_ROADMAP[what])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,11 +162,14 @@ class EngineParams:
     fault_seed: int = 0
     # mobility: "off", "replay" (``mobility.trace``) or "walk" (steps from
     # ``mobility_seed``); ``n_cells`` splits the ``n_servers`` pool evenly;
-    # ``routing`` "nearest" or "min_time"
+    # ``routing`` "nearest" or "min_time"; ``shard_by_cell`` lets each
+    # shard of a sharded rollout admit its own devices and merge only the
+    # per-cell loads (valid when a shard's devices roam only its cells)
     mobility_mode: str = "off"
     routing: str = "nearest"
     n_cells: int = 1
     mobility_seed: int = 0
+    shard_by_cell: bool = False
     # HI: ``hi_rule`` "off" or one of `hi.HI_RULES`; ``hi_stream`` "fold"
     # (drawn from ``hi_seed``) or "replay" (``hi.conf_trace``);
     # ``hi_arms`` sizes the bandits' grid; ``hi_local`` is the local model
@@ -370,10 +374,11 @@ class EngineParams:
                       shard_by_cell: bool = False) -> "EngineParams":
         """Arm (or disarm, with ``None``) mobility.  Validates the geometry
         (`mobility.validate_mobility`) and keeps ``mobility_mode`` and
-        ``n_cells`` consistent with the model.  ``shard_by_cell`` belongs
-        to the sharded engine and raises."""
-        if shard_by_cell:
-            raise _not_ported("sharded")
+        ``n_cells`` consistent with the model.  ``shard_by_cell`` is read
+        by the sharded entry points only: each shard admits its own
+        devices per cell and the shards sum the per-cell loads, which
+        equals the global admission when each shard's devices route only
+        to its own cells."""
         mob = mobility if mobility is not None else MobilityModel.none()
         mob_mode = mode if mobility is not None else "off"
         if self.hi_armed and mob_mode != "off":
@@ -389,7 +394,8 @@ class EngineParams:
             routing=routing,
             n_cells=mob.n_cells if mob_mode != "off" else 1,
             mobility_seed=(self.mobility_seed if mobility_seed is None
-                           else mobility_seed))
+                           else mobility_seed),
+            shard_by_cell=shard_by_cell)
 
     def with_differentiable(self, enabled: bool = True, *,
                             smooth_mode: str = "st",
@@ -774,24 +780,32 @@ def _recover_unsolved(assign, unsolved, p_ed_jobs, mask, acc, T):
     return torch.where(eligible, local, assign).to(torch.int32)
 
 
-def _arrivals(state: EngineState, params: EngineParams, t: int):
+def _fleet_rows(fleet: Optional[FleetAxis], D: int):
+    """``(fleet size, this shard's rows)``: the whole fleet unsharded."""
+    return (D, slice(0, D)) if fleet is None else fleet.rows(D)
+
+
+def _arrivals(state: EngineState, params: EngineParams, t: int,
+              fleet: Optional[FleetAxis] = None):
     """Release this period's jobs: ``(ci (D, n) int32 class indices,
     take (D,) int32, pending', head')``.  Replay reads the trace; Poisson
     draws the whole fleet's counts and the classes of every release slot
     (a backlogged job takes a fresh class when it is released, which is
-    the same distribution for i.i.d. classes)."""
+    the same distribution for i.i.d. classes).  A shard draws the whole
+    fleet (``params.rate`` stays whole in a shard) and keeps its rows."""
     n = params.batch_max
     dev = params.device
     D = params.n_devices
     if params.arrivals == "poisson":
+        Dg, rows = _fleet_rows(fleet, D)
         seed = int(state.seed)
         counts_t = torch.poisson(params.rate,
-                                 generator=_generator(seed, t, 0, dev))
+                                 generator=_generator(seed, t, 0, dev))[rows]
         avail = state.pending + counts_t.to(torch.int32)
         take = torch.clamp_max(avail, n).to(torch.int32)
-        ci = torch.multinomial(params.class_probs, D * n, replacement=True,
+        ci = torch.multinomial(params.class_probs, Dg * n, replacement=True,
                                generator=_generator(seed, t, 1, dev))
-        return (ci.reshape(D, n).to(torch.int32), take,
+        return (ci.reshape(Dg, n)[rows].to(torch.int32), take,
                 (avail - take).to(torch.int32), state.head)
     counts_t = params.counts[t % params.counts.shape[0]]
     avail = state.pending + counts_t
@@ -804,16 +818,22 @@ def _arrivals(state: EngineState, params: EngineParams, t: int):
     return ci, take, (avail - take).to(torch.int32), head
 
 
-def _realization(params: EngineParams, t: int) -> FaultRealization:
+def _realization(params: EngineParams, t: int,
+                 fleet: Optional[FleetAxis] = None) -> FaultRealization:
     """Period ``t``'s fault realization: entry t mod H of the replayed
-    ``fault_trace``, or drawn for (fault_seed, t) on the params' device."""
+    ``fault_trace``, or drawn for (fault_seed, t) on the params' device
+    (a shard draws the whole fleet and keeps its rows)."""
     trace = params.fault_trace
     if trace is not None:
         h = t % trace.es_crash.shape[0]
         return FaultRealization(*(x[h] for x in trace))
-    return sample_realization((params.fault_seed, t), params.faults,
-                              params.n_devices, params.batch_max,
-                              params.max_retries + 1, device=params.device)
+    Dg, rows = _fleet_rows(fleet, params.n_devices)
+    real = sample_realization((params.fault_seed, t), params.faults, Dg,
+                              params.batch_max, params.max_retries + 1,
+                              device=params.device)
+    if fleet is None:
+        return real
+    return FaultRealization(real.es_crash, *(x[rows] for x in real[1:]))
 
 
 def _hi_draws(params: EngineParams, t: int):
@@ -839,7 +859,7 @@ def _hi_draws(params: EngineParams, t: int):
 def _period(belief_p_ed, warm_basis, ci, take, drift_t, outage_t,
             es_tbl, params: EngineParams, *, real=None, link_factor=None,
             covered=None, cell=None, hi_state=None, hi_t=None,
-            hi_draws=None):
+            hi_draws=None, fleet: Optional[FleetAxis] = None):
     """Everything after arrivals and before the state bookkeeping (the
     reference's `_period_impl`), shared by `step` and the host
     `FleetEngine`'s delegation.
@@ -851,7 +871,11 @@ def _period(belief_p_ed, warm_basis, ci, take, drift_t, outage_t,
     ``covered`` (D,) False disables a device's ES column like an outage,
     ``cell`` (D,) routes admission per cell when ``n_cells`` > 1.  HI
     (read only while armed): ``hi_state`` the incoming `HILearnerState`,
-    ``hi_t`` the period, ``hi_draws`` its `_hi_draws`.
+    ``hi_t`` the period, ``hi_draws`` its `_hi_draws`.  ``fleet`` (a
+    shard's `FleetAxis`) makes admission global: the shards' demand is
+    gathered and every shard admits the whole fleet and keeps its rows,
+    or under ``shard_by_cell`` each admits its own and the per-cell loads
+    are summed.  The metrics stay this shard's (`_step` reduces them).
 
     Returns ``(new_belief, new_warm_basis, upd (D,) bool, factor (D,),
     new_es_belief (D, c), cell_load (S,), new_hi_state, metrics dict)``;
@@ -912,15 +936,30 @@ def _period(belief_p_ed, warm_basis, ci, take, drift_t, outage_t,
                                    params.acc, params.T)
 
     # ---- ES-pool admission: one pool, or per cell ----------------------
+    # sharded, every shard admits the gathered global demand and keeps its
+    # rows; under ``shard_by_cell`` only the per-cell loads cross
     demand = _slot_sum(torch.where(mask & (assign == m), p_es_jobs, 0.0))
+    _Dg, rows_g = _fleet_rows(fleet, D)
     if params.mobility_mode != "off" and params.n_cells > 1:
-        admitted, cloads = admit_mask_segmented(
-            demand, cell, params.T, params.n_cells, params.servers_per_cell)
+        if fleet is None or params.shard_by_cell:
+            admitted, cloads = admit_mask_segmented(
+                demand, cell, params.T, params.n_cells,
+                params.servers_per_cell)
+            if fleet is not None:
+                cloads = fleet.all_reduce(cloads)
+        else:
+            both = fleet.gather(torch.stack([demand, cell.to(f64)], dim=1))
+            admitted, cloads = admit_mask_segmented(
+                both[:, 0], both[:, 1].to(i32), params.T, params.n_cells,
+                params.servers_per_cell)
+            admitted = admitted[rows_g]
         cell_load = _slot_sum(cloads)       # (S,), servers in order
         loads_total = _slot_sum(cell_load[None])[0]
     else:
-        admitted, loads, inc = admit_mask_pool(demand, params.T,
-                                               params.n_servers)
+        admitted, loads, inc = admit_mask_pool(
+            demand if fleet is None else fleet.gather(demand), params.T,
+            params.n_servers)
+        admitted, inc = admitted[rows_g], inc[rows_g]
         loads_total = loads.sum()
         cell_load = loads_total[None]
     offl = demand > 0
@@ -1108,23 +1147,28 @@ def _smoothed_accuracy(params: EngineParams, mask, xbar, xbar_bp,
     return dev_acc.sum()
 
 
-def _positions(state: EngineState, params: EngineParams, t: int):
+def _positions(state: EngineState, params: EngineParams, t: int,
+               fleet: Optional[FleetAxis] = None):
     """Period ``t``'s device positions: the replayed trace (cycled), or
     under the walk the last positions plus ``walk_sigma`` x normal steps
-    drawn for (mobility_seed, t) on the params' device."""
+    drawn for (mobility_seed, t) on the params' device (a shard draws the
+    whole fleet's steps and keeps its rows)."""
     mob = params.mobility
     if params.mobility_mode == "replay":
         return mob.trace[t % mob.trace.shape[0]]
-    steps = torch.randn((params.n_devices, 2), generator=_generator(
+    Dg, rows = _fleet_rows(fleet, params.n_devices)
+    steps = torch.randn((Dg, 2), generator=_generator(
         params.mobility_seed, t, 5, params.device), dtype=torch.float64,
         device=params.device)
-    return state.pos + mob.walk_sigma * steps
+    return state.pos + mob.walk_sigma * steps[rows]
 
 
-def _step(state: EngineState, params: EngineParams
+def _step(state: EngineState, params: EngineParams,
+          fleet: Optional[FleetAxis] = None
           ) -> Tuple[EngineState, PeriodMetrics]:
     """One period: mobility, arrivals, `_period`, state and metric
-    assembly."""
+    assembly; for a shard (``fleet``) the metrics are reduced over the
+    shards (`_reduce_metrics`)."""
     t = int(state.period)
     dev = params.device
     D = params.n_devices
@@ -1143,7 +1187,7 @@ def _step(state: EngineState, params: EngineParams
     n_handover = torch.zeros((), dtype=torch.int32, device=dev)
     if params.mobility_mode != "off":
         mob = params.mobility
-        pos_t = _positions(state, params, t)
+        pos_t = _positions(state, params, t, fleet)
         load_frac = state.cell_load / (params.servers_per_cell * params.T)
         cell_t, covered, link_factor = route_cells(pos_t, mob, load_frac,
                                                    params.routing)
@@ -1157,21 +1201,23 @@ def _step(state: EngineState, params: EngineParams
                                      state.p_es_belief)
             n_handover = switched.sum().to(torch.int32)
     warm0 = torch.where(stale[:, None], -1, state.warm_basis)
-    ci, take, pending, head = _arrivals(state, params, t)
-    real = _realization(params, t) if params.chaos else None
+    ci, take, pending, head = _arrivals(state, params, t, fleet)
+    real = _realization(params, t, fleet) if params.chaos else None
     hi_draws = _hi_draws(params, t) if params.hi_armed else None
     (new_belief, new_warm, upd, _factor, new_es_belief, cell_load, new_hi,
      m) = _period(state.p_ed, warm0, ci, take, drift_t, outage_t,
                   es_belief0, params, real=real, link_factor=link_factor,
                   covered=covered, cell=cell_t, hi_state=state.hi, hi_t=t,
-                  hi_draws=hi_draws)
+                  hi_draws=hi_draws, fleet=fleet)
+    m = dict(m, backlog=pending.sum().to(torch.int32), n_handover=n_handover)
+    if fleet is not None:
+        m = _reduce_metrics(fleet, m)
     n_jobs = m["n_jobs"]
     metrics = PeriodMetrics(
         period=state.period.clone(),
         mean_job_accuracy=torch.where(
             n_jobs > 0, m["total_accuracy"] / torch.clamp_min(n_jobs, 1),
-            0.0),
-        backlog=pending.sum().to(torch.int32), n_handover=n_handover, **m)
+            0.0), **m)
     new_state = EngineState(
         period=state.period + 1, p_ed=new_belief, pending=pending,
         head=head, warm_basis=new_warm.to(torch.int32),
@@ -1179,6 +1225,25 @@ def _step(state: EngineState, params: EngineParams
         pos=pos_t, cell=cell_t.to(torch.int32), cell_load=cell_load,
         p_es_belief=new_es_belief, seed=state.seed, hi=new_hi)
     return new_state, metrics
+
+
+# how a shard's metrics combine: float sums, float maxima, and the ES
+# utilization every shard already computes from the global admission;
+# every other metric is a counter, summed
+_SHARD_SUMS = ("total_accuracy", "hi_regret")
+_SHARD_MAXES = ("worst_violation", "realized_makespan")
+_SHARD_GLOBAL = ("es_utilization",)
+
+
+def _reduce_metrics(fleet: FleetAxis, m: Dict[str, torch.Tensor]
+                    ) -> Dict[str, torch.Tensor]:
+    """A shard's period metrics made global in three collectives (one
+    int64 SUM vector of the counters, one float64 SUM, one float64 MAX)."""
+    counters = {k: v for k, v in m.items()
+                if k not in _SHARD_SUMS + _SHARD_MAXES + _SHARD_GLOBAL}
+    return {**m, **fleet.reduce_metrics(
+        counters, {k: m[k] for k in _SHARD_SUMS},
+        {k: m[k] for k in _SHARD_MAXES})}
 
 
 # --------------------------------------------------------------------------
@@ -1257,9 +1322,15 @@ def rollout(state: EngineState, params: EngineParams, periods: int, *,
     """``periods`` consecutive steps.  Returns ``(final_state, metrics)``
     with every `PeriodMetrics` field stacked to a (periods,) tensor."""
     _checked(state, params, periods, device)
+    return _roll(state, params, periods)
+
+
+def _roll(state: EngineState, params: EngineParams, periods: int,
+          fleet: Optional[FleetAxis] = None
+          ) -> Tuple[EngineState, PeriodMetrics]:
     history = []
     for _ in range(int(periods)):
-        state, m = _step(state, params)
+        state, m = _step(state, params, fleet)
         history.append(m)
     return state, PeriodMetrics(**{
         f: torch.stack([getattr(m, f) for m in history])
@@ -1367,17 +1438,104 @@ def rollout_grad(state: EngineState, params: EngineParams, periods: int,
                                   device=device)[1]
 
 
-def fleet_mesh(*_args, **_kwargs):
-    raise _not_ported("sharded")
+# --------------------------------------------------------------------------
+# sharding: one process per shard of the fleet axis (`_mesh`)
+# --------------------------------------------------------------------------
+def _reject_diff_sharded(params: EngineParams) -> None:
+    """Gradients run on the unsharded rollout: the relaxed pricing and the
+    unconditional replan have no sharded twin, so a sharded
+    "differentiable" rollout would run the hard forward."""
+    if params.differentiable:
+        raise ValueError(
+            "sharded entry points do not support differentiable params; "
+            "disarm with with_differentiable(False) or run "
+            "rollout_value_and_grad on the single-host trace")
 
 
-def shard(*_args, **_kwargs):
-    raise _not_ported("sharded")
+def _reject_hi_sharded(params: EngineParams) -> None:
+    """Armed HI carries a learner whose sharded bookkeeping the reference
+    has not validated either: refused, as there."""
+    if params.hi_armed:
+        raise ValueError(
+            "sharded entry points do not support armed HI "
+            f"(hi_rule={params.hi_rule!r}); disarm with with_hi(None) or "
+            "run the single-host rollout")
 
 
-def step_sharded(*_args, **_kwargs):
-    raise _not_ported("sharded")
+def shard(state: EngineState, params: EngineParams, mesh
+          ) -> Tuple[EngineState, EngineParams]:
+    """This rank's block of ``state`` and ``params`` on ``mesh``
+    (`fleet_mesh`): rows ``[rank·D/n, (rank+1)·D/n)`` of every per-device
+    tensor (along the device axis of ``counts``, the mobility ``trace``
+    and the replayed ``fault_trace``), scalars and class tables whole.
+    ``rate`` stays whole too: a shard's Poisson draw is the whole fleet's
+    (`_arrivals`).  The fleet size must divide the mesh.  Tensors stay on
+    their device."""
+    _reject_hi_sharded(params)
+    _require_f64("state", state)
+    _require_f64("params", params)
+    axis = FleetAxis.of(mesh, params.device)
+    D = params.n_devices
+    if D % axis.size:
+        raise ValueError(
+            f"fleet size {D} does not divide the {axis.size}-device mesh")
+    _Dg, rows = axis.rows(D // axis.size)
+
+    def cut(x, dim=0):
+        return x.narrow(dim, rows.start, rows.stop - rows.start).clone()
+
+    mob = params.mobility
+    if params.mobility_mode != "off":
+        mob = dataclasses.replace(mob, trace=cut(mob.trace, 1))
+    trace = params.fault_trace
+    if trace is not None:
+        trace = FaultRealization(trace.es_crash,
+                                 *(cut(x, 1) for x in trace[1:]))
+    local_params = dataclasses.replace(
+        params, **{f: cut(getattr(params, f))
+                   for f in ("base_p_ed", "p_es", "acc", "drift", "outage",
+                             "stream")},
+        counts=cut(params.counts, 1), mobility=mob, fault_trace=trace)
+    local_state = dataclasses.replace(
+        state, **{f: cut(getattr(state, f))
+                  for f in ("p_ed", "pending", "head", "warm_basis",
+                            "n_updates", "pos", "cell", "p_es_belief")},
+        hi=(None if state.hi is None
+            else HILearnerState(*(cut(getattr(state.hi, f))
+                                  for f in HI_STATE_FIELDS))))
+    return local_state, local_params
 
 
-def rollout_sharded(*_args, **_kwargs):
-    raise _not_ported("sharded")
+def _sharded_axis(state, params, periods, mesh, device) -> FleetAxis:
+    """The guards of the sharded entry points and this shard's axis."""
+    _reject_diff_sharded(params)
+    _reject_hi_sharded(params)
+    _checked(state, params, periods, device)
+    axis = FleetAxis.of(mesh, params.device)
+    if params.rate.shape[0] != axis.size * params.n_devices:
+        raise ValueError(
+            f"params hold {params.n_devices} devices and "
+            f"{params.rate.shape[0]} Poisson rates on a {axis.size}-shard "
+            f"mesh; pass the block `shard(state, params, mesh)` returns")
+    return axis
+
+
+def step_sharded(state: EngineState, params: EngineParams, mesh, *,
+                 device: DeviceLike = None
+                 ) -> Tuple[EngineState, PeriodMetrics]:
+    """`step` of this rank's shard (`shard`): returns the shard's next
+    state and the fleet's metrics, equal on every rank to the unsharded
+    `step`'s (float sums to rounding).  Every rank of the mesh calls it."""
+    axis = _sharded_axis(state, params, 1, mesh, device)
+    return _step(state, params, axis)
+
+
+def rollout_sharded(state: EngineState, params: EngineParams, periods: int,
+                    mesh, *, device: DeviceLike = None
+                    ) -> Tuple[EngineState, PeriodMetrics]:
+    """`rollout` of this rank's shard (`shard`): ``(the shard's final
+    state, the fleet's metrics stacked to (periods,))``, the metrics equal
+    on every rank to the unsharded rollout's (float sums to rounding).
+    Every rank of the mesh calls it with the same ``periods``."""
+    return _roll(state, params, periods,
+                 _sharded_axis(state, params, periods, mesh, device))

@@ -41,15 +41,12 @@ from .core.problem import FleetProblem
 from .serving.fleet import DeviceSpec
 from .serving.profile import TierProfile
 from .api.engine import (PARAM_ARRAYS, PARAM_CONFIG, EngineParams,
-                         EngineState, _not_ported, params_from_arrays,
+                         EngineState, params_from_arrays,
                          state_from_arrays)
 from .core.faults import FAULT_FIELDS, FaultModel, FaultRealization
 from .core.hi import HI_STATE_FIELDS, HILearnerState, HIModel
 from .core.mobility import MOBILITY_FIELDS, MobilityModel
 
-# reference config fields whose non-default value arms a part of the
-# engine that is not ported yet
-_ARMED = {"shard_by_cell": ("sharded", False)}
 _HI_TENSORS = ("spread", "theta0", "conf_trace")
 
 
@@ -109,12 +106,7 @@ def params_from_numpy(fields: Dict[str, object],
     HI and relaxation knobs among it) from `PARAM_CONFIG`; ``faults``,
     ``mobility`` and ``hi`` are the reference's models, the port-only
     ``fault_trace`` a list of its per-period draws and ``hi_arm_trace``
-    (H, D) EXP3 arm uniforms.  The reference's ``shard_by_cell`` is
-    ignored while off; armed, it raises (the sharded engine is not
-    ported)."""
-    for key, (what, off) in _ARMED.items():
-        if key in fields and fields[key] != off:
-            raise _not_ported(what)
+    (H, D) EXP3 arm uniforms."""
     dev = resolve_device(device)
     arrays = {k: np.asarray(fields[k]) for k in PARAM_ARRAYS}
     config = {k: fields[k] for k in PARAM_CONFIG if k in fields}

@@ -11,9 +11,14 @@ re-exports it under the serving namespace, next to `FleetEngine`:
 
 A delegated `FleetEngine.run_period` runs the same period core, so the two
 surfaces stay trajectory-identical.  The reference's traced admission
-scan `admit_mask_jnp` is `admit_mask_pool` here; the sharded names
-(`fleet_mesh`, `shard`, `step_sharded`, `rollout_sharded`) raise until
-ROADMAP §1 item 10.
+scan `admit_mask_jnp` is `admit_mask_pool` here.  The sharded names
+(`fleet_mesh`, `shard`, `step_sharded`, `rollout_sharded`) run one
+process per shard over a `torch.distributed` group:
+
+    mesh = engine_v2.fleet_mesh()           # after init_process_group
+    sstate, sparams = engine_v2.shard(state, params, mesh)
+    local_state, metrics = engine_v2.rollout_sharded(sstate, sparams,
+                                                     periods, mesh)
 """
 from ..api.engine import (EngineParams, EngineState, PeriodMetrics,
                           TRACEABLE_POLICIES, fleet_mesh, init_state,

@@ -134,6 +134,12 @@ def roofline_style_profile(rng: np.random.Generator,
         link_gbps=0.08)
 
 
+# an H100 SXM as the ES tier (NVIDIA data sheet: dense bf16 tensor rate,
+# HBM3 bandwidth): the `make_fleet` / `FleetConfig` keywords of the port's
+# examples and smokes
+H100_ES = dict(es_peak_flops=989e12, es_hbm_bw=3.35e12)
+
+
 def make_fleet(n_devices: int, *, es_peak_flops: float, es_hbm_bw: float,
                classes: Sequence[int] = (128, 512, 1024),
                roofline_frac: float = 0.5, straggler_frac: float = 0.25,

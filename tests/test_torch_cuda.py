@@ -12,7 +12,8 @@ the sequential oracle; the one-pool admission bit for bit against the
 CPU; the HI rollout of each rule against the CPU under one trace drawn
 on the card (and replay == fold on the card); the differentiable
 rollout's value and gradients against the CPU's, and the implicit
-gradient's backward (`kkt_vjp_ref`) against the CPU.
+gradient's backward (`kkt_vjp_ref`) against the CPU; `rollout_sharded`
+on two gloo ranks on the card against the unsharded card rollout.
 
 Every test here is marked ``gpu`` and skips (with the reason) where no
 card is visible.  The file imports no JAX — it compares the port with
@@ -1278,3 +1279,21 @@ def test_cuda_kkt_vjp_matches_cpu(cuda_device):
         assert a.is_cuda
         scale = max(w.abs().max().item(), 1.0)
         assert (a.cpu() - w).abs().max().item() <= 1e-10 * scale
+
+
+@pytest.mark.gpu
+def test_cuda_rollout_sharded_matches_unsharded(cuda_device):
+    """`rollout_sharded` on 2 gloo ranks computing on this card (the
+    collectives' operands through the host) against the unsharded card
+    rollout: replay under both LP methods and chaos with the outage flip,
+    metrics and carried state exact (a tableau warm basis may differ only
+    as a certified tie: `smoke_shard_rollout.tied_basis_failures`), floats
+    to 1e-9."""
+    from repro_torch.scripts import smoke_shard_rollout as SR
+    res = SR.run_legs(("tableau", "revised", "chaos"), shards=2,
+                      devices=512, periods=4, backend="gloo",
+                      device="cuda")
+    for leg, r in res.items():
+        assert not r["failures"], "\n".join(r["failures"])
+        assert r["info"]["collectives_per_period"] == 4, leg
+    assert res["chaos"]["info"]["ladder"] > 0

@@ -14,6 +14,8 @@ metrics and state to atol 1e-9; carried warm bases as label sets per
 device (the reference's own bar between its two LP methods: a basis row's
 slot depends on the pivot path).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -245,8 +247,9 @@ def test_unported_paths_raise_with_roadmap_item():
     """Dual and Poisson arrivals (items 5 and 4) and item 9 — chaos,
     mobility, HI and the differentiable rollout — build and step (HI and
     the relaxation refuse bad arguments with the reference's
-    `ValueError`); the sharded engine (item 10, with ``shard_by_cell``)
-    still raises."""
+    `ValueError`); the sharded engine (item 10) takes ``shard_by_cell``
+    and refuses armed HI and differentiable params with the reference's
+    `ValueError` before it reads the mesh."""
     _, port = _fleet_pair("tableau", 1.5)
     devs = make_fleet(4, seed=0, horizon=4, **V5E)
     q = RequestQueue(4, CLASSES, rate=4.0, batch_max=6, seed=0)
@@ -273,11 +276,29 @@ def test_unported_paths_raise_with_roadmap_item():
     assert diff.differentiable and diff.smooth_mode == "st"
     with pytest.raises(ValueError, match="smooth_mode"):
         port.with_differentiable(True, smooth_mode="gumbel")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        params.with_mobility(mob, shard_by_cell=True)
-    for fn in (PE.shard, PE.step_sharded, PE.rollout_sharded):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            fn()
+    by_cell = params.with_mobility(mob, shard_by_cell=True)
+    assert by_cell.shard_by_cell and not params.shard_by_cell
+    # unsharded, the flag changes nothing
+    s0 = PE.init_state(by_cell, device="cpu")
+    for a, b in zip(PE.step(s0, by_cell, device="cpu"),
+                    PE.step(s0, params.with_mobility(mob), device="cpu")):
+        for f in dataclasses.fields(a):
+            x, y = getattr(a, f.name), getattr(b, f.name)
+            if isinstance(x, torch.Tensor):
+                assert torch.equal(x, y), f.name
+    s_hi = PE.init_state(armed, device="cpu")
+    for call in (lambda: PE.shard(s_hi, armed, None),
+                 lambda: PE.step_sharded(s_hi, armed, None),
+                 lambda: PE.rollout_sharded(s_hi, armed, 2, None)):
+        with pytest.raises(ValueError, match="sharded entry points do not "
+                                             "support armed HI"):
+            call()
+    s_diff = PE.init_state(diff, device="cpu")
+    for call in (lambda: PE.step_sharded(s_diff, diff, None),
+                 lambda: PE.rollout_sharded(s_diff, diff, 2, None)):
+        with pytest.raises(ValueError, match="sharded entry points do not "
+                                             "support differentiable"):
+            call()
     ref, _ = _fleet_pair("tableau", 1.5)
     ref_hi = ref.with_hi(RH.HIModel.make(theta0=0.4), rule="threshold",
                          hi_seed=3)
@@ -285,8 +306,9 @@ def test_unported_paths_raise_with_roadmap_item():
         {**_ref_fields(ref_hi), "hi": ref_hi.hi}, "cpu")
     assert carried.hi_rule == "threshold" and carried.hi_seed == 3
     assert float(carried.hi.theta0) == 0.4
-    with pytest.raises(NotImplementedError, match="item 10"):
-        convert.params_from_numpy({"shard_by_cell": True}, "cpu")
+    sbc = convert.params_from_numpy(
+        {**_ref_fields(ref.with_mobility(None, shard_by_cell=True))}, "cpu")
+    assert sbc.shard_by_cell is True and sbc.mobility_mode == "off"
     with pytest.raises(ValueError, match="max_retries"):
         PE.EngineParams.from_fleet(devs, q, T=1.2, horizon=4, device="cpu",
                                    max_retries=-1)

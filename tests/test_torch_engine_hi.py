@@ -226,9 +226,12 @@ def test_hi_and_other_scenarios_are_mutually_exclusive():
     state = PE.init_state(armed, device=CPU)
     with pytest.raises(ValueError, match="no learner"):
         PE.step(dataclasses.replace(state, hi=None), armed, device=CPU)
-    for fn in (PE.shard, PE.step_sharded, PE.rollout_sharded):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            fn(state, armed)
+    for call in (lambda: PE.shard(state, armed, None),
+                 lambda: PE.step_sharded(state, armed, None),
+                 lambda: PE.rollout_sharded(state, armed, 2, None)):
+        with pytest.raises(ValueError, match="sharded entry points do not "
+                                             "support armed HI"):
+            call()
 
 
 def test_delegated_run_equals_rollout_and_the_reference():
