@@ -243,6 +243,32 @@ Phases, each printing JSON lines; any failure exits non-zero:
               prefill and decode): 26 RG-LRU and 12 flash launches per
               prefill, 12 flash-decode (group 16) and no RG-LRU launch per
               step; a profile of one decode step.
+     lm_families  the other LM families at full width, float32
+              parameters from a seed, bfloat16 compute (`FAMILIES`):
+              granite-moe-1b-a400m and -3b-a800m (2 x 2048 tokens),
+              h2o-danube-1.8b (1 x 8192, past its window of 4096),
+              internlm2-20b and deepseek-coder-33b (2 x 2048; 8 of 48 and
+              8 of 62 layers), whisper-base (8 x 448 decoder tokens, 1500
+              frames) and internvl2-76b (2 x 2048 with 256 patch
+              embeddings; 4 of 80 layers).  A depth cut is printed with
+              its reason (the float32 parameters of every layer do not fit
+              one 80 GB card).  Each: parameters, depth, tokens/s, peak
+              memory, flash launches per forward counted from 0 (whisper:
+              6 encoder + 6 self + 6 cross), the logits against
+              `attn_impl="dense"` (`LM_BF16_*`).  Generation, 32 decode
+              steps: granite-moe-1b from 4 x 1000 (capacity_factor 8: no
+              drop in prefill or forward), h2o from 1 x 4200 (its rings
+              wrap), whisper from 4 x 64 (cross K/V recomputed each step:
+              6 flash-decode + 6 flash a step), internvl2 from 4 x 1000
+              with its float8 cache and again with a bfloat16 one; launch
+              counts, bfloat16-cache logits against `forward`, float8
+              against bfloat16 (`FP8_KV_ATOL`).  The kernels phase adds
+              the families' flash shapes (groups 3, 6, 7; D 80 padded
+              under a window; whisper's unmasked Sq 448 and Sq 1 against
+              1500 keys) and flash-decode shapes (internvl2's float8 cache
+              at group 8, groups 6 and 7 in bfloat16), and holds the
+              float8 KV cast on the card to the CPU's over every bfloat16
+              bit pattern (`phase_fp8_cast`).
   9. parity   the card-marked tests (`pytest -m gpu tests/test_torch_cuda.py`,
               in a child process): each kernel against its plain version,
               a 32-device rollout, a 64-device `FleetEngine` run, the
@@ -366,6 +392,33 @@ DECODE_SHAPES = (
     ("gemma3_local", 512, 512, 4, GEN_PROMPT + GEN_STEPS // 2),
     ("gemma3_global", GEN_MAX_SEQ, 0, 4, GEN_PROMPT + GEN_STEPS // 2),
     ("recurrentgemma_local", 2048, 2048, 16, RG_PROMPT + GEN_STEPS // 2),
+)
+
+
+# the LM families' new flash shapes, run in bfloat16 (their compute type):
+# granite-moe-3b's group 3, internlm2's 6 and deepseek-coder's 7 (2 x 2048,
+# causal), h2o-danube's head_dim 80 (padded to 128) under its window of
+# 4096 (1 x 8192), whisper's unmasked cross-attention of 8 x 448 decoder
+# tokens and of one decode token (4 sequences) against 1500 frames
+FAMILY_FLASH_SHAPES = (
+    ("granite_moe_3b_group3", 2, 2048, 2048, 24, 8, 64, "causal", 0),
+    ("internlm2_group6", 2, 2048, 2048, 48, 8, 128, "causal", 0),
+    ("deepseek_coder_group7", 2, 2048, 2048, 56, 8, 128, "causal", 0),
+    ("h2o_danube_d80_window", 1, 8192, 8192, 32, 8, 80, "window", 4096),
+    ("whisper_cross_prefill", 8, 448, 1500, 8, 8, 64, "none", 0),
+    ("whisper_cross_decode", 4, 1, 1500, 8, 8, 64, "none", 0),
+)
+# flash-decode at the families' decode shapes, 4 sequences: (name, ring
+# slots, window, KV heads, q heads per KV head, head_dim, decoded
+# position, q type, cache type): internvl2's float8_e4m3fn cache (group
+# 8), internlm2's and deepseek-coder's groups 6 and 7, in bfloat16
+FAMILY_DECODE_SHAPES = (
+    ("internvl2_fp8", GEN_MAX_SEQ, 0, 8, 8, 128, GEN_PROMPT + GEN_STEPS // 2,
+     "bfloat16", "float8_e4m3fn"),
+    ("internlm2_group6", GEN_MAX_SEQ, 0, 8, 6, 128,
+     GEN_PROMPT + GEN_STEPS // 2, "bfloat16", "bfloat16"),
+    ("deepseek_coder_group7", GEN_MAX_SEQ, 0, 8, 7, 128,
+     GEN_PROMPT + GEN_STEPS // 2, "bfloat16", "bfloat16"),
 )
 
 
@@ -753,16 +806,19 @@ def flash_work(B, Sq, Sk, H, KH, D, mask, window, itemsize):
 
 def phase_flash_kernel(torch, dev):
     """Flash attention against its plain version at every shape of
-    `FLASH_SHAPES`, in bfloat16 and float32, with kernel, plain and
-    `scaled_dot_product_attention` times.  Returns the rows by (shape,
-    dtype)."""
+    `FLASH_SHAPES`, in bfloat16 and float32, and of `FAMILY_FLASH_SHAPES`
+    in bfloat16, with kernel, plain and `scaled_dot_product_attention`
+    times.  Returns the rows by (shape, dtype)."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
     sdpa = torch.nn.functional.scaled_dot_product_attention
     g = torch.Generator(device=dev).manual_seed(5)
     rows = {}
-    for name, B, Sq, Sk, H, KH, D, mask, window in FLASH_SHAPES:
-        for dtype in (torch.bfloat16, torch.float32):
+    both = (torch.bfloat16, torch.float32)
+    for shape, dtypes in ([(sh, both) for sh in FLASH_SHAPES]
+                          + [(sh, both[:1]) for sh in FAMILY_FLASH_SHAPES]):
+        name, B, Sq, Sk, H, KH, D, mask, window = shape
+        for dtype in dtypes:
             dname = str(dtype).split(".")[-1]
             q, k, v = (torch.randn(shape, generator=g, device=dev).to(dtype)
                        for shape in ((B * H, Sq, D), (B * KH, Sk, D),
@@ -2935,12 +2991,14 @@ def phase_ssd_kernel(torch, dev):
     return rows
 
 
-def decode_work(rows, G, D, n_valid, itemsize, W):
+def decode_work(rows, G, D, n_valid, itemsize, W, kv_itemsize=None):
     """Bytes and operations one flash-decode call needs: q read and o
-    written once, the K and V rows of the valid slots read once, the
-    validity mask (int32) read once; 4 D operations (q.k and p.v) per (q
-    head, valid slot)."""
-    nbytes = itemsize * (2 * rows * G * D + 2 * n_valid * D) + 4 * rows * W
+    written once (``itemsize`` each), the K and V rows of the valid slots
+    read once (``kv_itemsize``, by default q's), the validity mask (int32)
+    read once; 4 D operations (q.k and p.v) per (q head, valid slot)."""
+    kv_itemsize = itemsize if kv_itemsize is None else kv_itemsize
+    nbytes = (itemsize * 2 * rows * G * D + kv_itemsize * 2 * n_valid * D
+              + 4 * rows * W)
     return nbytes, 4 * D * G * n_valid
 
 
@@ -2953,76 +3011,116 @@ def phase_decode_kernel(torch, dev):
     live) and a global one of max_seq = 1032 slots (1017 live), and
     recurrentgemma-9b's 16 q heads decoding position 2116 from a local
     ring of 2048 slots (window 2048, all live); in bfloat16 and float32
-    (float32 to 1e-5, bfloat16 to 2^-7 relative and absolute).  The
-    library column is `scaled_dot_product_attention` of (B, H, 1, D)
-    against the KV expanded to the H heads with the boolean validity
-    mask."""
+    (float32 to 1e-5, bfloat16 to 2^-7 relative and absolute).  Then the
+    LM families' shapes (`FAMILY_DECODE_SHAPES`: 8 KV heads of head_dim
+    128, internvl2's float8_e4m3fn cache at group 8, groups 6 and 7 in
+    bfloat16).  The library column is `scaled_dot_product_attention` of
+    (B, H, 1, D) against the KV expanded to the H heads with the boolean
+    validity mask; a float8 cache has no such call (SDPA takes no float8
+    K/V): its row gives SDPA on the cache widened to bfloat16 beforehand
+    as ``library_widened_ms`` and ``library_ms`` null."""
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.decode_attention import ref as da_ref
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    B, KH, D = GEN_BATCH, 1, 256
+    B = GEN_BATCH
     g = torch.Generator(device=dev).manual_seed(23)
     rows = {}
-    for name, W, window, G, index in DECODE_SHAPES:
+    cases = [(name, W, window, 1, G, 256, index, dt, dt)
+             for name, W, window, G, index in DECODE_SHAPES
+             for dt in ("bfloat16", "float32")] + list(FAMILY_DECODE_SHAPES)
+    for name, W, window, KH, G, D, index, dname, kvname in cases:
+        dtype, kvdt = getattr(torch, dname), getattr(torch, kvname)
+        fp8 = kvdt == torch.float8_e4m3fn
         H = KH * G
         ok = da_ref.ring_validity(W, index, window, device=dev)
         valid = ok[None].expand(B * KH, W).contiguous()
         n_valid = int(valid.sum())
-        for dtype in (torch.bfloat16, torch.float32):
-            dname = str(dtype).split(".")[-1]
-            q = torch.randn((B, 1, H, D), generator=g, device=dev).to(dtype)
-            ck, cv = (torch.randn((B, W, KH, D), generator=g,
-                                  device=dev).to(dtype) for _ in range(2))
-            got = da_ops.decode_attention(q, ck, cv, index, window=window)
-            qg = da_ops.grouped_rows(q, KH)
-            kf, vf = ck.view(B * KH, W, D), cv.view(B * KH, W, D)
-            want = da_ref.decode_attention_ref(qg, kf, vf, valid)
-            torch.cuda.synchronize()
-            err = (got.reshape(want.shape).float()
-                   - want.float()).abs().max().item()
-            rtol, atol = ((0.0, 1e-5) if dtype == torch.float32
-                          else (2.0 ** -7, 2.0 ** -7))
-            check(torch.allclose(got.reshape(want.shape).float(),
-                                 want.float(), rtol=rtol, atol=atol),
-                  f"decode_attention_fwd {name} {dname} disagrees with its "
-                  f"plain version (max {err})")
-            ms = cuda_ms(lambda: da_ops.decode_attention(
-                q, ck, cv, index, window=window), [()] * 50, torch,
-                warm_up=True)
-            plain_ms = cuda_ms(lambda: da_ref.decode_attention_ref(
-                qg, kf, vf, valid), [()] * 10, torch)
-            qq = q.transpose(1, 2)                          # (B, H, 1, D)
-            kk, vv = (c.transpose(1, 2).expand(B, H, W, D)
-                      for c in (ck, cv))
-            mask = (ok != 0).view(1, 1, 1, W).expand(B, H, 1, W)
+        q = torch.randn((B, 1, H, D), generator=g, device=dev).to(dtype)
+        ck, cv = (torch.randn((B, W, KH, D), generator=g,
+                              device=dev).to(kvdt) for _ in range(2))
+        got = da_ops.decode_attention(q, ck, cv, index, window=window)
+        qg = da_ops.grouped_rows(q, KH)
 
-            def library():
-                return sdpa(qq, kk, vv, attn_mask=mask)
+        def flat(c):                    # (B, W, KH, D) -> (B·KH, W, D)
+            b = c.view(torch.uint8) if fp8 else c
+            return b.transpose(1, 2).reshape(B * KH, W, D).view(c.dtype)
 
-            lib_err = (library().transpose(1, 2).float()
-                       - got.float()).abs().max().item()
-            library_ms = cuda_ms(library, [()] * 50, torch, warm_up=True)
-            nbytes, flops = decode_work(B * KH, G, D, n_valid,
-                                        q.element_size(), W)
-            bound_ms, bound_by = bound_of(
-                nbytes, flops,
-                BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
-            row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       library_ms=library_ms, library_max_abs_err=lib_err,
-                       bytes=nbytes, flops=flops, bound_ms=bound_ms,
-                       bound_by=bound_by, tflops=flops / ms * 1e-9,
-                       bound_share=bound_ms / ms)
-            emit("kernels", kernel="decode_attention_fwd", shape=name,
-                 dtype=dname, dims=dict(B=B, W=W, KH=KH, G=G, D=D,
-                                        index=index, window=window,
-                                        live=n_valid // (B * KH),
-                                        splits=list(da_ops.splits(
-                                            B * KH, W,
-                                            da_ops.sm_count(dev)))),
-                 **row)
-            rows[(name, dname)] = row
-            del q, ck, cv, kk, vv
+        kf, vf = flat(ck), flat(cv)
+        want = da_ref.decode_attention_ref(qg, kf, vf, valid)
+        torch.cuda.synchronize()
+        err = (got.reshape(want.shape).float()
+               - want.float()).abs().max().item()
+        rtol, atol = ((0.0, 1e-5) if dtype == torch.float32
+                      else (2.0 ** -7, 2.0 ** -7))
+        check(torch.allclose(got.reshape(want.shape).float(),
+                             want.float(), rtol=rtol, atol=atol),
+              f"decode_attention_fwd {name} {dname}/{kvname} disagrees "
+              f"with its plain version (max {err})")
+        ms = cuda_ms(lambda: da_ops.decode_attention(
+            q, ck, cv, index, window=window), [()] * 50, torch,
+            warm_up=True)
+        plain_ms = cuda_ms(lambda: da_ref.decode_attention_ref(
+            qg, kf, vf, valid), [()] * 10, torch)
+        qq = q.transpose(1, 2)                              # (B, H, 1, D)
+        kk, vv = ((c.to(dtype).transpose(1, 2).expand(B, H, W, D) if KH == 1
+                   else c.to(dtype).transpose(1, 2).repeat_interleave(
+                       G, dim=1)) for c in (ck, cv))
+        mask = (ok != 0).view(1, 1, 1, W).expand(B, H, 1, W)
+
+        def library():
+            return sdpa(qq, kk, vv, attn_mask=mask)
+
+        lib_err = (library().transpose(1, 2).float()
+                   - got.float()).abs().max().item()
+        library_ms = cuda_ms(library, [()] * 50, torch, warm_up=True)
+        nbytes, flops = decode_work(B * KH, G, D, n_valid,
+                                    q.element_size(), W, ck.element_size())
+        bound_ms, bound_by = bound_of(
+            nbytes, flops,
+            BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
+        row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   library_ms=None if fp8 else library_ms,
+                   library_max_abs_err=lib_err,
+                   bytes=nbytes, flops=flops, bound_ms=bound_ms,
+                   bound_by=bound_by, tflops=flops / ms * 1e-9,
+                   bound_share=bound_ms / ms)
+        if fp8:
+            row["library_widened_ms"] = library_ms
+        emit("kernels", kernel="decode_attention_fwd", shape=name,
+             dtype=dname, kv_dtype=kvname,
+             dims=dict(B=B, W=W, KH=KH, G=G, D=D, index=index,
+                       window=window, live=n_valid // (B * KH),
+                       splits=list(da_ops.splits(B * KH, W,
+                                                 da_ops.sm_count(dev)))),
+             **row)
+        rows[(name, dname)] = row
+        del q, ck, cv, kk, vv, kf, vf, want, got
+    phase_fp8_cast(torch, dev)
     return rows
+
+
+def phase_fp8_cast(torch, dev):
+    """The float8_e4m3fn KV cast (`layers.cast_kv`) on the card against
+    the same on the CPU, byte for byte, over all 65,536 bfloat16 bit
+    patterns (NaN past the range, where `Tensor.to` saturates) and a
+    million float32 values spanning the format's range."""
+    from repro_torch.models.layers import cast_kv
+    fp8 = torch.float8_e4m3fn
+    pats = torch.arange(65536, dtype=torch.int32).to(torch.int16).view(
+        torch.bfloat16)
+    g = torch.Generator().manual_seed(8)
+    f32 = torch.randn(1 << 20, generator=g) * torch.exp2(
+        torch.randint(-12, 10, (1 << 20,), generator=g).float())
+    out = {}
+    for what, x in (("bfloat16_patterns", pats), ("float32", f32)):
+        host = cast_kv(x, fp8).view(torch.uint8)
+        card = cast_kv(x.to(dev), fp8).view(torch.uint8).cpu()
+        diff = int((host != card).sum())
+        nan = int(torch.isnan(host.view(fp8).float()).sum())
+        out[what] = dict(n=x.numel(), differ=diff, nan=nan)
+        check(diff == 0, f"fp8_cast {what}: {diff} bytes differ between "
+                         f"the card and the CPU")
+    emit("kernels", check="fp8_cast", **out)
 
 
 # --------------------------------------------------------------------------
@@ -3534,6 +3632,262 @@ def phase_lm_generate(torch, dev, arch, params=None, n_prompt=GEN_PROMPT):
     return out
 
 
+# --------------------------------------------------------------------------
+# the other LM families at full width
+# --------------------------------------------------------------------------
+# (arch, layers kept (None: all), forward requests x tokens, generation
+# requests x prompt tokens (None: no generation run)).  h2o-danube's 8192
+# tokens cross its window of 4096 and its 4200-token prompt wraps the
+# 4096-slot rings; whisper decodes 448 tokens (its context) against 1500
+# encoder frames; internvl2's generation reads its float8 cache.
+FAMILIES = (
+    ("granite_moe_1b_a400m", None, (2, 2048), (4, 1000)),
+    ("granite_moe_3b_a800m", None, (2, 2048), None),
+    ("h2o_danube_1_8b", None, (1, 8192), (1, 4200)),
+    ("internlm2_20b", 8, (2, 2048), None),
+    ("deepseek_coder_33b", 8, (2, 2048), None),
+    ("whisper_base", None, (8, 448), (4, 64)),
+    ("internvl2_76b", 4, (2, 2048), (4, 1000)),
+)
+CARD_BYTES = 80e9
+# internvl2's float8 cache against the same generation with a bfloat16
+# cache: the reference's own bar for its float8 cache against a forward
+# (`tests/test_archs.py`: 0.6, "fp8 KV quantisation noise")
+FP8_KV_ATOL = 0.6
+
+
+def family_flash(cfg):
+    """Flash launches of one forward or prefill: one per decoder layer,
+    and an encoder-decoder's encoder layers and cross-attentions."""
+    cross = cfg.num_layers if cfg.is_encdec else 0
+    return cfg.num_layers + cfg.encoder_layers + cross
+
+
+def family_inputs(torch, dev, cfg, batch, seq, seed):
+    """`TokenPipeline` tokens and, where the model takes them, random
+    patch or frame embeddings (float32, from a seed, on the card)."""
+    b = {"tokens": lm_tokens(torch, dev, cfg, batch, seq)}
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if cfg.num_patches:
+        b["patch_embeds"] = torch.randn((batch, cfg.num_patches,
+                                         cfg.d_model), generator=g,
+                                        device=dev)
+    if cfg.is_encdec:
+        b["audio_feats"] = torch.randn((batch, cfg.encoder_seq,
+                                        cfg.d_model), generator=g,
+                                       device=dev)
+    return b
+
+
+def phase_lm_families(torch, dev):
+    """The other LM families (`FAMILIES`) at full width from a seed,
+    float32 parameters and bfloat16 compute; a depth is cut where the
+    float32 parameters of every layer do not fit the card, and the cut is
+    printed with that size.  Each: `init_params`, a forward (flash
+    launches counted from 0: `family_flash` per forward, nothing else),
+    tokens/s (the best of three), peak memory, its logits against the
+    same forward with `attn_impl="dense"` (`LM_BF16_*`) and a profile
+    of it; four of them also generate (`family_generate`).  Prints the
+    phase's seconds."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward, init_params, logits_from_h
+    t_phase = time.perf_counter()
+    for arch, keep, (fb, fs), gen in FAMILIES:
+        full = get_config(arch)
+        cfg = full if keep is None else dataclasses.replace(full,
+                                                            num_layers=keep)
+        cut = None if keep is None else dict(
+            layers=keep, of=full.num_layers,
+            reason=f"{full.param_count() * 4 / 1e9:.1f} GB of float32 "
+                   f"parameters at {full.num_layers} layers do not fit "
+                   f"one {CARD_BYTES / 1e9:.0f} GB card")
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        params = init_params(cfg, LM_SEED, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        param_bytes = torch.cuda.memory_allocated() - before
+        batch = family_inputs(torch, dev, cfg, fb, fs, LM_SEED)
+
+        @torch.inference_mode()
+        def run(c):
+            return logits_from_h(params, forward(params, batch, c), c)
+
+        run(cfg)                                 # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        logits = run(cfg)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: v for k, v in kernel_launches().items() if v}
+        peak = torch.cuda.max_memory_allocated()
+        want = {"flash_attention_fwd": family_flash(cfg)}
+        check(launches == want, f"lm_families {arch}: launches {launches}, "
+                                f"expected {want}")
+        V = cfg.vocab_size
+        check(tuple(logits.shape) == (fb, fs, cfg.padded_vocab)
+              and bool(torch.isfinite(logits[..., :V]).all()),
+              f"lm_families {arch}: bad logits {tuple(logits.shape)}")
+        steady = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            run(cfg)
+            torch.cuda.synchronize()
+            steady.append(time.perf_counter() - t0)
+        device_s, n_launch, top = profiled(torch, lambda: run(cfg),
+                                           keep=("flash_tc_kernel",))
+        emit("profile", path=f"lm_families {cfg.name} forward",
+             device_seconds=device_s, wall_seconds=min(steady),
+             busy_share=device_s / min(steady), n_kernel_launches=n_launch,
+             top=top)
+        plain = run(dataclasses.replace(cfg, attn_impl="dense"))
+        cmp = compare_logits(logits, plain, V)
+        scale = logits[..., :V].abs().max().item()
+        del logits, plain
+        row = dict(model=cfg.name, family=cfg.family,
+                   params=cfg.param_count(),
+                   active_params=cfg.active_param_count(),
+                   layers=cfg.num_layers, depth_cut=cut,
+                   param_bytes=param_bytes, init_seconds=init_s,
+                   batch=fb, seq=fs, seconds=seconds, steady_seconds=steady,
+                   tokens_per_s=fb * fs / min(steady), peak_mem_bytes=peak,
+                   launches_per_forward=launches, logit_scale=scale,
+                   bf16_vs_dense=dict(max_abs=cmp[0], mean_abs=cmp[1],
+                                      top1_agree=cmp[2]))
+        emit("lm_families", **row)
+        check(cmp[0] <= LM_BF16_ATOL and cmp[1] <= LM_BF16_MEAN
+              and cmp[2] >= LM_BF16_TOP1,
+              f"lm_families {arch}: bfloat16 flash vs dense logits (max, "
+              f"mean, top-1) {cmp}")
+        if gen is not None:
+            family_generate(torch, dev, cfg, params, *gen)
+        del params, batch
+        torch.cuda.empty_cache()
+    emit("lm_families", phase_seconds=time.perf_counter() - t_phase)
+
+
+def family_generate(torch, dev, cfg, params, n_seq, n_prompt):
+    """`prefill` of ``n_seq`` prompts of ``n_prompt`` tokens (max_seq
+    ``n_prompt`` + 32) and 32 teacher-forced `decode_step` calls, in the
+    model's KV cache type and, for a float8 cache, again with a bfloat16
+    one.  Launch counts from 0 (prefill: `family_flash`; a step: one
+    flash-decode per layer, and an encoder-decoder's cross-attention
+    flash per layer); the bfloat16-cache logits against `forward` of all
+    tokens at the same positions (`GEN_BF16_*`), the float8-cache logits
+    against the bfloat16-cache ones (`FP8_KV_ATOL`); a profile of one
+    more step in the model's cache type.  A MoE model runs
+    with ``capacity_factor=8``, as the reference's own prefill + decode
+    test does: its prefill and forward then drop no token, while a decode
+    step never drops one, so the three compute the same function."""
+    import dataclasses
+
+    from repro_torch.models import (decode_step, forward, init_cache,
+                                    logits_from_h, prefill)
+    if cfg.num_experts:
+        cfg = dataclasses.replace(cfg, capacity_factor=8.0)
+    max_seq = n_prompt + GEN_STEPS
+    batch = family_inputs(torch, dev, cfg, n_seq, max_seq, LM_SEED + 1)
+    tokens = batch["tokens"]
+    prompt = dict(batch, tokens=tokens[:, :n_prompt])
+    want_pre = {"flash_attention_fwd": family_flash(cfg)}
+    want_dec = {"decode_attention_fwd": cfg.num_layers * GEN_STEPS}
+    if cfg.is_encdec:
+        want_dec["flash_attention_fwd"] = cfg.num_layers * GEN_STEPS
+    V = cfg.vocab_size
+    kinds = [cfg.kv_cache_dtype]
+    if cfg.kv_cache_dtype != "bfloat16":
+        kinds.append("bfloat16")
+    logits = {}
+    for kv in kinds:
+        c = dataclasses.replace(cfg, kv_cache_dtype=kv)
+        with torch.inference_mode():
+            warm, _ = prefill(params, prompt, c, max_seq)
+            decode_step(params, tokens[:, n_prompt:n_prompt + 1], warm, c)
+            del warm
+            empty = init_cache(c, n_seq, max_seq, device=dev)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            t0 = time.perf_counter()
+            cache, lg = prefill(params, prompt, c, max_seq)
+            torch.cuda.synchronize()
+            t_prefill = time.perf_counter() - t0
+            pre = {k: v for k, v in kernel_launches().items() if v}
+            reset_launches()
+            got, walls = [lg], []
+            t_all = time.perf_counter()
+            for t in range(GEN_STEPS):
+                t0 = time.perf_counter()
+                lg, cache = decode_step(
+                    params, tokens[:, n_prompt + t:n_prompt + t + 1], cache,
+                    c)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                got.append(lg)
+            t_decode = time.perf_counter() - t_all
+            dec = {k: v for k, v in kernel_launches().items() if v}
+            peak = torch.cuda.max_memory_allocated()
+            if kv == kinds[0]:          # one more step, profiled
+                device_s, n_launch, top = profiled(torch, lambda: (
+                    decode_step(params, tokens[:, -1:], cache, c)),
+                    keep=("decode_partial_kernel", "flash_tc_kernel"))
+                emit("profile", path=f"lm_generate {cfg.name} decode_step",
+                     kv_cache=kv, device_seconds=device_s,
+                     wall_seconds=min(walls),
+                     busy_share=device_s / min(walls),
+                     n_kernel_launches=n_launch, top=top)
+            check(cache_leaves(empty) == cache_leaves(cache)
+                  and cache["index"] == max_seq,
+                  f"lm_generate {cfg.name} {kv}: init_cache and prefill "
+                  f"disagree on the cache")
+            check(pre == want_pre and dec == want_dec,
+                  f"lm_generate {cfg.name} {kv}: launches prefill {pre}, "
+                  f"decode {dec}; expected {want_pre}, {want_dec}")
+            got = torch.cat(got, dim=1)
+            check(bool(torch.isfinite(got[..., :V]).all()),
+                  f"lm_generate {cfg.name} {kv}: logits not finite")
+            logits[kv] = got
+            del cache, empty
+        emit("lm_generate", model=cfg.name, kv_cache=kv, batch=n_seq,
+             prompt=n_prompt, steps=GEN_STEPS, max_seq=max_seq,
+             capacity_factor=cfg.capacity_factor if cfg.num_experts
+             else None,
+             prefill_seconds=t_prefill,
+             prefill_tokens_per_s=n_seq * n_prompt / t_prefill,
+             decode_seconds=t_decode,
+             decode_tokens_per_s=n_seq * GEN_STEPS / t_decode,
+             step_ms=dict(first=walls[0] * 1e3,
+                          median=sorted(walls)[GEN_STEPS // 2] * 1e3,
+                          min=min(walls) * 1e3),
+             peak_mem_bytes=peak, launches_prefill=pre,
+             launches_decode=dec)
+    with torch.inference_mode():
+        h = forward(params, batch, cfg)
+        ref = logits_from_h(params, h[:, n_prompt - 1:], cfg)
+    del h
+    cmp = compare_logits(logits["bfloat16"], ref, V)
+    out = dict(bf16_cache_vs_forward=dict(max_abs=cmp[0], mean_abs=cmp[1],
+                                          top1_agree=cmp[2]))
+    if len(kinds) > 1:
+        f8 = compare_logits(logits[kinds[0]], logits["bfloat16"], V)
+        f8f = compare_logits(logits[kinds[0]], ref, V)
+        out[f"{kinds[0]}_vs_bf16_cache"] = dict(
+            max_abs=f8[0], mean_abs=f8[1], top1_agree=f8[2])
+        out[f"{kinds[0]}_vs_forward"] = dict(
+            max_abs=f8f[0], mean_abs=f8f[1], top1_agree=f8f[2])
+    emit("lm_generate", model=cfg.name, **out)
+    check_bf16(f"lm_generate {cfg.name} vs forward", cmp)
+    if len(kinds) > 1:
+        check(f8[0] <= FP8_KV_ATOL,
+              f"lm_generate {cfg.name}: {kinds[0]} cache logits differ "
+              f"from the bfloat16 cache's by {f8[0]}")
+
+
 def phase_parity():
     """The card-marked tests, in a child process: the kernels against their
     plain versions, and a small rollout on the card against the CPU."""
@@ -3753,6 +4107,7 @@ def main() -> int:
     launches["rglru_scan_fwd"] = phase_recurrentgemma(
         torch, dev)["rglru_scan_fwd"]
     rows["rglru_scan_fwd"] = rglru_rows[RGLRU_LINE]
+    phase_lm_families(torch, dev)
     phase_parity()
     seconds = phase_timing(torch, dev, params)
     phase_profile(torch, dev, params, seconds, serve_seconds)

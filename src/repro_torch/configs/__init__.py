@@ -1,12 +1,13 @@
 """Architecture registry of the port: `get_config(arch_id)`.
 
-The port of `repro.configs`.  Each ported module defines CONFIG (full
-size) and SMOKE (reduced, same family), field for field the reference's.
-Ported so far: the dense LMs the serving path runs, `paper_edge` (the
-paper's MobileNet-ladder analogue) and `gemma3_1b`, the SSM
-`mamba2_130m` and the hybrid `recurrentgemma_9b` (RG-LRU and local
-attention).  Asking for another architecture of the reference raises
-`NotImplementedError` naming the ROADMAP item that ports it.
+The port of `repro.configs`.  Each module defines CONFIG (full size) and
+SMOKE (reduced, same family), field for field the reference's: the dense
+LMs `paper_edge` (the paper's MobileNet-ladder analogue), `gemma3_1b`,
+`internlm2_20b`, `deepseek_coder_33b` and `h2o_danube_1_8b` (sliding
+window), the MoE LMs `granite_moe_1b_a400m` and `granite_moe_3b_a800m`,
+the SSM `mamba2_130m`, the hybrid `recurrentgemma_9b` (RG-LRU and local
+attention), the encoder-decoder `whisper_base` and the VLM
+`internvl2_76b` (patch embeddings, a float8 KV cache).
 """
 from __future__ import annotations
 
@@ -27,19 +28,6 @@ ARCHS: List[str] = [
     "paper_edge",          # the paper's own MobileNet-ladder analogue
 ]
 
-PORTED = ("gemma3_1b", "paper_edge", "mamba2_130m", "recurrentgemma_9b")
-
-_ITEM = "ROADMAP §1 item 12"
-_NOT_PORTED = {
-    "granite_moe_3b_a800m": f"{_ITEM}: moe",
-    "granite_moe_1b_a400m": f"{_ITEM}: moe",
-    "whisper_base": f"{_ITEM}: enc-dec",
-    "internvl2_76b": f"{_ITEM}: vlm",
-    "internlm2_20b": f"{_ITEM}: the remaining dense configs",
-    "deepseek_coder_33b": f"{_ITEM}: the remaining dense configs",
-    "h2o_danube_1_8b": f"{_ITEM}: the remaining dense configs",
-}
-
 
 def canon(arch: str) -> str:
     return arch.replace("-", "_").replace(".", "_")
@@ -47,10 +35,7 @@ def canon(arch: str) -> str:
 
 def _module(arch: str):
     name = canon(arch)
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"architecture {arch!r} is not ported yet ({_NOT_PORTED[name]})")
-    if name not in PORTED:
+    if name not in ARCHS:
         raise ValueError(f"unknown architecture {arch!r}; known: {ARCHS}")
     return importlib.import_module(f"{__name__}.{name}")
 
@@ -62,3 +47,6 @@ def get_config(arch: str):
 def get_smoke_config(arch: str):
     return _module(arch).SMOKE
 
+
+def all_archs() -> List[str]:
+    return [a for a in ARCHS if a != "paper_edge"]

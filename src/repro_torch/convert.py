@@ -189,6 +189,11 @@ def solution_fields(sol) -> Dict[str, Optional[np.ndarray]]:
     }
 
 
+# ml_dtypes' types NumPy cannot hand to torch: (their bits, torch's type)
+_BY_BITS = {"bfloat16": (np.uint16, torch.bfloat16),
+            "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn)}
+
+
 def model_params_from_numpy(tree: Any, device: DeviceLike = None) -> Any:
     """The port's LM parameters from the reference's `init_params` pytree
     with NumPy leaves: dicts stay dicts (same keys), tuples and lists
@@ -202,9 +207,9 @@ def model_params_from_numpy(tree: Any, device: DeviceLike = None) -> Any:
         if isinstance(x, (tuple, list)):
             return tuple(conv(v) for v in x)
         a = np.array(x)
-        if a.dtype.name == "bfloat16":       # ml_dtypes' bfloat16: by bits
-            return torch.as_tensor(a.view(np.uint16)).view(
-                torch.bfloat16).to(dev)
+        if a.dtype.name in _BY_BITS:         # ml_dtypes' types: by bits
+            bits, dtype = _BY_BITS[a.dtype.name]
+            return torch.as_tensor(a.view(bits)).view(dtype).to(dev)
         return torch.as_tensor(a, device=dev)
 
     return conv(tree)
@@ -216,11 +221,14 @@ def cache_from_numpy(cache: Dict[str, Any], cfg,
     `init_cache` output with NumPy leaves): ``blocks`` and ``tail`` leaf
     for leaf as tensors of their dtype on ``device``, ``index`` as a
     Python int, so that the port's `decode_step` continues where the
-    reference's `prefill` stopped.  ``cfg`` (the model's `ModelConfig`)
-    checks the layer structure."""
-    if cfg.is_encdec or "enc_out" in cache:
-        raise NotImplementedError("encoder-decoder caches are not ported "
-                                  "yet (ROADMAP §1 item 12: enc-dec)")
+    reference's `prefill` stopped; a float8 leaf is taken by its bits, an
+    encoder-decoder's ``enc_out`` as a tensor.  ``cfg`` (the model's
+    `ModelConfig`) checks the layer structure and whether ``enc_out``
+    belongs."""
+    if cfg.is_encdec != ("enc_out" in cache):
+        raise ValueError(f"{cfg.name}: a cache "
+                         f"{'without' if cfg.is_encdec else 'with'} "
+                         f"enc_out")
     n_cycles, tail = cfg.cycles_and_tail
     blocks = model_params_from_numpy(tuple(cache["blocks"]), device)
     tails = model_params_from_numpy(tuple(cache["tail"]), device)
@@ -229,5 +237,8 @@ def cache_from_numpy(cache: Dict[str, Any], cfg,
         raise ValueError(f"cache has {len(blocks)} block and {len(tails)} "
                          f"tail entries; {cfg.name} has {n_cycles} cycles "
                          f"of {len(cfg.pattern)} and {tail} tail layers")
-    return {"blocks": blocks, "tail": tails,
-            "index": int(np.asarray(cache["index"]))}
+    out = {"blocks": blocks, "tail": tails,
+           "index": int(np.asarray(cache["index"]))}
+    if cfg.is_encdec:
+        out["enc_out"] = model_params_from_numpy(cache["enc_out"], device)
+    return out

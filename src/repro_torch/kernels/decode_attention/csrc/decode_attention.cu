@@ -1,5 +1,6 @@
 // Flash-decode attention for Hopper (sm_90a): one new token's G grouped
-// q heads against a ring-buffer KV cache, float32 or bfloat16.
+// q heads against a ring-buffer KV cache, float32, bfloat16 or
+// float8_e4m3fn.
 //
 // Replaces the Pallas kernel of src/repro/kernels/decode_attention/
 // decode_attention.py (`decode_attention_fwd`, body `_kernel`): for every
@@ -8,7 +9,8 @@
 //     o[r, g] = sum_j softmax_j(q[r, g] . k[r, j] * D^-1/2) v[r, j]
 //
 // over the cache slots j with valid[r, j] != 0.  K and V are taken in q's
-// type (the reference's wrapper casts the cache to it); scores are float32
+// type (the reference's wrapper casts the cache to it; a float8_e4m3fn
+// element widens exactly, NaN staying NaN); scores are float32
 // times D^-1/2; p = exp(s - m) is rounded to q's type before the PV product
 // and l sums the unrounded p, as the Pallas kernel does; an invalid slot
 // gets p = 0 by selection.  The output is acc / max(l, 1e-30) in q's type.
@@ -47,6 +49,13 @@
 //     column: the splits' partials merged with weights exp(m_i - max_i m_i),
 //     computed once per CTA by one warp while every column's partial loads
 //     are in flight.  The output is acc / max(l, 1e-30).
+//   * A float8_e4m3fn cache (internvl2's) is read as bytes, 4 to 16 at a
+//     time, and each element is widened exactly to q's type as it is
+//     stored into the shared-memory tile (`load_rows_fp8`): one byte per
+//     element crosses device memory, half a bfloat16 cache's, and no
+//     widened copy of the ring is ever written.  From the tile on, the
+//     kernel is the one of a cache in q's type.  These loads are plain
+//     (not `cp.async`): the tile's stores wait for them.
 //
 // Interface: plain C, called through ctypes; the launcher returns
 // cudaGetLastError() so the Python wrapper raises on a refused launch.
@@ -54,6 +63,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -76,6 +87,64 @@ __device__ __forceinline__ float from_float<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ bf16 from_float<bf16>(float x) {
   return __float2bfloat16_rn(x);
+}
+
+// float8_e4m3fn bits (1 sign, 4 exponent of bias 7, 3 mantissa; no
+// infinity, S.1111.111 NaN) as the float of the same value: exact
+__device__ __forceinline__ float e4m3_to_float(uint32_t b) {
+  const uint32_t sign = (b & 0x80u) << 24;
+  const uint32_t em = b & 0x7fu;
+  if (em == 0x7fu) return __uint_as_float(sign | 0x7fc00000u);   // NaN
+  if (em < 8u) {                        // zero or subnormal: m 2^-9
+    const float f = static_cast<float>(em) * 0.001953125f;
+    return sign ? -f : f;
+  }
+  return __uint_as_float(sign | (((em >> 3) + 120u) << 23) |
+                         ((em & 7u) << 20));
+}
+
+// the four float8 elements of a 32-bit word, widened into dst[0..3]
+template <typename T>
+__device__ __forceinline__ void widen4(T* dst, uint32_t w) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    dst[i] = from_float<T>(e4m3_to_float((w >> (8 * i)) & 0xffu));
+}
+
+// kRowsT float8 cache rows of D elements, row j at src + j * stride (rows
+// >= n_rows zero-filled), widened into dst + j * kLd; vec = bytes per
+// read (16, 8, 4; 0: one element at a time)
+template <typename T, int kRowsT, int kLd>
+__device__ __forceinline__ void load_rows_fp8(T* dst, const uint8_t* src,
+                                              size_t stride, int n_rows,
+                                              int D, int vec, int tid) {
+  const int per = vec ? vec : 1;
+  const int chunks = D / per;
+  for (int c = tid; c < kRowsT * chunks; c += kThreads) {
+    const int r = c / chunks;
+    const int d = (c - r * chunks) * per;
+    T* const out = dst + r * kLd + d;
+    if (r >= n_rows) {
+      for (int i = 0; i < per; ++i) out[i] = from_float<T>(0.f);
+      continue;
+    }
+    const uint8_t* const s = src + r * stride + d;
+    if (vec == 16) {
+      const uint4 w = *reinterpret_cast<const uint4*>(s);
+      widen4(out, w.x);
+      widen4(out + 4, w.y);
+      widen4(out + 8, w.z);
+      widen4(out + 12, w.w);
+    } else if (vec == 8) {
+      const uint2 w = *reinterpret_cast<const uint2*>(s);
+      widen4(out, w.x);
+      widen4(out + 4, w.y);
+    } else if (vec == 4) {
+      widen4(out, *reinterpret_cast<const uint32_t*>(s));
+    } else {
+      out[0] = from_float<T>(e4m3_to_float(*s));
+    }
+  }
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -206,11 +275,12 @@ struct Layout {
                                    sizeof(float) * kHeads;
 };
 
-// kDp: D padded to 64, 128 or 256
-template <typename Tq, typename Tkv, int kDp>
+// kDp: D padded to 64, 128 or 256; Tkv: the tiles' type; Tg: the cache's
+// (Tkv, or uint8_t for float8_e4m3fn bits widened to Tkv = Tq)
+template <typename Tq, typename Tkv, typename Tg, int kDp>
 __global__ void __launch_bounds__(kThreads, 1)
-decode_partial_kernel(const Tq* __restrict__ q, const Tkv* __restrict__ k,
-                      const Tkv* __restrict__ v,
+decode_partial_kernel(const Tq* __restrict__ q, const Tg* __restrict__ k,
+                      const Tg* __restrict__ v,
                       const int* __restrict__ valid,
                       float* __restrict__ part, float* __restrict__ ml,
                       int G, int W, int D, int kh, int valid_stride,
@@ -218,6 +288,9 @@ decode_partial_kernel(const Tq* __restrict__ q, const Tkv* __restrict__ k,
   using L = Layout<Tq, Tkv, kDp>;
   constexpr int kTK = L::kTK;
   constexpr bool kMma = sizeof(Tq) == 2;
+  constexpr bool kFp8 = std::is_same<Tg, uint8_t>::value;
+  static_assert(!kFp8 || std::is_same<Tkv, Tq>::value,
+                "a float8 cache widens to q's type");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Tq* const Qs = reinterpret_cast<Tq*>(smem_raw);             // (16, kLdQ)
   Tkv* const Ks = reinterpret_cast<Tkv*>(smem_raw + L::kQ);   // 2 tiles
@@ -254,10 +327,19 @@ decode_partial_kernel(const Tq* __restrict__ q, const Tkv* __restrict__ k,
   }
   auto load_tile = [&](int j0, int stage) {
     const size_t off = kbase + static_cast<size_t>(j0) * kstride;
-    load_rows<Tkv, kTK, L::kLdKV, kDp>(Ks + stage * kTK * L::kLdKV, k + off,
-                                       kstride, k, j_end - j0, D, vec, tid);
-    load_rows<Tkv, kTK, L::kLdKV, kDp>(Vs + stage * kTK * L::kLdKV, v + off,
-                                       kstride, v, j_end - j0, D, vec, tid);
+    if constexpr (kFp8) {
+      load_rows_fp8<Tkv, kTK, L::kLdKV>(Ks + stage * kTK * L::kLdKV, k + off,
+                                        kstride, j_end - j0, D, vec, tid);
+      load_rows_fp8<Tkv, kTK, L::kLdKV>(Vs + stage * kTK * L::kLdKV, v + off,
+                                        kstride, j_end - j0, D, vec, tid);
+    } else {
+      load_rows<Tkv, kTK, L::kLdKV, kDp>(Ks + stage * kTK * L::kLdKV,
+                                         k + off, kstride, k, j_end - j0, D,
+                                         vec, tid);
+      load_rows<Tkv, kTK, L::kLdKV, kDp>(Vs + stage * kTK * L::kLdKV,
+                                         v + off, kstride, v, j_end - j0, D,
+                                         vec, tid);
+    }
   };
   load_tile(j_begin, 0);
   cp_async_commit();
@@ -565,21 +647,21 @@ cudaError_t set_smem_once(F* fn, size_t bytes, unsigned& done) {
   return err;
 }
 
-template <typename Tq, typename Tkv, int kDp>
+template <typename Tq, typename Tkv, typename Tg, int kDp>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* valid, float* part, float* ml, void* o,
                    int rows, int G, int W, int D, int kh, int valid_stride,
                    int nsplit, int split_len, float scale, int vec,
                    cudaStream_t stream) {
   constexpr size_t smem = Layout<Tq, Tkv, kDp>::kBytes;
-  auto* fn = decode_partial_kernel<Tq, Tkv, kDp>;
+  auto* fn = decode_partial_kernel<Tq, Tkv, Tg, kDp>;
   static unsigned smem_set = 0;
   cudaError_t err = set_smem_once(fn, smem, smem_set);
   if (err != cudaSuccess) return err;
   const dim3 grid(rows, nsplit, (G + kHeads - 1) / kHeads);
   fn<<<grid, kThreads, smem, stream>>>(
-      static_cast<const Tq*>(q), static_cast<const Tkv*>(k),
-      static_cast<const Tkv*>(v), valid, part, ml, G, W, D, kh, valid_stride,
+      static_cast<const Tq*>(q), static_cast<const Tg*>(k),
+      static_cast<const Tg*>(v), valid, part, ml, G, W, D, kh, valid_stride,
       nsplit, split_len, scale, vec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -589,21 +671,21 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename Tq, typename Tkv>
+template <typename Tq, typename Tkv, typename Tg = Tkv>
 cudaError_t dispatch(const void* q, const void* k, const void* v,
                      const int* valid, float* part, float* ml, void* o,
                      int rows, int G, int W, int D, int kh, int valid_stride,
                      int nsplit, int split_len, float scale, int vec,
                      cudaStream_t stream) {
   if (D <= 64)
-    return launch<Tq, Tkv, 64>(q, k, v, valid, part, ml, o, rows, G, W, D,
+    return launch<Tq, Tkv, Tg, 64>(q, k, v, valid, part, ml, o, rows, G, W, D,
                                kh, valid_stride, nsplit, split_len, scale,
                                vec, stream);
   if (D <= 128)
-    return launch<Tq, Tkv, 128>(q, k, v, valid, part, ml, o, rows, G, W, D,
+    return launch<Tq, Tkv, Tg, 128>(q, k, v, valid, part, ml, o, rows, G, W, D,
                                 kh, valid_stride, nsplit, split_len, scale,
                                 vec, stream);
-  return launch<Tq, Tkv, 256>(q, k, v, valid, part, ml, o, rows, G, W, D, kh,
+  return launch<Tq, Tkv, Tg, 256>(q, k, v, valid, part, ml, o, rows, G, W, D, kh,
                               valid_stride, nsplit, split_len, scale, vec,
                               stream);
 }
@@ -617,16 +699,19 @@ extern "C" {
 // valid: row r's slot j at valid[r * valid_stride + j] (int32, stride 0
 // shares one row); part (rows, nsplit, G, D) and ml (rows, nsplit, G, 2)
 // float32 scratch; o (rows, G, D) of q's type.  Splits of split_len keys
-// (a multiple of 64) cover the W slots.  1 <= D <= 256.  vec: bytes of one
-// asynchronous copy of the cache (16, 8 or 4, dividing a row of D elements
-// and both cache pointers; 0: plain loads).
+// (a multiple of 64) cover the W slots.  1 <= D <= 256.  kv_type: the
+// cache's type, 0 float32, 1 bfloat16, 2 float8_e4m3fn.  vec: bytes of one
+// copy of the cache (16, 8 or 4, dividing a row of D elements and both
+// cache pointers; 0: plain loads).
 int decode_attention_launch(const void* q, const void* k, const void* v,
                             const void* valid, void* part, void* ml, void* o,
                             int rows, int G, int W, int D, int kh,
                             int valid_stride, int nsplit, int split_len,
-                            float scale, int q_bf16, int kv_bf16, int vec,
+                            float scale, int q_bf16, int kv_type, int vec,
                             cudaStream_t stream) {
-  const int kv_bytes = kv_bf16 ? 2 : 4;
+  if (kv_type < 0 || kv_type > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int kv_bytes = kv_type == 0 ? 4 : kv_type == 1 ? 2 : 1;
   if (D < 1 || D > 256 || G < 1 || W < 1 || kh < 1 || rows % kh != 0 ||
       nsplit < 1 || split_len < 1 || split_len % kSplitKeys != 0 ||
       static_cast<long long>(nsplit) * split_len < W ||
@@ -639,15 +724,26 @@ int decode_attention_launch(const void* q, const void* k, const void* v,
   float* pp = static_cast<float*>(part);
   float* mm = static_cast<float*>(ml);
   cudaError_t err;
-  if (q_bf16)
-    err = kv_bf16 ? dispatch<bf16, bf16>(q, k, v, vd, pp, mm, o, rows, G, W,
+  if (kv_type == 2)
+    err = q_bf16 ? dispatch<bf16, bf16, uint8_t>(q, k, v, vd, pp, mm, o,
+                                                 rows, G, W, D, kh,
+                                                 valid_stride, nsplit,
+                                                 split_len, scale, vec,
+                                                 stream)
+                 : dispatch<float, float, uint8_t>(q, k, v, vd, pp, mm, o,
+                                                   rows, G, W, D, kh,
+                                                   valid_stride, nsplit,
+                                                   split_len, scale, vec,
+                                                   stream);
+  else if (q_bf16)
+    err = kv_type == 1 ? dispatch<bf16, bf16>(q, k, v, vd, pp, mm, o, rows, G, W,
                                          D, kh, valid_stride, nsplit,
                                          split_len, scale, vec, stream)
                   : dispatch<bf16, float>(q, k, v, vd, pp, mm, o, rows, G, W,
                                           D, kh, valid_stride, nsplit,
                                           split_len, scale, vec, stream);
   else
-    err = kv_bf16 ? dispatch<float, bf16>(q, k, v, vd, pp, mm, o, rows, G, W,
+    err = kv_type == 1 ? dispatch<float, bf16>(q, k, v, vd, pp, mm, o, rows, G, W,
                                           D, kh, valid_stride, nsplit,
                                           split_len, scale, vec, stream)
                   : dispatch<float, float>(q, k, v, vd, pp, mm, o, rows, G, W,

@@ -13,8 +13,11 @@
   the kernel reads the caches where they lie (no per-layer transpose or
   cast), so the call costs no copy of the cache.
 
-K and V may be float32 or bfloat16; they are taken in q's type, as the
-reference's wrapper casts the cache.  The output is in q's type.  On a
+K and V may be float32, bfloat16 or float8_e4m3fn (the last with a
+bfloat16 or float32 q); they are taken in q's type, as the reference's
+wrapper casts the cache: on the card the kernel widens each float8
+element exactly as it loads it, so no widened copy of the ring is made.
+The output is in q's type.  On a
 CUDA tensor the hand-written kernel runs, built at first use with
 ``nvcc`` into ``build/kernels/`` of the checkout and bound with `ctypes`:
 the cache is cut into `splits` of whole 64-key blocks, one CTA per
@@ -36,6 +39,8 @@ from .._build import Library, check_tensor, copy_width, raise_on, stream_of
 from .ref import decode_attention_ref, ring_validity
 
 _DTYPES = (torch.float32, torch.bfloat16)
+# the cache types the kernel reads, by its launcher's code
+KV_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
 MAX_HEAD_DIM = 256
 SPLIT_KEYS = 64                         # a split is whole blocks of these
 
@@ -108,7 +113,7 @@ def _launch(q, k, v, valid, valid_stride: int, kh: int, W: int):
         scratch.data_ptr(), scratch.data_ptr() + 4 * n_part,
         out.data_ptr(), rows, G, W, D, kh,
         valid_stride, nsplit, per, float(D ** -0.5),
-        int(q.dtype == torch.bfloat16), int(k.dtype == torch.bfloat16),
+        int(q.dtype == torch.bfloat16), KV_TYPES[k.dtype],
         copy_width(D * k.element_size(), k, v), stream)
     raise_on(err, "decode_attention_fwd")
     decode_attention_fwd.launches += 1
@@ -116,10 +121,10 @@ def _launch(q, k, v, valid, valid_stride: int, kh: int, W: int):
 
 
 def _check_types(q, k, v) -> None:
-    if q.dtype not in _DTYPES or k.dtype not in _DTYPES \
+    if q.dtype not in _DTYPES or k.dtype not in KV_TYPES \
             or v.dtype != k.dtype:
         raise TypeError(f"decode_attention takes q in {_DTYPES} and k, v "
-                        f"of one type in {_DTYPES}; got {q.dtype}, "
+                        f"of one type in {tuple(KV_TYPES)}; got {q.dtype}, "
                         f"{k.dtype}, {v.dtype}")
     D = q.shape[-1]
     if D > MAX_HEAD_DIM:

@@ -9,8 +9,8 @@
 * `decode_attention_ref(q, k, v, valid)` — the port of
   `repro.kernels.decode_attention.ref.decode_attention_ref` in the Pallas
   function's layout: q (B·KH, G, D), k and v (B·KH, W, D), valid (B·KH, W)
-  int32.  K and V are taken in q's type (as the reference's wrapper casts
-  the cache), scores are float32 (``q·k`` times D^-1/2), invalid ones
+  int32.  K and V (float32, bfloat16 or float8_e4m3fn) are taken in q's
+  type (as the reference's wrapper casts the cache), scores are float32 (``q·k`` times D^-1/2), invalid ones
   -1e30.  The rounding follows the Pallas kernel: ``p = exp(s - max)`` is
   cast to q's type before the PV product, the row sum adds the unrounded
   ``p``, and the output is ``(p V) / max(l, 1e-30)`` in q's type.  For

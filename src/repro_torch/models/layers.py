@@ -1,5 +1,8 @@
-"""Layers of the LM: the port of `repro.models.layers` up to the SSD and
-RG-LRU mixers and the KV cache (forward, prefill and one-token decode).
+"""Layers of the LM: the port of `repro.models.layers` — attention
+(causal, sliding-window, local, the encoder's unmasked self-attention and
+the decoder's cross-attention), the SwiGLU, GELU and MoE FFNs, the SSD
+and RG-LRU mixers and the KV cache (forward, prefill and one-token
+decode).
 
 Numerics follow the reference: parameters live in ``param_dtype``
 (float32) and are cast to the compute ``dtype`` (bfloat16 by default) at
@@ -39,12 +42,23 @@ RG-LRU state.
 The reference's sharding constraints (`shard_activation`) and backward
 dtype barrier (`grad_dtype_barrier`) are no-ops in a forward pass on one
 card and are not ported.  Parameter definitions map names to shapes (the
-reference's logical sharding axes are dropped).  MoE FFNs and
-cross-attention raise `NotImplementedError` naming the ROADMAP item that
-ports them.
+reference's logical sharding axes are dropped).
+
+A "dec" layer given ``enc_out`` adds cross-attention after its
+self-attention: q from the decoder, K and V from ``enc_out``, no mask and
+no RoPE (`_cross_attend`); in decode the cross K and V are recomputed
+from ``enc_out`` every step, as the reference does.  The MoE FFN
+(`moe_apply`) routes each token to its top-k experts in
+`jax.lax.top_k`'s order (`top_k`) and, over more than one position,
+dispatches into capacity-bounded expert buffers, dropping overflow as the
+reference does; its expert products are batched matrix products (plain
+einsums in the reference too).  A float8_e4m3fn KV cache is written
+through `cast_kv`, which rounds as the reference's cast does (NaN past
+the format's range, where `Tensor.to` saturates).
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -61,18 +75,11 @@ from .config import ModelConfig
 
 NEG_INF = -1e30
 FLASH_IMPLS = ("auto", "chunked", "pallas")
-
-_ITEM = "ROADMAP §1 item 12"
-NOT_PORTED = {
-    "moe": f"{_ITEM}: moe",
-    "cross": f"{_ITEM}: enc-dec",
-}
 SCAN_IMPLS = ("pallas", "jnp")
-
-
-def not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet "
-                               f"({NOT_PORTED[what]})")
+FP8 = torch.float8_e4m3fn
+# |x| above this rounds past float8_e4m3fn's largest finite value, 448
+# (464 itself ties to even, down to 448)
+FP8_OVERFLOW = 464.0
 
 
 # ---------------------------------------------------------------------------
@@ -100,6 +107,32 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     sin = torch.sin(ang)[..., None, :].to(x.dtype)
     x1, x2 = x[..., :half], x[..., half:]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def cast_kv(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` cast to the KV cache's ``dtype``, bit for bit the reference's
+    ``astype``.  For float8_e4m3fn that is round to nearest even in range
+    and NaN (sign kept) where |x| > 464, infinities included: XLA's
+    convert overflows to NaN where `Tensor.to` saturates to ±448."""
+    y = x.to(dtype)
+    if dtype != FP8:
+        return y
+    over = x.float().abs() > FP8_OVERFLOW
+    nan = torch.signbit(x).to(torch.uint8) * 128 + 127     # 0x7f / 0xff
+    return torch.where(over, nan, y.view(torch.uint8)).view(FP8)
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """A float8 tensor as its bytes (indexed writes go through these),
+    any other as itself."""
+    return t.view(torch.uint8) if t.dtype == FP8 else t
+
+
+def zeros_of(shape, dtype: torch.dtype, device) -> torch.Tensor:
+    """Zeros of ``dtype``; float8 ones as zero bytes (+0.0)."""
+    if dtype == FP8:
+        return torch.zeros(shape, dtype=torch.uint8, device=device).view(FP8)
+    return torch.zeros(shape, dtype=dtype, device=device)
 
 
 def _mask(kind: str, q_pos: torch.Tensor, k_pos: torch.Tensor,
@@ -160,10 +193,12 @@ Shapes = Dict[str, Tuple[int, ...]]
 
 def attn_param_defs(cfg: ModelConfig, cross: bool = False) -> Shapes:
     D, H, KH, Hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    if cross:
-        raise not_ported("cross")
-    return {"norm": (D,), "wq": (D, H * Hd), "wk": (D, KH * Hd),
+    defs = {"norm": (D,), "wq": (D, H * Hd), "wk": (D, KH * Hd),
             "wv": (D, KH * Hd), "wo": (H * Hd, D)}
+    if cross:
+        defs.update({"xnorm": (D,), "xwq": (D, H * Hd), "xwk": (D, KH * Hd),
+                     "xwv": (D, KH * Hd), "xwo": (H * Hd, D)})
+    return defs
 
 
 def _proj_qkv(x, p, cfg: ModelConfig):
@@ -193,14 +228,30 @@ def _mixer_spec(mixer: str, cfg: ModelConfig):
     raise ValueError(mixer)
 
 
+def _cross_attend(p, x, enc_out: torch.Tensor, q_pos, cfg: ModelConfig):
+    """The cross-attention of a "dec" layer (pre-norm, residual): q from
+    the decoder's ``x`` (B, S, D), K and V from ``enc_out`` (B, Se, D),
+    no mask, no RoPE; ``q_pos`` only gives q's length."""
+    B, S, _ = x.shape
+    H, KH, Hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    dt = x.dtype
+    h = rms_norm(x, p["xnorm"], cfg.norm_eps)
+    q = (h @ p["xwq"].to(dt)).reshape(B, S, H, Hd)
+    k = (enc_out @ p["xwk"].to(dt)).reshape(B, -1, KH, Hd)
+    v = (enc_out @ p["xwv"].to(dt)).reshape(B, -1, KH, Hd)
+    epos = torch.arange(enc_out.shape[1], dtype=torch.int32,
+                        device=x.device)
+    o = attention(q, k, v, q_pos, epos, mask_kind="none", window=0, cfg=cfg)
+    return x + o.reshape(B, S, -1) @ p["xwo"].to(dt)
+
+
 def attn_apply(p, x, mixer: str, cfg: ModelConfig, positions,
                enc_out: Optional[torch.Tensor] = None,
                want_cache: bool = False, max_seq: int = 0):
-    """Full-sequence self-attention block (pre-norm, residual).  Returns
-    ``(x, cache)``; with ``want_cache`` the cache is the ring of the last
-    ``attn_cache_len`` roped K/V rows (`attn_prefill_cache`)."""
-    if enc_out is not None:
-        raise not_ported("cross")
+    """Full-sequence self-attention block (pre-norm, residual), then, in a
+    "dec" layer given ``enc_out``, cross-attention (`_cross_attend`).
+    Returns ``(x, cache)``; with ``want_cache`` the cache is the ring of
+    the last ``attn_cache_len`` roped K/V rows (`attn_prefill_cache`)."""
     mask_kind, window, theta = _mixer_spec(mixer, cfg)
     h = rms_norm(x, p["norm"], cfg.norm_eps)
     q, k, v = _proj_qkv(h, p, cfg)
@@ -212,6 +263,8 @@ def attn_apply(p, x, mixer: str, cfg: ModelConfig, positions,
     o = attention(q, k, v, positions, positions, mask_kind=mask_kind,
                   window=window, cfg=cfg)
     x = x + o.reshape(x.shape[0], x.shape[1], -1) @ p["wo"].to(x.dtype)
+    if mixer == "dec" and enc_out is not None:
+        x = _cross_attend(p, x, enc_out, positions, cfg)
     return x, cache
 
 
@@ -223,17 +276,18 @@ def attn_cache_len(mixer: str, cfg: ModelConfig, max_seq: int) -> int:
 def attn_prefill_cache(p, x_normed_kv: Tuple[torch.Tensor, torch.Tensor],
                        mixer: str, cfg: ModelConfig, max_seq: int):
     """A ring cache from full-sequence K, V (RoPE applied): the last
-    min(S, W) rows, row s in slot s % W, in ``cfg.kv_cache_dtype``."""
+    min(S, W) rows, row s in slot s % W, in ``cfg.kv_cache_dtype``
+    (`cast_kv`)."""
     k, v = x_normed_kv
     B, S, KH, Hd = k.shape
     W = attn_cache_len(mixer, cfg, max_seq)
     cdt = getattr(torch, cfg.kv_cache_dtype)
-    ck = torch.zeros((B, W, KH, Hd), dtype=cdt, device=k.device)
-    cv = torch.zeros((B, W, KH, Hd), dtype=cdt, device=k.device)
+    ck = zeros_of((B, W, KH, Hd), cdt, k.device)
+    cv = zeros_of((B, W, KH, Hd), cdt, k.device)
     take = min(S, W)
     slots = (torch.arange(take, device=k.device) + (S - take)) % W
-    ck[:, slots] = k[:, S - take:].to(cdt)
-    cv[:, slots] = v[:, S - take:].to(cdt)
+    _bits(ck)[:, slots] = _bits(cast_kv(k[:, S - take:], cdt))
+    _bits(cv)[:, slots] = _bits(cast_kv(v[:, S - take:], cdt))
     return {"k": ck, "v": cv}
 
 
@@ -259,9 +313,9 @@ def attn_decode(p, x, cache, mixer: str, cfg: ModelConfig, index: int,
     """One-token decode.  x: (B, 1, D); cache: {"k", "v"} (B, W, KH, Hd)
     ring buffers (RoPE applied at write); ``index`` the token's absolute
     position (a Python int).  The token's K/V row is written into slot
-    ``index % W`` in place; returns ``(x, cache)``."""
-    if enc_out is not None:
-        raise not_ported("cross")
+    ``index % W`` in place (`cast_kv`); a "dec" layer given ``enc_out``
+    (B, Se, D) then attends to it (`_cross_attend`, its K and V
+    recomputed).  Returns ``(x, cache)``."""
     mask_kind, window, theta = _mixer_spec(mixer, cfg)
     ck, cv = cache["k"], cache["v"]
     W = ck.shape[1]
@@ -271,8 +325,8 @@ def attn_decode(p, x, cache, mixer: str, cfg: ModelConfig, index: int,
     q = rope(q, pos, theta)
     k = rope(k, pos, theta)
     slot = index % W
-    ck[:, slot] = k[:, 0].to(ck.dtype)
-    cv[:, slot] = v[:, 0].to(cv.dtype)
+    _bits(ck)[:, slot] = _bits(cast_kv(k[:, 0], ck.dtype))
+    _bits(cv)[:, slot] = _bits(cast_kv(v[:, 0], cv.dtype))
     win = window if mask_kind == "window" else 0
     impl = cfg.attn_impl
     B = x.shape[0]
@@ -284,6 +338,8 @@ def attn_decode(p, x, cache, mixer: str, cfg: ModelConfig, index: int,
         raise ValueError(f"attn_impl {impl!r}; the port has "
                          f"{FLASH_IMPLS + ('dense',)}")
     x = x + o.reshape(B, 1, -1) @ p["wo"].to(x.dtype)
+    if mixer == "dec" and enc_out is not None:
+        x = _cross_attend(p, x, enc_out, pos, cfg)
     return x, cache
 
 
@@ -298,7 +354,9 @@ def ffn_param_defs(cfg: ModelConfig, kind: str) -> Shapes:
     if kind == "gelu":
         return {"fnorm": (D,), "wi": (D, Fd), "wo_ffn": (Fd, D)}
     if kind == "moe":
-        raise not_ported("moe")
+        E, Fe = cfg.num_experts, cfg.moe_d_ff
+        return {"fnorm": (D,), "router": (D, E), "we_gate": (E, D, Fe),
+                "we_up": (E, D, Fe), "we_down": (E, Fe, D)}
     if kind == "none":
         return {}
     raise ValueError(kind)
@@ -307,8 +365,6 @@ def ffn_param_defs(cfg: ModelConfig, kind: str) -> Shapes:
 def ffn_apply(p, x, kind: str, cfg: ModelConfig) -> torch.Tensor:
     if kind == "none":
         return x
-    if kind == "moe":
-        raise not_ported("moe")
     dt = x.dtype
     h = rms_norm(x, p["fnorm"], cfg.norm_eps)
     if kind == "swiglu":
@@ -319,7 +375,92 @@ def ffn_apply(p, x, kind: str, cfg: ModelConfig) -> torch.Tensor:
         # jax.nn.gelu defaults to the tanh approximation
         u = F.gelu(h @ p["wi"].to(dt), approximate="tanh")
         return x + u @ p["wo_ffn"].to(dt)
+    if kind == "moe":
+        return x + moe_apply(p, h, cfg)
     raise ValueError(kind)
+
+
+def top_k(probs: torch.Tensor, k: int):
+    """(values, indices) of the ``k`` largest entries of each row in
+    `jax.lax.top_k`'s order: value descending, ties to the lower index (a
+    stable descending sort; `torch.topk` may order ties otherwise)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_route(p, x: torch.Tensor, cfg: ModelConfig):
+    """(gates (N, K) float32, experts (N, K) int64) of tokens ``x`` (N, D):
+    the router's logits in float32 from a product in ``x``'s dtype, their
+    softmax, its top K (`top_k`), the gates divided by max(their sum,
+    1e-9)."""
+    logits = (x @ p["router"].to(x.dtype)).float()
+    gates, idx = top_k(torch.softmax(logits, dim=-1), cfg.experts_per_token)
+    return gates / gates.sum(-1, keepdim=True).clamp_min(1e-9), idx
+
+
+def moe_groups(N: int, cfg: ModelConfig):
+    """(groups, tokens a group, capacity of an expert in a group) of a
+    dispatch of N tokens: min(moe_groups, N) groups, halved until they
+    divide N; capacity max(ceil(Nl K / E * capacity_factor), K)."""
+    Gr = min(cfg.moe_groups, N)
+    while N % Gr:
+        Gr //= 2
+    Nl = N // Gr
+    K, E = cfg.experts_per_token, cfg.num_experts
+    cap = max(int(math.ceil(Nl * K / E * cfg.capacity_factor)), K)
+    return Gr, Nl, cap
+
+
+def moe_slots(idx: torch.Tensor, Gr: int, cap: int, E: int):
+    """(experts, slots, keep), each (Gr, Nl·K) in the group's (token, k)
+    order: a pair's place in its expert's buffer is the number of earlier
+    pairs of its group routed to that expert (the exclusive cumsum of the
+    one-hot); pairs at or past ``cap`` are dropped into the overflow slot
+    ``cap``."""
+    e_flat = idx.reshape(Gr, -1)
+    onehot = F.one_hot(e_flat, E)
+    pos = (onehot.cumsum(1) - onehot).gather(2, e_flat[..., None])[..., 0]
+    keep = pos < cap
+    return e_flat, torch.where(keep, pos, cap), keep
+
+
+def moe_apply(p, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Top-k routed experts (SwiGLU each) of normed ``h`` (B, S, D), the
+    reference's `moe_apply`.  One position (decode): each token's K
+    experts' weights are gathered, nothing is dropped.  More: tokens split
+    into `moe_groups` groups, each (token, k) pair scattered into its
+    expert's (capacity, D) buffer of its group (`moe_slots`), the experts
+    run as batched products over (E, groups · capacity, D), each pair's
+    output gathered back, weighted by its gate (0 if dropped) and summed
+    over k in the compute dtype."""
+    B, S, D = h.shape
+    E, K = cfg.num_experts, cfg.experts_per_token
+    dt = h.dtype
+    N = B * S
+    x = h.reshape(N, D)
+    gates, idx = moe_route(p, x, cfg)
+    if S == 1:
+        wg = p["we_gate"][idx].to(dt)                     # (N, K, D, F)
+        wu = p["we_up"][idx].to(dt)
+        wd = p["we_down"][idx].to(dt)                     # (N, K, F, D)
+        g = F.silu(torch.einsum("nd,nkdf->nkf", x, wg))
+        u = torch.einsum("nd,nkdf->nkf", x, wu)
+        y = torch.einsum("nkf,nkfd->nkd", g * u, wd)
+        return (y * gates[..., None].to(dt)).sum(dim=1).reshape(B, S, D)
+    Gr, Nl, cap = moe_groups(N, cfg)
+    e_flat, slot, keep = moe_slots(idx, Gr, cap, E)
+    grp = torch.arange(Gr, device=h.device)[:, None].expand_as(e_flat)
+    buf = h.new_zeros((Gr, E, cap + 1, D))
+    # slots are unique but for the overflow slot, which is cut off
+    buf[grp, e_flat, slot] = x.reshape(Gr, Nl, D).repeat_interleave(K, dim=1)
+    xe = buf[:, :, :cap].transpose(0, 1).reshape(E, Gr * cap, D)
+    g = F.silu(torch.bmm(xe, p["we_gate"].to(dt)))
+    u = torch.bmm(xe, p["we_up"].to(dt))
+    ye = torch.bmm(g * u, p["we_down"].to(dt))            # (E, Gr·cap, D)
+    ye = F.pad(ye.view(E, Gr, cap, D).transpose(0, 1), (0, 0, 0, 1))
+    w = gates.reshape(Gr, Nl * K, 1).to(dt) * keep[..., None].to(dt)
+    y = ye[grp, e_flat, slot] * w                         # (Gr, Nl·K, D)
+    return y.view(Gr, Nl, K, D).sum(dim=2).reshape(B, S, D)
 
 
 # ---------------------------------------------------------------------------

@@ -15,8 +15,14 @@ them and then over the tail.  A plain large matrix product (the
 projections, ``h @ unembed``) stays `torch.matmul`; attention, the SSD
 scan and the RG-LRU recurrence are the hand-written kernels (`layers`).
 
-MoE, the encoder, the loss and training are not ported yet (ROADMAP §1
-item 12).
+An encoder-decoder model (whisper) also has ``encoder`` (its "enc"
+layers' leaves stacked over ``encoder_layers``), ``enc_pos`` and
+``enc_norm``: `forward` and `prefill` encode ``batch["audio_feats"]``
+once (`_encode`) and every "dec" layer attends to the result, which the
+cache carries as ``enc_out`` for `decode_step`.  A VLM (internvl2) takes
+``batch["patch_embeds"]`` (B, num_patches, D) in place of its first
+``num_patches`` token embeddings.  The loss and training are not ported
+yet (ROADMAP §1 item 12.5).
 """
 from __future__ import annotations
 
@@ -29,7 +35,7 @@ import torch
 from .._device import DeviceLike, resolve_device
 from .config import ModelConfig
 from .layers import (NEG_INF, attn_cache_len, block_apply, block_decode,
-                     block_param_defs, not_ported, rms_norm)
+                     block_param_defs, rms_norm, zeros_of)
 
 Params = Dict[str, Any]
 
@@ -68,10 +74,9 @@ def init_params(cfg: ModelConfig, generator: Union[int, torch.Generator],
     (embed, unembed, then each pattern position's and tail layer's leaves
     by name).  `torch` and `jax.random` give different numbers from one
     seed: carry the reference's parameters across with
-    `convert.model_params_from_numpy` to compute the same thing."""
-    if cfg.is_encdec:
-        raise NotImplementedError("encoder-decoder models are not ported "
-                                  "yet (ROADMAP §1 item 12: enc-dec)")
+    `convert.model_params_from_numpy` to compute the same thing.  An
+    encoder-decoder model's ``encoder``, ``enc_pos`` and ``enc_norm``
+    come last, as in the reference."""
     dev = resolve_device(device)
     gen = (torch.Generator(device=dev).manual_seed(generator)
            if isinstance(generator, int) else generator)
@@ -91,6 +96,12 @@ def init_params(cfg: ModelConfig, generator: Union[int, torch.Generator],
         _block_params(gen, block_param_defs(cfg, *cfg.pattern[t]), 0, pd,
                       dev)
         for t in range(tail))
+    if cfg.is_encdec:
+        params["encoder"] = _block_params(
+            gen, block_param_defs(cfg, "enc", "gelu"), cfg.encoder_layers,
+            pd, dev)
+        params["enc_pos"] = _init_leaf(gen, (cfg.encoder_seq, D), pd, dev)
+        params["enc_norm"] = torch.zeros((D,), dtype=pd, device=dev)
     return params
 
 
@@ -98,12 +109,34 @@ def init_params(cfg: ModelConfig, generator: Union[int, torch.Generator],
 # forward
 # ---------------------------------------------------------------------------
 def _embed_inputs(params: Params, batch, cfg: ModelConfig) -> torch.Tensor:
-    if cfg.num_patches and "patch_embeds" in batch:
-        raise NotImplementedError("patch embeddings are not ported yet "
-                                  "(ROADMAP §1 item 12: vlm)")
+    """Token embeddings in the compute dtype; a VLM's ``patch_embeds``
+    (B, num_patches, D), cast to it, replace the first num_patches
+    positions."""
     table = params["embed"]
+    dt = torch_dtype(cfg.dtype)
     tokens = torch.as_tensor(batch["tokens"], device=table.device)
-    return table[tokens.long()].to(torch_dtype(cfg.dtype))
+    x = table[tokens.long()].to(dt)
+    if cfg.num_patches and "patch_embeds" in batch:
+        pe = torch.as_tensor(batch["patch_embeds"], device=table.device)
+        x = torch.cat([pe.to(dt), x[:, cfg.num_patches:]], dim=1)
+    return x
+
+
+def _encode(params: Params, batch, cfg: ModelConfig, impl: str
+            ) -> torch.Tensor:
+    """The encoder over ``batch["audio_feats"]`` (B, encoder_seq, D) of
+    precomputed frame embeddings: plus ``enc_pos``, the unmasked "enc"
+    layers without RoPE, then ``enc_norm``; (B, encoder_seq, D) in the
+    compute dtype."""
+    dt = torch_dtype(cfg.dtype)
+    pos_table = params["enc_pos"]
+    feats = torch.as_tensor(batch["audio_feats"], device=pos_table.device)
+    x = feats.to(dt) + pos_table.to(dt)[None]
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    for layer in range(cfg.encoder_layers):
+        lp = {n: t[layer] for n, t in params["encoder"].items()}
+        x, _ = block_apply(lp, x, "enc", "gelu", cfg, positions, impl=impl)
+    return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
 def forward(params: Params, batch, cfg: ModelConfig, *,
@@ -117,19 +150,22 @@ def forward(params: Params, batch, cfg: ModelConfig, *,
     scan, the log-step RG-LRU scan).  The port defaults to the kernel, as
     its ``attn_impl="auto"`` does for attention; the reference defaults to
     ``"jnp"`` (and always inlines its RG-LRU scan).  Attention follows
-    ``cfg.attn_impl``."""
-    x, positions = _start(params, batch, cfg)
+    ``cfg.attn_impl``.  An encoder-decoder model also takes
+    ``batch["audio_feats"]``, a VLM ``batch["patch_embeds"]``."""
+    x, positions, enc_out = _start(params, batch, cfg, impl)
     for (mixer, ffn), layer in _layers(params, cfg):
-        x, _ = block_apply(layer, x, mixer, ffn, cfg, positions, impl=impl)
+        x, _ = block_apply(layer, x, mixer, ffn, cfg, positions,
+                           enc_out=enc_out, impl=impl)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
-def _start(params: Params, batch, cfg: ModelConfig):
-    """Embedded tokens and their positions 0 .. S-1."""
-    if cfg.is_encdec:
-        raise not_ported("cross")
+def _start(params: Params, batch, cfg: ModelConfig, impl: str):
+    """Embedded tokens, their positions 0 .. S-1, and the encoder's output
+    (None unless the model is an encoder-decoder)."""
     x = _embed_inputs(params, batch, cfg)
-    return x, torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    enc_out = _encode(params, batch, cfg, impl) if cfg.is_encdec else None
+    return (x, torch.arange(x.shape[1], dtype=torch.int32, device=x.device),
+            enc_out)
 
 
 def _layers(tree: Params, cfg: ModelConfig):
@@ -181,25 +217,29 @@ def init_cache(cfg: ModelConfig, B: int, max_seq: int,
                device: DeviceLike = None) -> Params:
     """A zero cache for ``B`` sequences of up to ``max_seq`` tokens on
     ``device``, in the reference's layout (``blocks`` stacked over the
-    cycles, ``tail``, ``index`` = 0)."""
-    if cfg.is_encdec:
-        raise not_ported("cross")
+    cycles, ``tail``, ``index`` = 0; an encoder-decoder's ``enc_out``
+    (B, encoder_seq, D) in the compute dtype)."""
     dev = resolve_device(device)
     n_cycles, tail = cfg.cycles_and_tail
 
     def zeros(shapes, stack):
-        return {name: torch.zeros(stack + shp, dtype=dt, device=dev)
+        return {name: zeros_of(stack + shp, dt, dev)
                 for name, (shp, dt) in shapes.items()}
 
-    return {"blocks": tuple(
-                zeros(_block_cache_shape(cfg, mixer, B, max_seq),
-                      (n_cycles,))
-                for mixer, _f in cfg.pattern),
-            "tail": tuple(
-                zeros(_block_cache_shape(cfg, cfg.pattern[t][0], B,
-                                         max_seq), ())
-                for t in range(tail)),
-            "index": 0}
+    cache = {"blocks": tuple(
+                 zeros(_block_cache_shape(cfg, mixer, B, max_seq),
+                       (n_cycles,))
+                 for mixer, _f in cfg.pattern),
+             "tail": tuple(
+                 zeros(_block_cache_shape(cfg, cfg.pattern[t][0], B,
+                                          max_seq), ())
+                 for t in range(tail)),
+             "index": 0}
+    if cfg.is_encdec:
+        cache["enc_out"] = torch.zeros(
+            (B, cfg.encoder_seq, cfg.d_model), dtype=torch_dtype(cfg.dtype),
+            device=dev)
+    return cache
 
 
 # ---------------------------------------------------------------------------
@@ -209,14 +249,16 @@ def prefill(params: Params, batch, cfg: ModelConfig, max_seq: int, *,
             impl: str = "pallas") -> Tuple[Params, torch.Tensor]:
     """Run the whole prompt and build the cache.  Returns ``(cache,
     logits of the last position (B, 1, V_padded))``; ``impl`` as in
-    `forward`."""
-    x, positions = _start(params, batch, cfg)
+    `forward`.  An encoder-decoder's cache carries the encoder's output
+    as ``enc_out``."""
+    x, positions, enc_out = _start(params, batch, cfg, impl)
     n_cycles, _tail = cfg.cycles_and_tail
     P = len(cfg.pattern)
     caches = []
     for (mixer, ffn), layer in _layers(params, cfg):
-        x, c = block_apply(layer, x, mixer, ffn, cfg, positions, impl=impl,
-                           want_cache=True, max_seq=max_seq)
+        x, c = block_apply(layer, x, mixer, ffn, cfg, positions,
+                           enc_out=enc_out, impl=impl, want_cache=True,
+                           max_seq=max_seq)
         caches.append(c)
     blocks = tuple({name: torch.stack([caches[c * P + k][name]
                                        for c in range(n_cycles)])
@@ -226,6 +268,8 @@ def prefill(params: Params, batch, cfg: ModelConfig, max_seq: int, *,
     logits = logits_from_h(params, h[:, -1:], cfg)
     cache = {"blocks": blocks, "tail": tuple(caches[n_cycles * P:]),
              "index": x.shape[1]}
+    if enc_out is not None:
+        cache["enc_out"] = enc_out
     return cache, logits
 
 
@@ -243,9 +287,11 @@ def decode_step(params: Params, tokens, cache: Params, cfg: ModelConfig
     tok = torch.as_tensor(tokens, device=table.device).long()
     x = table[tok].to(torch_dtype(cfg.dtype))
     index = int(cache["index"])
+    enc_out = cache.get("enc_out")
     for ((mixer, ffn), layer), (_kind, views) in zip(_layers(params, cfg),
                                                      _layers(cache, cfg)):
-        x, new = block_decode(layer, x, views, mixer, ffn, cfg, index)
+        x, new = block_decode(layer, x, views, mixer, ffn, cfg, index,
+                              enc_out=enc_out)
         for name, t in new.items():       # recurrent states, conv windows
             if t is not views[name]:
                 views[name].copy_(t)

@@ -13,7 +13,10 @@ CPU; the HI rollout of each rule against the CPU under one trace drawn
 on the card (and replay == fold on the card); the differentiable
 rollout's value and gradients against the CPU's, and the implicit
 gradient's backward (`kkt_vjp_ref`) against the CPU; `rollout_sharded`
-on two gloo ranks on the card against the unsharded card rollout.
+on two gloo ranks on the card against the unsharded card rollout; the
+other LM families' SMOKE models (MoE, h2o's window, whisper's
+cross-attention, internvl2's float8 KV cache) on the card against the
+CPU, and flash-decode widening every float8_e4m3fn byte exactly.
 
 Every test here is marked ``gpu`` and skips (with the reason) where no
 card is visible.  The file imports no JAX — it compares the port with
@@ -39,7 +42,9 @@ the chunk's cumulative decay, which it sums in float32, while the kernels
 sum it in float64 and take their products on the tensor cores in split
 TF32 (~2^-22 of each product); the flash-decode kernel as the flash
 kernel (1e-5 in float32, 2^-7 in bfloat16: p is rounded
-against a running max per 32-key block); the small generation run's
+against a running max per 32-key block; a float8 cache is widened
+exactly on both sides, so the same bars hold, and a lone valid slot
+gives its V row bit for bit); the small generation run's
 float32 logits to 1e-4, as the forward's; the RG-LRU recurrence kernel
 and its plain log-step scan each to 1e-5 max(1, max |h|) of the float64
 recurrence, and to that of each other (0 < a < 1: the recurrence is
@@ -414,6 +419,17 @@ FLASH_CASES = [  # (B*KH, G, Sq, Sk, D, mask_kind, window)
     (2, 2, 200, 200, 64, "window", 65),
     (1, 16, 300, 300, 256, "causal", 0),
     (2, 2, 191, 129, 64, "none", 0),
+    # the LM families' shapes: groups 3 (granite-moe-3b), 6 (internlm2), 7
+    # (deepseek-coder) and 8 (internvl2); h2o-danube's D of 80 padded to
+    # 128 under a window; whisper's cross-attention, unmasked, of one
+    # query (a decode step) and of 448 against 1500 encoder frames
+    (2, 3, 130, 130, 64, "causal", 0),
+    (1, 6, 100, 100, 128, "causal", 0),
+    (1, 7, 150, 150, 128, "causal", 0),
+    (1, 8, 70, 70, 128, "causal", 0),
+    (2, 4, 150, 150, 80, "window", 64),
+    (8, 1, 1, 1500, 64, "none", 0),
+    (2, 1, 448, 1500, 64, "none", 0),
 ]
 
 
@@ -607,6 +623,17 @@ DECODE_CASES = [  # (rows, W, G, D, q dtype, kv dtype)
     (2, 130, 32, 64, torch.bfloat16, torch.bfloat16),
     (2, 130, 32, 64, torch.float32, torch.float32),
     (1, 4100, 5, 256, torch.float32, torch.bfloat16),
+    # the LM families: internvl2's float8_e4m3fn cache (group 8, D 128;
+    # 16-, 8-, 4-byte and single-byte reads: D 128, 80, 20, 66); groups
+    # 6 and 7 (internlm2, deepseek-coder); h2o-danube's D 80
+    (4, 1000, 8, 128, torch.bfloat16, torch.float8_e4m3fn),
+    (3, 300, 8, 128, torch.float32, torch.float8_e4m3fn),
+    (2, 130, 6, 80, torch.bfloat16, torch.float8_e4m3fn),
+    (2, 77, 3, 20, torch.bfloat16, torch.float8_e4m3fn),
+    (2, 99, 2, 66, torch.float32, torch.float8_e4m3fn),
+    (4, 1000, 6, 128, torch.bfloat16, torch.bfloat16),
+    (4, 1000, 7, 128, torch.bfloat16, torch.bfloat16),
+    (1, 4096, 4, 80, torch.bfloat16, torch.bfloat16),
 ]
 
 
@@ -636,16 +663,45 @@ def test_cuda_decode_kernel_matches_plain_version(cuda_device, monkeypatch,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16])
+def test_cuda_decode_widens_every_float8_value_exactly(cuda_device,
+                                                      monkeypatch, qdt):
+    """A float8_e4m3fn V holding all 256 byte patterns (4 rows x 64
+    columns), each row with one valid slot and q = 0: p = 1 on that slot,
+    so the output is that slot's V row widened to q's type, bit for bit,
+    NaN (0x7f, 0xff) as NaN."""
+    rows, W, D = 4, 64, 64
+    slot = torch.tensor([0, 17, 40, 63])
+    vb = torch.zeros(rows, W, D, dtype=torch.uint8)
+    vb[torch.arange(rows), slot] = torch.arange(256, dtype=torch.uint8
+                                                ).view(rows, D)
+    v = vb.view(torch.float8_e4m3fn)
+    k = torch.randn(rows, W, D, generator=torch.Generator().manual_seed(1)
+                    ).to(torch.float8_e4m3fn)
+    valid = torch.zeros(rows, W, dtype=torch.int32)
+    valid[torch.arange(rows), slot] = 1
+    q = torch.zeros(rows, 2, D, dtype=qdt)
+    want = da_ref.decode_attention_ref(q, k, v, valid)
+    assert torch.isnan(want).sum().item() == 2 * 2
+    monkeypatch.setattr(da_ops, "decode_attention_ref", _fail_if_called)
+    got = da_ops.decode_attention_fwd(*(t.to(cuda_device)
+                                        for t in (q, k, v, valid))).cpu()
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kvdt", [torch.float32, torch.float8_e4m3fn])
 @pytest.mark.parametrize("B,KH,G", [(1, 1, 4), (2, 2, 2), (2, 1, 16)])
 def test_cuda_decode_model_entry_reads_the_cache_in_place(cuda_device,
                                                          monkeypatch, B,
-                                                         KH, G):
+                                                         KH, G, kvdt):
     """(B, W, KH, D) ring caches read where they lie, before and after the
     ring wraps and with a window, against the CPU entry."""
     W, D = 40, 32
     g = torch.Generator().manual_seed(B * KH)
     q = torch.randn(B, 1, KH * G, D, generator=g)
-    ck, cv = (torch.randn(B, W, KH, D, generator=g) for _ in range(2))
+    ck, cv = (torch.randn(B, W, KH, D, generator=g).to(kvdt)
+              for _ in range(2))
     cases = ((7, 0), (45, 0), (45, 16), (99, 40))
     want = [da_ops.decode_attention(q, ck, cv, i, window=w)
             for i, w in cases]
@@ -705,6 +761,67 @@ def test_cuda_generate_matches_cpu_generate(cuda_device, monkeypatch, arch):
     V = cfg.vocab_size
     for g, w in zip(got, want):
         assert (g[..., :V] - w[..., :V]).abs().max().item() <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["granite_moe_1b_a400m", "whisper_base",
+                                  "internvl2_76b", "h2o_danube_1_8b"])
+def test_cuda_lm_families_generate_matches_cpu(cuda_device, monkeypatch,
+                                               arch):
+    """The other LM families' SMOKE models on the card against the CPU,
+    float32: forward, prefill of 12 tokens (whisper's 16 encoder frames,
+    internvl2's 4 patch embeddings) and 4 decode steps.  internvl2 keeps
+    its float8_e4m3fn KV cache (`cast_kv` on both devices, widened by the
+    flash-decode kernel on the card), the others a float32 one; MoE with
+    capacity_factor 8.  Launches: flash per attention layer (whisper: 2
+    encoder + 2 self + 2 cross a forward, 2 cross a step), flash-decode
+    per self-attention layer and step."""
+    cfg = configs.get_smoke_config(arch)
+    kv = cfg.kv_cache_dtype if "float8" in cfg.kv_cache_dtype else "float32"
+    cfg = dataclasses.replace(cfg, dtype="float32", kv_cache_dtype=kv,
+                              attn_impl="auto", capacity_factor=8.0)
+    cpu_params = init_params(cfg, 3, device="cpu")
+    g = torch.Generator().manual_seed(4)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 16),
+                                     generator=g)}
+    if cfg.num_patches:
+        batch["patch_embeds"] = torch.randn(2, cfg.num_patches, cfg.d_model,
+                                            generator=g)
+    if cfg.is_encdec:
+        batch["audio_feats"] = torch.randn(2, cfg.encoder_seq, cfg.d_model,
+                                           generator=g)
+
+    def run(params, device):
+        b = {k: t.to(device) for k, t in batch.items()}
+        out = [logits_from_h(params, forward(params, b, cfg), cfg).cpu()]
+        counts = [(fa_ops.flash_attention_fwd.launches,
+                   da_ops.decode_attention_fwd.launches)]
+        cache, lg = prefill(params, dict(b, tokens=b["tokens"][:, :12]),
+                            cfg, max_seq=16)
+        out.append(lg.cpu())
+        for t in range(4):
+            lg, cache = decode_step(params, b["tokens"][:, 12 + t:13 + t],
+                                    cache, cfg)
+            out.append(lg.cpu())
+        counts.append((fa_ops.flash_attention_fwd.launches,
+                       da_ops.decode_attention_fwd.launches))
+        return out, counts
+
+    want, _ = run(cpu_params, "cpu")
+    for mod, name in ((da_ops, "decode_attention_ref"),
+                      (fa_ops, "attention_ref")):
+        monkeypatch.setattr(mod, name, _fail_if_called)
+    params = convert.model_params_from_numpy(_numpy_tree(cpu_params),
+                                             cuda_device)
+    fa_ops.reset_launches()
+    da_ops.reset_launches()
+    got, counts = run(params, cuda_device)
+    L, cross = cfg.num_layers, cfg.num_layers if cfg.is_encdec else 0
+    fwd = L + cfg.encoder_layers + cross
+    assert counts == [(fwd, 0), (2 * fwd + 4 * cross, 4 * L)]
+    V = cfg.vocab_size
+    for g_, w in zip(got, want):
+        assert (g_[..., :V] - w[..., :V]).abs().max().item() <= 1e-4
 
 
 def _generate_launches():

@@ -168,6 +168,25 @@ def test_wrapper_checks_shapes_types_and_devices():
     assert ops.decode_attention_fwd.launches == 0
 
 
+def test_cache_types_the_kernel_takes():
+    """The kernel's cache types and their launcher codes: float32,
+    bfloat16 and float8_e4m3fn K/V (one type for both) under a float32 or
+    bfloat16 q; a float8 q, or K and V of two types, are refused."""
+    assert ops.KV_TYPES == {torch.float32: 0, torch.bfloat16: 1,
+                            torch.float8_e4m3fn: 2}
+    kv = torch.zeros(2, 4, 8)
+    for qdt in (torch.float32, torch.bfloat16):
+        for kvdt in ops.KV_TYPES:
+            ops._check_types(torch.zeros(2, 1, 8, dtype=qdt), kv.to(kvdt),
+                             kv.to(kvdt))
+    fp8 = kv.to(torch.float8_e4m3fn)
+    with pytest.raises(TypeError, match="takes q in"):
+        ops._check_types(torch.zeros(2, 1, 8).to(torch.float8_e4m3fn), fp8,
+                         fp8)
+    with pytest.raises(TypeError, match="takes q in"):
+        ops._check_types(torch.zeros(2, 1, 8), fp8, kv.bfloat16())
+
+
 @pytest.mark.parametrize("rows,W,sms", [(4, 512, 132), (4, 1032, 132),
                                         (1, 7, 132), (64, 40000, 132),
                                         (3, 100, 8), (4, 2048, 132),

@@ -9,8 +9,7 @@ the reference's `init_params` pytree carried across with
 ``max_seq`` 16: gemma3's local rings (8 slots) have wrapped at prefill,
 and 12 is not a multiple of mamba2's chunk.
 
-* mamba2's configuration field for field; an unported architecture
-  (granite-moe-1b-a400m) still raises naming its ROADMAP item.
+* mamba2's configuration field for field.
 * `forward` of mamba2 with both ``impl``s against the reference's, which
   runs its jnp path and its Pallas kernel in interpret mode.
 * `prefill`: last-position logits and every cache leaf against the
@@ -124,18 +123,6 @@ def test_mamba2_config_matches_reference(name):
     assert got.param_count() == want.param_count()
     assert configs.get_config("mamba2-130m") == mamba2_130m.CONFIG
     assert configs.get_smoke_config("mamba2_130m") == mamba2_130m.SMOKE
-
-
-def test_unported_architecture_still_names_its_roadmap_item():
-    """An architecture still unported (granite-moe-1b-a400m) names its
-    ROADMAP item, and a MoE FFN in a ported model's layer does too."""
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP §1 item 12: moe"):
-        configs.get_config("granite_moe_1b_a400m")
-    cfg = dataclasses.replace(configs.get_smoke_config("gemma3_1b"),
-                              pattern=(("local", "moe"),))
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 12: moe"):
-        init_params(cfg, 0, device="cpu")
 
 
 # ---------------------------------------------------------------------------

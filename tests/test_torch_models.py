@@ -39,7 +39,7 @@ from repro.data.pipeline import TokenPipeline as RefTokenPipeline
 from repro_torch import configs, convert
 from repro_torch.data.pipeline import DataConfig, TokenPipeline
 from repro_torch.kernels.flash_attention import ops as fa_ops
-from repro_torch.models import (ModelConfig, dense_lm, forward, init_params,
+from repro_torch.models import (dense_lm, forward, init_params,
                                 layers, logits_from_h, moe_lm)
 
 ARCHS = ("paper_edge", "gemma3_1b")
@@ -99,14 +99,16 @@ def test_family_constructors_match_reference():
 
 
 def test_get_config_ports_dense_archs_and_names_the_rest():
-    for arch in ARCHS:
+    """Every architecture of the reference's registry: CONFIG and SMOKE
+    equal the reference's by either spelling, `all_archs` as the
+    reference's; an unknown name raises."""
+    assert configs.ARCHS == ref_configs.ARCHS and len(configs.ARCHS) == 11
+    assert configs.all_archs() == ref_configs.all_archs()
+    for arch in configs.ARCHS:
         _assert_same_config(ref_configs.get_config(arch),
                             configs.get_config(arch.replace("_", "-")))
         _assert_same_config(ref_configs.get_smoke_config(arch),
                             configs.get_smoke_config(arch))
-    for arch in set(configs.ARCHS) - set(configs.PORTED):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            configs.get_config(arch)
     with pytest.raises(ValueError, match="unknown architecture"):
         configs.get_config("gpt2")
 
@@ -221,32 +223,6 @@ def test_init_params_layout_dtype_and_scale(arch):
     assert torch.equal(again["blocks"][0]["wq"], params["blocks"][0]["wq"])
     other = init_params(cfg, torch.Generator().manual_seed(6), device="cpu")
     assert not torch.equal(other["embed"], params["embed"])
-
-
-def test_unported_parts_raise_not_implemented():
-    moe = ModelConfig(name="m", family="moe", num_layers=1, d_model=16,
-                      num_heads=2, num_kv_heads=2, head_dim=8, d_ff=0,
-                      vocab_size=64, pattern=(("full", "moe"),),
-                      num_experts=4, experts_per_token=2, moe_d_ff=16)
-    for cfg in (moe,
-                dataclasses.replace(moe, pattern=(("rglru", "moe"),)),
-                dataclasses.replace(moe, pattern=(("dec", "gelu"),)),
-                dataclasses.replace(moe, pattern=(("full", "gelu"),),
-                                    encoder_layers=1)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            init_params(cfg, 0, device="cpu")
-    cfg = configs.get_smoke_config("paper_edge")
-    p = init_params(cfg, 0, device="cpu")
-    layer = {k: v[0] for k, v in p["blocks"][0].items()}
-    x = torch.zeros((1, 4, cfg.d_model))
-    pos = torch.arange(4)
-    with pytest.raises(NotImplementedError, match="enc-dec"):
-        layers.block_apply(layer, x, "dec", "swiglu", cfg, pos, enc_out=x,
-                           want_cache=True)
-    with pytest.raises(NotImplementedError, match="enc-dec"):
-        layers.attn_apply(layer, x, "dec", cfg, pos, enc_out=x)
-    with pytest.raises(NotImplementedError, match="moe"):
-        layers.ffn_apply(layer, x, "moe", cfg)
 
 
 @pytest.mark.parametrize("rank,world", [(0, 1), (1, 2)])
