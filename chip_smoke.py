@@ -269,6 +269,27 @@ Phases, each printing JSON lines; any failure exits non-zero:
               at group 8, groups 6 and 7 in bfloat16), and holds the
               float8 KV cast on the card to the CPU's over every bfloat16
               bit pattern (`phase_fp8_cast`).
+     lm_train  training (`repro_torch.launch.steps`): (a) one
+              `make_train_step` (AdamW, lr 3e-3) at each of the 11 SMOKE
+              configs in float32 compute on the card against the same step
+              on the CPU: the loss, the gradients' global norm, every
+              updated parameter and both moments (`TRAIN_*` bounds), no
+              port kernel launched; (b) gemma3-1b (2 x 2048 tokens) and
+              mamba2-130m (8 x 2048) at full width and depth, random
+              weights from a seed, bfloat16 compute: 5 AdamW steps on one
+              fixed batch (the loss must fall), step times, tokens/s,
+              peak memory with ``remat="none"`` and ``"full"``, a
+              profiled step (kernel launches, busy share), port kernel
+              launches per train step (0) and per eval step (26 flash;
+              24 SSD), and the eval loss on the kernels against the plain
+              paths (`TRAIN_EVAL_BF16_ATOL`); recurrentgemma-9b is left
+              out (its float32 parameters, gradients and two moments,
+              16 bytes each, exceed the card's 80 GB: printed); (c) a
+              checkpoint of a card state restored onto the CPU bit for
+              bit, and `launch.train.main` on the card preempted by its
+              sentinel and resumed against an uninterrupted run (bit for
+              bit, or the leaf that differs and by how much, then again
+              under `torch.use_deterministic_algorithms`).
   9. parity   the card-marked tests (`pytest -m gpu tests/test_torch_cuda.py`,
               in a child process): each kernel against its plain version,
               a 32-device rollout, a 64-device `FleetEngine` run, the
@@ -3888,6 +3909,309 @@ def family_generate(torch, dev, cfg, params, n_seq, n_prompt):
               f"from the bfloat16 cache's by {f8[0]}")
 
 
+# --------------------------------------------------------------------------
+# lm_train: the train step on the card
+# --------------------------------------------------------------------------
+TRAIN_LR = 3e-3
+TRAIN_SMOKE_BATCH, TRAIN_SMOKE_SEQ = 2, 32
+# card against CPU after one float32 step: the loss to 1e-5 relative, the
+# gradients' global norm to 1e-5 relative, each moment leaf to 1e-4 of its
+# largest magnitude (the CPU parity tests' gradient bar); every parameter
+# within 2.5 lr (an element whose gradient lies within rounding of zero
+# may take the opposite Adam step, 2 lr away) and all but TRAIN_LOOSE of
+# them within TRAIN_TIGHT
+TRAIN_LOSS_RTOL, TRAIN_MOMENT_TOL = 1e-5, 1e-4
+TRAIN_PARAM_ATOL, TRAIN_TIGHT, TRAIN_LOOSE = 2.5 * TRAIN_LR, 1e-5, 1e-4
+# full width: (arch, batch, seq), 5 steps on one batch at the reference
+# step factory's default lr
+TRAIN_FULL = (("gemma3_1b", 2, 2048), ("mamba2_130m", 8, 2048))
+TRAIN_STEPS, TRAIN_FULL_LR = 5, 3e-4
+# bfloat16 eval loss on the kernels against the plain paths: the logit
+# comparisons' mean bar (a mean of per-token losses, each moved by a few
+# logits' differences)
+TRAIN_EVAL_BF16_ATOL = 0.05
+CARD_BYTES = 80e9
+
+
+def tree_close(torch, card, cpu, tight=None, rel=False):
+    """(max |card - cpu| over the leaves (relative to each leaf's largest
+    magnitude when ``rel``), elements beyond ``tight``, elements)."""
+    from repro_torch import _tree
+    worst, loose, n = 0.0, 0, 0
+    for a, w in zip(_tree.leaves(card), _tree.leaves(cpu)):
+        d = (a.detach().cpu().float() - w.float()).abs()
+        if rel:
+            d = d / max(w.float().abs().max().item(), 1e-30)
+        worst = max(worst, d.max().item() if d.numel() else 0.0)
+        if tight is not None:
+            loose += int((d > tight).sum())
+        n += d.numel()
+    return worst, loose, n
+
+
+def train_once(torch, cfg, params, batch, lr):
+    """One `make_train_step` from fresh AdamW state: (params, state, loss,
+    the gradients' global norm)."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw_init, global_norm
+    seen = []
+
+    def keep(g):
+        seen.append(global_norm(g))
+        return g
+    p, o, loss = make_train_step(cfg, lr=lr, grad_tx=keep)(
+        params, adamw_init(params), batch)
+    return p, o, float(loss), float(seen[0])
+
+
+def train_smoke_configs(torch, dev):
+    """(a): each SMOKE config's float32 step, card against CPU; returns
+    mamba2's card state for the checkpoint check."""
+    import dataclasses
+
+    from repro_torch import _tree, configs
+    from repro_torch.models import init_params
+    kept = None
+    for arch in configs.ARCHS:
+        cfg = dataclasses.replace(configs.get_smoke_config(arch),
+                                  dtype="float32")
+        cpu_batch = {k: v.cpu() for k, v in family_inputs(
+            torch, dev, cfg, TRAIN_SMOKE_BATCH, TRAIN_SMOKE_SEQ,
+            LM_SEED).items()}
+        cpu_params = init_params(cfg, LM_SEED, device="cpu")
+        want = train_once(torch, cfg, cpu_params, cpu_batch, TRAIN_LR)
+        params = _tree.tree_map(lambda t: t.to(dev), cpu_params)
+        batch = {k: v.to(dev) for k, v in cpu_batch.items()}
+        torch.cuda.synchronize()
+        reset_launches()
+        got = train_once(torch, cfg, params, batch, TRAIN_LR)
+        launches = kernel_launches()
+        p_err, p_loose, n = tree_close(torch, got[0], want[0], TRAIN_TIGHT)
+        m_err = tree_close(torch, got[1].m, want[1].m, rel=True)[0]
+        v_err = tree_close(torch, got[1].v, want[1].v, rel=True)[0]
+        loss_err = abs(got[2] - want[2]) / abs(want[2])
+        norm_err = abs(got[3] - want[3]) / abs(want[3])
+        emit("lm_train", part="card_vs_cpu", model=cfg.name, loss=got[2],
+             cpu_loss=want[2], loss_rel_err=loss_err, grad_norm=got[3],
+             grad_norm_rel_err=norm_err, param_max_err=p_err,
+             params_beyond_tight=p_loose, n_params=n, m_rel_err=m_err,
+             v_rel_err=v_err, port_kernel_launches=sum(launches.values()))
+        check(loss_err <= TRAIN_LOSS_RTOL and norm_err <= TRAIN_LOSS_RTOL,
+              f"lm_train {cfg.name}: loss or gradient norm off the CPU's "
+              f"({loss_err}, {norm_err})")
+        check(p_err <= TRAIN_PARAM_ATOL and p_loose <= TRAIN_LOOSE * n,
+              f"lm_train {cfg.name}: parameters off the CPU's by {p_err} "
+              f"({p_loose} of {n} beyond {TRAIN_TIGHT})")
+        check(m_err <= TRAIN_MOMENT_TOL and v_err <= TRAIN_MOMENT_TOL,
+              f"lm_train {cfg.name}: moments off the CPU's ({m_err}, "
+              f"{v_err})")
+        check(not any(launches.values()),
+              f"lm_train {cfg.name}: a train step launched {launches}")
+        if arch == "mamba2_130m":
+            kept = (got[0], got[1])
+    return kept
+
+
+def train_full_width(torch, dev, arch, B, S, smi):
+    """(b): one model at full width, bfloat16 compute."""
+    import dataclasses
+
+    from repro_torch import _tree
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_eval_step, make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw_init
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch)
+    params = init_params(cfg, LM_SEED, device=dev)
+    batch = {"tokens": lm_tokens(torch, dev, cfg, B, S)}
+    n_params = sum(t.numel() for t in _tree.leaves(params))
+    out = dict(model=cfg.name, batch=B, seq=S, params=n_params,
+               nvidia_smi=smi,
+               # float32 parameters, gradients and two moments; float32
+               # logits of the S - 1 predicted positions
+               state_bytes=16 * n_params,
+               logit_bytes=4 * B * (S - 1) * cfg.padded_vocab)
+
+    def steps(c, n, params, opt):
+        step = make_train_step(c, lr=TRAIN_FULL_LR)
+        losses, times = [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        for _ in range(n):
+            t0 = time.perf_counter()
+            params, opt, loss = step(params, opt, batch)
+            losses.append(float(loss))              # waits for the step
+            times.append(time.perf_counter() - t0)
+        return (params, opt, losses, times,
+                torch.cuda.max_memory_allocated(), kernel_launches())
+
+    opt = adamw_init(params)
+    params, opt, losses, times, peak, launches = steps(cfg, TRAIN_STEPS,
+                                                       params, opt)
+    med = sorted(times[1:])[len(times[1:]) // 2]
+    out.update(losses=losses, step_seconds=times, median_step_seconds=med,
+               tokens_per_s=B * S / med, peak_mem_bytes_remat_none=peak,
+               port_kernel_launches_per_train_step=sum(launches.values()))
+    check(losses[-1] < losses[0],
+          f"lm_train {cfg.name}: the loss did not fall: {losses}")
+    check(not any(launches.values()),
+          f"lm_train {cfg.name}: train steps launched {launches}")
+    full = dataclasses.replace(cfg, remat="full")
+    params, opt, _l, times_full, peak_full, _ = steps(full, 2, params, opt)
+    out.update(peak_mem_bytes_remat_full=peak_full,
+               step_seconds_remat_full=times_full)
+    step = make_train_step(cfg, lr=TRAIN_FULL_LR)
+    holder = {}
+
+    def one():
+        holder["s"] = step(params, opt, batch)
+    device_s, n_launch, top = profiled(torch, one)
+    del holder
+    out.update(profiled_step=dict(device_seconds=device_s,
+                                  busy_share=device_s / med,
+                                  kernel_launches=n_launch, top=top[:6]))
+    reset_launches()
+    ev = float(make_eval_step(cfg)(params, batch))
+    eval_launches = kernel_launches()
+    plain = float(make_eval_step(dataclasses.replace(cfg, attn_impl="dense"),
+                                 impl="jnp")(params, batch))
+    out.update(eval_loss=ev, eval_loss_plain=plain,
+               eval_loss_abs_diff=abs(ev - plain),
+               eval_bound=TRAIN_EVAL_BF16_ATOL,
+               port_kernel_launches_per_eval_step={
+                   k: v for k, v in eval_launches.items() if v})
+    want = expected_launches(cfg)
+    check({k: v for k, v in eval_launches.items() if v} == want,
+          f"lm_train {cfg.name}: eval launches {eval_launches}, "
+          f"expected {want}")
+    check(abs(ev - plain) <= TRAIN_EVAL_BF16_ATOL,
+          f"lm_train {cfg.name}: eval loss on the kernels {ev} against "
+          f"the plain paths {plain}")
+    emit("lm_train", part="full_width", **out)
+    del params, opt, batch
+    torch.cuda.empty_cache()
+
+
+def checkpoint_card_to_cpu(torch, state):
+    """(c), first half: the card state saved, then restored onto CPU
+    tensors, bit for bit."""
+    import tempfile
+
+    from repro_torch import _tree
+    from repro_torch.checkpoint import manager as ckpt
+    with tempfile.TemporaryDirectory() as d:
+        ckpt.save(d, 1, state, {"step": 1})
+        like = _tree.tree_map(lambda t: torch.empty_like(t, device="cpu"),
+                              state)
+        back, meta = ckpt.restore(d, 1, like)
+    same = all(torch.equal(a.cpu(), b) and b.device.type == "cpu"
+               for a, b in zip(_tree.leaves(state), _tree.leaves(back)))
+    emit("lm_train", part="checkpoint_card_to_cpu", leaves=len(
+        _tree.leaves(state)), bit_for_bit=same)
+    check(same and meta == {"step": 1},
+          "lm_train: a card checkpoint restored onto the CPU differs")
+
+
+def resume_runs(torch, dev, root):
+    """An uninterrupted `launch.train.main` run on the card and one
+    preempted by its sentinel and resumed: (losses, resumed losses, the
+    two final checkpoints)."""
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import train
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw_init
+    argv = ["--arch", "mamba2-130m", "--smoke", "--steps", "6",
+            "--global-batch", "4", "--seq", "64", "--ckpt-every", "2",
+            "--log-every", "100", "--device", str(dev)]
+    whole = train.main(argv + ["--ckpt-dir", os.path.join(root, "a")])
+    sentinel = os.path.join(root, "PREEMPT")
+    open(sentinel, "w").close()
+    try:
+        train.main(argv + ["--ckpt-dir", os.path.join(root, "b"),
+                           "--preempt-file", sentinel])
+        fail("lm_train: the preempted run did not exit")
+    except SystemExit as e:
+        check(e.code == 42, f"lm_train: preemption exit code {e.code}")
+    os.remove(sentinel)
+    rest = train.main(argv + ["--ckpt-dir", os.path.join(root, "b"),
+                              "--resume"])
+    p0 = init_params(get_smoke_config("mamba2-130m"), 0, device=dev)
+    like = (p0, adamw_init(p0))
+    return whole, rest, [ckpt.restore(os.path.join(root, n), 5, like)[0]
+                         for n in ("a", "b")]
+
+
+def resume_on_card(torch, dev):
+    """(c), second half: resume against an uninterrupted run."""
+    import tempfile
+
+    from repro_torch import _tree
+    results = {}
+    for mode in ("default", "deterministic"):
+        torch.use_deterministic_algorithms(mode == "deterministic")
+        try:
+            with tempfile.TemporaryDirectory() as root:
+                whole, rest, (a, b) = resume_runs(torch, dev, root)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        diffs = [(i, (x.float() - y.float()).abs().max().item())
+                 for i, (x, y) in enumerate(zip(_tree.leaves(a),
+                                                _tree.leaves(b)))
+                 if not torch.equal(x, y)]
+        results[mode] = dict(
+            losses_equal=rest == whole[1:],
+            max_loss_diff=max(abs(x - y) for x, y in zip(rest, whole[1:])),
+            leaves_differing=len(diffs), first_diffs=diffs[:4],
+            bit_for_bit=not diffs and rest == whole[1:])
+        if results[mode]["bit_for_bit"]:
+            break
+    emit("lm_train", part="resume_on_card", **results)
+    check(any(r["bit_for_bit"] for r in results.values()),
+          f"lm_train: resume on the card is not bit for bit: {results}")
+    # default mode, if it differed: the leaves named, each within a
+    # float32 rounding of summation order
+    for r in results.values():
+        check(r["max_loss_diff"] <= 1e-4,
+              f"lm_train: resumed losses off by {r['max_loss_diff']}")
+
+
+def phase_lm_train(torch, dev):
+    from repro_torch.configs import get_config
+    smi = run(["nvidia-smi", "--query-gpu=name,power.limit",
+               "--format=csv,noheader"]).splitlines()[0]
+    t0 = time.perf_counter()
+    state = train_smoke_configs(torch, dev)
+    checkpoint_card_to_cpu(torch, state)
+    resume_on_card(torch, dev)
+    del state
+    # the full-width steps' float32 logits, score blocks and AdamW trees
+    # (GB each, freed and reallocated at other sizes) fragment fixed
+    # segments: gemma3-1b's first backward ran out of memory with 56 GB
+    # allocated and 20.7 GB reserved but unallocated.  Segments that
+    # grow in place are used for this phase only.
+    allocator = getattr(torch._C, "_accelerator_setAllocatorSettings",
+                        torch.cuda.memory._set_allocator_settings)
+    torch.cuda.empty_cache()
+    allocator("expandable_segments:True")
+    try:
+        for arch, B, S in TRAIN_FULL:
+            train_full_width(torch, dev, arch, B, S, smi)
+    finally:
+        torch.cuda.empty_cache()
+        allocator("expandable_segments:False")
+    rg = get_config(RG_ARCH)
+    emit("lm_train", part="reckoning",
+         left_out=dict(model=rg.name, params=rg.param_count(),
+                       state_bytes=16 * rg.param_count(),
+                       card_bytes=CARD_BYTES,
+                       reason="float32 parameters, gradients and two AdamW "
+                              "moments exceed the card"),
+         seconds=time.perf_counter() - t0)
+
+
 def phase_parity():
     """The card-marked tests, in a child process: the kernels against their
     plain versions, and a small rollout on the card against the CPU."""
@@ -4108,6 +4432,7 @@ def main() -> int:
         torch, dev)["rglru_scan_fwd"]
     rows["rglru_scan_fwd"] = rglru_rows[RGLRU_LINE]
     phase_lm_families(torch, dev)
+    phase_lm_train(torch, dev)
     phase_parity()
     seconds = phase_timing(torch, dev, params)
     phase_profile(torch, dev, params, seconds, serve_seconds)

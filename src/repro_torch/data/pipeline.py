@@ -1,15 +1,17 @@
 """Deterministic synthetic token streams: the port of
-`repro.data.pipeline`'s `DataConfig` and `TokenPipeline` (pure NumPy, the
-same tokens bit for bit).
+`repro.data.pipeline` — `DataConfig`, `TokenPipeline` (pure NumPy, the
+same tokens bit for bit) and the host `Prefetcher`.
 
 Synthetic-but-structured rows (a mixture of Zipfian unigrams and
 copy/induction motifs), a pure function of (seed, step) and sharded per
-data-parallel rank.  The reference's host `Prefetcher` waits for the
-training slice (ROADMAP §1 item 12).
+data-parallel rank, so a resumed run continues bit-identically.
+`Prefetcher` double-buffers batches on a background thread.
 """
 from __future__ import annotations
 
 import dataclasses
+import queue
+import threading
 from typing import Dict, Iterator
 
 import numpy as np
@@ -67,3 +69,37 @@ class TokenPipeline:
         while True:
             yield self.batch_at(step)
             step += 1
+
+
+class Prefetcher:
+    """Background-thread double buffering around any step-indexed source:
+    `next()` returns ``(step, batch)`` in step order from ``start_step``;
+    `close()` stops the thread."""
+
+    def __init__(self, pipeline: TokenPipeline, start_step: int = 0,
+                 depth: int = 2):
+        self.pipeline = pipeline
+        self.q: "queue.Queue" = queue.Queue(maxsize=depth)
+        self._stop = threading.Event()
+        self._step = start_step
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        step = self._step
+        while not self._stop.is_set():
+            batch = self.pipeline.batch_at(step)
+            while not self._stop.is_set():
+                try:
+                    self.q.put((step, batch), timeout=0.1)
+                    break
+                except queue.Full:
+                    continue
+            step += 1
+
+    def next(self):
+        return self.q.get()
+
+    def close(self):
+        self._stop.set()
+        self._thread.join(timeout=2)

@@ -115,6 +115,24 @@ def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, shape,
         raise ValueError(f"{name} must be contiguous")
 
 
+def refuse_grad(kernel: str, plain: str, *tensors: torch.Tensor) -> None:
+    """Raise when autograd would record a call of ``kernel``: grad is
+    enabled and a tensor input requires it.  A kernel writes through
+    `ctypes` into a buffer allocated beforehand, so autograd would see no
+    graph and the gradient would be lost without a word; the reference's
+    ``pallas_call`` has no backward either.  Checked on every device, the
+    CPU (where the plain version would differentiate) included, so the
+    rule is the same everywhere; ``plain`` names the path to use."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in tensors):
+        raise RuntimeError(
+            f"{kernel} has no backward (as the reference's pallas_call "
+            f"has none) and autograd would record nothing through it; "
+            f"under autograd use {plain}, or run the kernel under "
+            f"torch.no_grad()")
+
+
 def raise_on(err: int, kernel: str) -> None:
     """Raise when a launcher returned a CUDA error code."""
     if err != 0:

@@ -26,6 +26,11 @@ partials, then their combine, one CTA per (row, q head)) and adds one to
 ``decode_attention_fwd.launches``.  On a CPU tensor the plain version in
 `ref.py` runs and nothing is counted.  There is no fallback: a CUDA
 tensor gets the kernel or an exception.
+
+The kernel has no backward, as the reference's ``pallas_call`` has
+none: with grad enabled and an input that requires it, every entry
+raises on every device (`_build.refuse_grad`) rather than drop the
+gradient; the model's differentiable path is its plain one.
 """
 from __future__ import annotations
 
@@ -35,8 +40,12 @@ from pathlib import Path
 
 import torch
 
-from .._build import Library, check_tensor, copy_width, raise_on, stream_of
+from .._build import (Library, check_tensor, copy_width, raise_on,
+                      refuse_grad, stream_of)
 from .ref import decode_attention_ref, ring_validity
+
+# the plain path (decoding is never differentiated in the model)
+DECODE_PLAIN = "attn_impl='dense' (the grouped einsum over the ring)"
 
 _DTYPES = (torch.float32, torch.bfloat16)
 # the cache types the kernel reads, by its launcher's code
@@ -136,6 +145,7 @@ def decode_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q (B·KH, G, D); k, v (B·KH, W, D); valid (B·KH, W) int32.  Returns
     (B·KH, G, D) in q's type."""
     rows, G, D = q.shape
+    refuse_grad("decode_attention_fwd", DECODE_PLAIN, q, k, v)
     if (k.dim() != 3 or k.shape[0] != rows or k.shape[2] != D
             or v.shape != k.shape or tuple(valid.shape) != tuple(k.shape[:2])):
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
@@ -191,6 +201,7 @@ def decode_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
     (B, 1, H, D) in q's type."""
     B, one, H, D = q.shape
     W, KH = ck.shape[1], ck.shape[2]
+    refuse_grad("decode_attention", DECODE_PLAIN, q, ck, cv)
     if (one != 1 or H % KH or ck.shape[0] != B or ck.shape[3] != D
             or cv.shape != ck.shape):
         raise ValueError(f"q {tuple(q.shape)} does not fit caches "

@@ -22,6 +22,11 @@ one asynchronous copy).  On a CPU tensor the plain PyTorch version in
 `ref.py` runs.  There is no fallback: a CUDA tensor gets the kernel or an
 exception.  A call is one CUDA launch and adds one to
 ``flash_attention_fwd.launches``; nothing else does.
+
+The kernel has no backward, as the reference's ``pallas_call`` has
+none: with grad enabled and an input that requires it, every entry
+raises on every device (`_build.refuse_grad`) rather than drop the
+gradient; the model's differentiable path is its plain one.
 """
 from __future__ import annotations
 
@@ -30,8 +35,13 @@ from pathlib import Path
 
 import torch
 
-from .._build import Library, check_tensor, copy_width, raise_on, stream_of
+from .._build import (Library, check_tensor, copy_width, raise_on,
+                      refuse_grad, stream_of)
 from .ref import MASK_KINDS, attention_ref
+
+# the differentiable path the model takes under autograd
+FLASH_PLAIN = ("attn_impl='dense' (or 'auto', which under autograd takes "
+               "the reference's dense-or-chunked rule)")
 
 _MASK_CODE = {"none": 0, "causal": 1, "window": 2}
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -105,6 +115,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} do not fit group {group}")
     _check_mask(mask_kind, window, Sq, Sk)
+    refuse_grad("flash_attention_fwd", FLASH_PLAIN, q, k, v)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():        # on every device: the kernel's
             raise ValueError(f"{name} must be contiguous")   # layout

@@ -12,6 +12,11 @@ in the launch geometry `launch_geometry` picks from the shape; on a CPU
 tensor the plain log-step scan in `ref.py` runs; any other device raises.
 There is no fallback: a CUDA tensor gets the kernel or an exception.  Only
 a kernel launch adds one to ``rglru_scan_fwd.launches``.
+
+The kernel has no backward, as the reference's ``pallas_call`` has
+none: with grad enabled and an input that requires it, every entry
+raises on every device (`_build.refuse_grad`) rather than drop the
+gradient; the model's differentiable path is its plain one.
 """
 from __future__ import annotations
 
@@ -21,8 +26,11 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .._build import Library, check_tensor, raise_on, stream_of
+from .._build import Library, check_tensor, raise_on, refuse_grad, stream_of
 from .ref import rglru_scan_ref
+
+# the differentiable path the model takes under autograd
+RGLRU_PLAIN = "impl='jnp' (the plain log-step scan, ref.rglru_scan_ref)"
 
 THREADS = 256                           # threads of a CTA
 N_SM = 132                              # SMs of an H100 SXM
@@ -116,6 +124,7 @@ def rglru_scan_fwd(a: torch.Tensor, b: torch.Tensor, *,
     if a.dim() != 3 or b.shape != a.shape:
         raise ValueError(f"a {tuple(a.shape)} and b {tuple(b.shape)} must "
                          f"be one (B, S, W) shape")
+    refuse_grad("rglru_scan_fwd", RGLRU_PLAIN, a, b)
     for name, t in (("a", a), ("b", b)):
         if t.dtype != torch.float32:
             raise TypeError(f"rglru_scan takes float32, got {name} "

@@ -20,6 +20,11 @@ tensor the chunked plain version in `ref.py` runs.  There is no
 fallback: a CUDA tensor gets the kernels or an exception.  Only a call
 that launches the kernels adds one to ``ssd_scan_fwd.launches`` (one per
 call, however many kernels it launches).
+
+The kernel has no backward, as the reference's ``pallas_call`` has
+none: with grad enabled and an input that requires it, every entry
+raises on every device (`_build.refuse_grad`) rather than drop the
+gradient; the model's differentiable path is its plain one.
 """
 from __future__ import annotations
 
@@ -29,8 +34,11 @@ from typing import Dict, Tuple
 
 import torch
 
-from .._build import Library, check_tensor, raise_on, stream_of
+from .._build import Library, check_tensor, raise_on, refuse_grad, stream_of
 from .ref import ssd_chunked_ref
+
+# the differentiable path the model takes under autograd
+SSD_PLAIN = "impl='jnp' (the chunked plain scan, ref.ssd_chunked_ref)"
 
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_P, MAX_N, MAX_CHUNK = 64, 128, 256   # the kernel's padded tiles
@@ -99,6 +107,7 @@ def ssd_scan_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                          f"C_ {tuple(C_.shape)} do not fit heads {heads}")
     if chunk < 1:
         raise ValueError(f"chunk must be positive, got {chunk}")
+    refuse_grad("ssd_scan_fwd", SSD_PLAIN, x, dt, A, B_, C_)
     for name, t in (("x", x), ("dt", dt), ("A", A), ("B_", B_), ("C_", C_)):
         if not t.is_contiguous():        # on every device: the kernel's
             raise ValueError(f"{name} must be contiguous")   # layout

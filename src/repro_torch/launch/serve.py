@@ -6,18 +6,22 @@ measured wall times and per-job top-1 next-token accuracy.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --periods 4 --n 16 \\
         [--policy auto|amr2|amdp|greedy] [--t-factor 0.8] \\
-        [--fail-period 2] [--device cuda|cpu]
+        [--fail-period 2] [--train-steps 20] [--device cuda|cpu]
 
 The port of `repro.launch.serve.main` and of `build_models` /
 `make_apply` from the reference's `examples/serve_offload.py`.  The
-models are initialised from a seed (or take carried-over parameters):
-training is not ported yet (ROADMAP §1 item 12), so the accuracies are
-those of untrained models and the run exercises the path, the attention
-kernel and predicted against measured makespan.
+models are initialised from a seed (or take carried-over parameters) and
+trained briefly on the synthetic stream (``--train-steps``, 20 by
+default as in the reference; model i of the ladder for ``train_steps ·
+(i + 1)`` AdamW steps at lr 3e-3, with dense attention under autograd),
+so that their accuracies are ordered by capacity (a_1 <= a_2 <= a_es,
+the paper's Table I).  Serving then runs the forward under
+`torch.inference_mode`, on the kernels.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -28,6 +32,8 @@ from ..configs.paper_edge import CONFIG as ES_CFG
 from ..configs.paper_edge import ED_VARIANTS
 from ..data.pipeline import DataConfig, TokenPipeline
 from ..models import ModelConfig, forward, init_params, logits_from_h
+from ..optim import adamw_init
+from .steps import make_train_step
 from ..serving import (PeriodStats, ServingRuntime, TierProfile,
                        measure_latency)
 
@@ -35,19 +41,52 @@ LADDER = tuple(ED_VARIANTS) + (ES_CFG,)
 SEQ_LEN = 64
 
 
+TRAIN_LR = 3e-3
+TRAIN_BATCH = 8
+
+
 def build_models(configs: Sequence[ModelConfig] = LADDER, *, seed: int = 0,
                  device: DeviceLike = None,
-                 params: Optional[Sequence] = None) -> List[Tuple]:
+                 params: Optional[Sequence] = None,
+                 train_steps: int = 0) -> List[Tuple]:
     """``(cfg, params)`` per model: model i initialised from ``seed + i``
     on ``device``, or the given ``params`` (e.g. carried over from the
-    reference with `convert.model_params_from_numpy`)."""
+    reference with `convert.model_params_from_numpy`), then trained for
+    ``train_steps · (i + 1)`` AdamW steps at lr 3e-3 on
+    ``TokenPipeline(seq_len=64, global_batch=8, seed=seed)`` with
+    ``attn_impl="dense"``, as the reference's `build_models` does (more
+    steps for bigger models, so accuracy follows capacity).  The
+    returned configs are the given ones: serving keeps their attention
+    implementation."""
     dev = resolve_device(device)
-    if params is not None:
-        if len(params) != len(configs):
-            raise ValueError("one parameter tree per config")
-        return list(zip(configs, params))
-    return [(cfg, init_params(cfg, seed + i, device=dev))
-            for i, cfg in enumerate(configs)]
+    if params is None:
+        params = [init_params(cfg, seed + i, device=dev)
+                  for i, cfg in enumerate(configs)]
+    elif len(params) != len(configs):
+        raise ValueError("one parameter tree per config")
+    models = []
+    for i, (cfg, p) in enumerate(zip(configs, params)):
+        if train_steps:
+            p = _train(cfg, p, train_steps * (i + 1), seed, dev)
+        models.append((cfg, p))
+    return models
+
+
+def _train(cfg: ModelConfig, params, steps: int, seed: int,
+           dev: torch.device):
+    """``steps`` train steps of ``cfg`` (dense attention) from
+    ``params``."""
+    step = make_train_step(dataclasses.replace(cfg, attn_impl="dense"),
+                           lr=TRAIN_LR)
+    opt = adamw_init(params)
+    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=SEQ_LEN,
+                                    global_batch=TRAIN_BATCH, seed=seed))
+    for s in range(steps):
+        batch = {k: torch.as_tensor(v, device=dev)
+                 for k, v in pipe.batch_at(s).items()}
+        params, opt, _ = step(params, opt, batch)
+    return params
 
 
 def make_apply(cfg: ModelConfig, params) -> Callable[[list], List[float]]:
@@ -81,6 +120,7 @@ def main(argv=None) -> List[PeriodStats]:
     ap.add_argument("--n", type=int, default=16)
     ap.add_argument("--policy", default="auto")
     ap.add_argument("--t-factor", type=float, default=0.8)
+    ap.add_argument("--train-steps", type=int, default=20)
     ap.add_argument("--fail-period", type=int, default=-1,
                     help="simulate an ES outage in this period")
     ap.add_argument("--device", default=None,
@@ -88,7 +128,8 @@ def main(argv=None) -> List[PeriodStats]:
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
 
-    models = build_models(LADDER, seed=0, device=dev)
+    models = build_models(LADDER, seed=0, device=dev,
+                          train_steps=args.train_steps)
     applies = [make_apply(c, p) for c, p in models]
     pipe = TokenPipeline(DataConfig(vocab_size=ES_CFG.vocab_size,
                                     seq_len=SEQ_LEN,

@@ -1,19 +1,20 @@
-"""The LM of the port (`repro.models`): forward and generation.
+"""The LM of the port (`repro.models`): forward, generation and the loss.
 
 Ported: `ModelConfig` and its constructors (`config`); the layers
 (`layers`: norms, RoPE, GQA self- and cross-attention on the flash
 kernel, the ring-buffer KV cache (bfloat16, float32 or float8_e4m3fn)
 with flash-decode, SwiGLU, GELU and MoE FFNs, the Mamba2 SSD mixer on
-the SSD scan kernel, the RG-LRU mixer on the RG-LRU recurrence kernel);
-`init_params` / `forward` / `logits_from_h` and the generation path
-`init_cache` / `prefill` / `decode_step` (`model`), the encoder of an
-encoder-decoder and a VLM's patch embeddings included.  Not ported yet
-(ROADMAP §1 item 12.5): the loss and training.
+the SSD scan kernel, the RG-LRU mixer on the RG-LRU recurrence kernel,
+and under autograd their plain paths and the `grad_dtype_barrier`);
+`init_params` / `param_shapes` / `forward` / `logits_from_h` /
+`loss_fn` and the generation path `init_cache` / `prefill` /
+`decode_step` (`model`), the encoder of an encoder-decoder, a VLM's
+patch embeddings, ``cfg.remat`` and ``cfg.logit_chunk`` included.
 """
 from .config import ModelConfig, dense_lm, moe_lm, pad_vocab
 from .model import (decode_step, forward, init_cache, init_params,
-                    logits_from_h, prefill)
+                    logits_from_h, loss_fn, param_shapes, prefill)
 
 __all__ = ["ModelConfig", "dense_lm", "moe_lm", "pad_vocab", "init_params",
-           "forward", "logits_from_h", "init_cache", "prefill",
-           "decode_step"]
+           "param_shapes", "forward", "logits_from_h", "loss_fn",
+           "init_cache", "prefill", "decode_step"]

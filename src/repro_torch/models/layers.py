@@ -13,7 +13,8 @@ in float32.
 Attention (`attention`, and `attn_decode` on the KV cache) has two
 implementations, chosen by ``cfg.attn_impl``:
 
-  * ``"auto"``, ``"chunked"``, ``"pallas"`` — the hand-written kernels:
+  * ``"auto"``, ``"chunked"``, ``"pallas"`` — without autograd, the
+    hand-written kernels:
     flash attention (`kernels.flash_attention`) over a sequence and
     flash-decode (`kernels.decode_attention`) over a ring cache, each its
     plain PyTorch version on a CPU tensor.  KV is passed un-repeated with
@@ -39,10 +40,20 @@ reference rewrites the whole ring with a one-hot select only for the
 TPU's SPMD partitioner) and return the cache dict with the new SSD or
 RG-LRU state.
 
-The reference's sharding constraints (`shard_activation`) and backward
-dtype barrier (`grad_dtype_barrier`) are no-ops in a forward pass on one
-card and are not ported.  Parameter definitions map names to shapes (the
-reference's logical sharding axes are dropped).
+Under autograd (grad enabled and q, k or v requiring it) the kernels,
+which have no backward, are not reached: `attention` takes the
+reference's own rule for ``"auto"`` — dense when Sq·Sk <= 2048², else the
+online-softmax scan over KV chunks (`_chunked_attention`, each chunk
+step checkpointed; `_qblock_attention` with ``cfg.q_block``) — and
+``"chunked"`` is that plain chunked path, as in the reference;
+``"pallas"`` raises, as does ``impl="pallas"`` of the SSD and RG-LRU
+mixers (the kernel entries refuse a graph on every device).  The rule
+depends on the grad mode alone, never on a kernel failing.  The
+backward dtype barrier (`grad_dtype_barrier`) sits where the reference
+puts it, on q, k and v.  The reference's sharding constraints
+(`shard_activation`) are no-ops on one card and are not ported.
+Parameter definitions map names to shapes (the reference's logical
+sharding axes are dropped).
 
 A "dec" layer given ``enc_out`` adds cross-attention after its
 self-attention: q from the decoder, K and V from ``enc_out``, no mask and
@@ -63,6 +74,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.decode_attention.ops import decode_attention
 from ..kernels.decode_attention.ref import ring_validity
@@ -85,6 +97,58 @@ FP8_OVERFLOW = 464.0
 # ---------------------------------------------------------------------------
 # primitives
 # ---------------------------------------------------------------------------
+def torch_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a config's dtype string ("bfloat16", ...)."""
+    dt = getattr(torch, name, None)
+    if not isinstance(dt, torch.dtype):
+        raise ValueError(f"unknown dtype {name!r}")
+    return dt
+
+
+def wants_grad(*tensors: torch.Tensor) -> bool:
+    """Whether autograd records a function of ``tensors``: grad enabled and
+    one of them requiring it."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def checkpointed(fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward
+    (`torch.utils.checkpoint`, non-reentrant) when autograd records it —
+    the reference's `jax.checkpoint` — else a plain call."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+class _GradBf16(torch.autograd.Function):
+    """Identity forward; the cotangent cast to bfloat16 on the way back."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(torch.bfloat16)
+
+
+def grad_dtype_barrier(x: torch.Tensor) -> torch.Tensor:
+    """Identity forward; casts the cotangent to bfloat16 on the way back
+    (the reference's `layers.grad_dtype_barrier`, a `jax.custom_vjp`).
+
+    JAX promotes a cotangent by its einsums' rules, so a float32
+    accumulator upstream makes a bfloat16 activation's gradient float32;
+    the reference pins it back at each block boundary and on q, k and v.
+    PyTorch already gives a tensor's gradient that tensor's dtype, so for
+    the port the cast is a no-op: it is kept where the reference places
+    it so that the backward's dtypes stay pinned if an op upstream ever
+    promotes.  A float32 tensor, or one autograd does not record, passes
+    through untouched."""
+    if x.dtype == torch.bfloat16 and wants_grad(x):
+        return _GradBf16.apply(x)
+    return x
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float
              ) -> torch.Tensor:
     """Squares in the compute dtype, their mean in float32, as the
@@ -164,24 +228,114 @@ def _dense_attention(q, k, v, q_pos, k_pos, mask_kind, window):
     return torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v)
 
 
+def _chunked_attention(q, k, v, q_pos, k_pos, mask_kind, window, chunk,
+                       score_dtype=torch.float32):
+    """Online-softmax scan over KV chunks (the reference's
+    `_chunked_attention`), shapes as in `_dense_attention`.  Scores are
+    emitted in ``score_dtype`` (float32, or bfloat16 to trade mantissa
+    bits for bfloat16 cotangents, as the reference's knob) and the softmax
+    accumulators kept in float32; each chunk's step is checkpointed, so
+    the backward never holds every chunk's (Sq, chunk) score block.  KV
+    is padded to whole chunks; unlike the reference, which gives padded
+    keys the position -10^9 (live under a causal or no mask), the padded
+    keys are masked, so the result equals the dense path on any length.
+    """
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    nchunk = -(-Sk // chunk)
+    pad = nchunk * chunk - Sk
+    live = torch.ones(nchunk * chunk, dtype=torch.bool, device=q.device)
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        k_pos = F.pad(k_pos, (0, pad))
+        live[Sk:] = False
+    scale = D ** -0.5
+    neg = torch.tensor(NEG_INF, dtype=torch.float32, device=q.device)
+
+    def step(acc, mx, den, kb, vb, pb, lb):
+        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kb.float())
+        s = s.to(score_dtype).float() * scale
+        m = _mask(mask_kind, q_pos, pb, window) & lb[None]
+        s = torch.where(m[None, None], s, neg)
+        bmx = torch.maximum(mx, s.amax(dim=-1))
+        corr = torch.exp(mx - bmx)
+        p = torch.exp(s - bmx[..., None])
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhqk,bkhd->bhqd", p.to(vb.dtype), vb).float()
+        den = den * corr + p.sum(dim=-1)
+        return acc, bmx, den
+
+    acc = q.new_zeros((B, H, Sq, D), dtype=torch.float32)
+    mx = torch.full((B, H, Sq), NEG_INF, dtype=torch.float32,
+                    device=q.device)
+    den = q.new_zeros((B, H, Sq), dtype=torch.float32)
+    for c in range(nchunk):
+        cut = slice(c * chunk, (c + 1) * chunk)
+        acc, mx, den = checkpointed(step, acc, mx, den, k[:, cut],
+                                    v[:, cut], k_pos[cut], live[cut])
+    o = acc / torch.clamp(den[..., None], min=1e-30)
+    return o.transpose(1, 2).to(q.dtype)                  # (B, Sq, H, D)
+
+
+def _qblock_attention(q, k, v, q_pos, k_pos, mask_kind, window,
+                      cfg: ModelConfig):
+    """Causal or windowed attention with static per-q-block KV ranges (the
+    reference's `_qblock_attention`): query block i of ``cfg.q_block``
+    rows scans only the KV prefix (causal) or its window band, each with
+    `_chunked_attention`."""
+    Sq = q.shape[1]
+    qb = cfg.q_block
+    outs = []
+    for i in range(Sq // qb):
+        qs, qe = i * qb, (i + 1) * qb
+        ks = 0 if mask_kind == "causal" else max(0, qs - window)
+        outs.append(_chunked_attention(
+            q[:, qs:qe], k[:, ks:qe], v[:, ks:qe], q_pos[qs:qe],
+            k_pos[ks:qe], mask_kind, window, min(cfg.attn_chunk, qe - ks),
+            score_dtype=torch_dtype(cfg.score_dtype)))
+    return torch.cat(outs, dim=1)
+
+
 def attention(q, k, v, q_pos, k_pos, *, mask_kind: str, window: int,
               cfg: ModelConfig) -> torch.Tensor:
     """GQA attention.  q: (B, Sq, H, D), k and v: (B, Sk, KH, D) ->
-    (B, Sq, H, D)."""
+    (B, Sq, H, D).
+
+    Without autograd, ``"auto"``, ``"chunked"`` and ``"pallas"`` run the
+    flash kernel.  Under autograd (`wants_grad` of q, k, v) the reference's
+    dispatch holds: ``"auto"`` is dense when Sq·Sk <= 2048², else chunked;
+    ``"chunked"`` the plain chunked scan (`_qblock_attention` with
+    ``cfg.q_block`` on a causal or windowed mask longer than a block);
+    ``"pallas"`` reaches the kernel, which raises."""
     B, Sq, H, D = q.shape
     impl = cfg.attn_impl
-    if impl in FLASH_IMPLS:
-        o = flash_attention(q, k, v, q_pos, k_pos, mask_kind=mask_kind,
-                            window=window)
-    elif impl == "dense":
-        G = H // k.shape[2]
-        if G > 1:
-            k = k.repeat_interleave(G, dim=2)
-            v = v.repeat_interleave(G, dim=2)
-        o = _dense_attention(q, k, v, q_pos, k_pos, mask_kind, window)
-    else:
+    if impl not in FLASH_IMPLS + ("dense",):
         raise ValueError(f"attn_impl {impl!r}; the port has "
                          f"{FLASH_IMPLS + ('dense',)}")
+    if impl in ("auto", "chunked") and wants_grad(q, k, v):
+        if impl == "auto":
+            impl = "dense" if Sq * k.shape[1] <= 2048 * 2048 else "chunked"
+    elif impl in FLASH_IMPLS:
+        impl = "pallas"
+    if impl == "pallas":
+        o = flash_attention(q, k, v, q_pos, k_pos, mask_kind=mask_kind,
+                            window=window)
+        return o.reshape(B, Sq, H, D)
+    G = H // k.shape[2]
+    if G > 1:
+        k = k.repeat_interleave(G, dim=2)
+        v = v.repeat_interleave(G, dim=2)
+    q, k, v = (grad_dtype_barrier(t) for t in (q, k, v))
+    if impl == "dense":
+        o = _dense_attention(q, k, v, q_pos, k_pos, mask_kind, window)
+    elif (cfg.q_block and mask_kind in ("causal", "window")
+          and Sq > cfg.q_block):
+        o = _qblock_attention(q, k, v, q_pos, k_pos, mask_kind, window, cfg)
+    else:
+        o = _chunked_attention(q, k, v, q_pos, k_pos, mask_kind, window,
+                               cfg.attn_chunk,
+                               score_dtype=torch_dtype(cfg.score_dtype))
     return o.reshape(B, Sq, H, D)
 
 

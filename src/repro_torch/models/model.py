@@ -21,31 +21,39 @@ layers' leaves stacked over ``encoder_layers``), ``enc_pos`` and
 once (`_encode`) and every "dec" layer attends to the result, which the
 cache carries as ``enc_out`` for `decode_step`.  A VLM (internvl2) takes
 ``batch["patch_embeds"]`` (B, num_patches, D) in place of its first
-``num_patches`` token embeddings.  The loss and training are not ported
-yet (ROADMAP §1 item 12.5).
+``num_patches`` token embeddings.
+
+Training (ROADMAP §1 item 12.5): `loss_fn` is the reference's next-token
+cross-entropy (`_xent`; vocabulary padding masked in `logits_from_h`;
+with ``cfg.logit_chunk`` over sequence chunks, each checkpointed, plus
+the remainder).  `forward` runs each cycle of the pattern through
+`_maybe_remat` (``cfg.remat``: ``"none"``, ``"full"`` — the cycle's
+activations recomputed in the backward — or ``"dots"`` — the outputs of
+products without batch dimensions kept and the rest recomputed, the
+counterpart of `dots_with_no_batch_dims_saveable`) and puts the
+reference's `grad_dtype_barrier` at each cycle's block boundaries.
+Under autograd attention, the SSD and the RG-LRU take their plain paths
+(`layers`); ``impl="pallas"`` then raises.  `param_shapes` gives the
+parameter tree on the ``meta`` device, allocating nothing.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Any, Dict, Tuple, Union
+from typing import Any, Callable, Dict, Tuple, Union
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .._device import DeviceLike, resolve_device
 from .config import ModelConfig
 from .layers import (NEG_INF, attn_cache_len, block_apply, block_decode,
-                     block_param_defs, rms_norm, zeros_of)
+                     block_param_defs, checkpointed, grad_dtype_barrier,
+                     rms_norm, torch_dtype, zeros_of)
 
 Params = Dict[str, Any]
-
-
-def torch_dtype(name: str) -> torch.dtype:
-    """The torch dtype of a config's dtype string ("bfloat16", ...)."""
-    dt = getattr(torch, name, None)
-    if not isinstance(dt, torch.dtype):
-        raise ValueError(f"unknown dtype {name!r}")
-    return dt
 
 
 # ---------------------------------------------------------------------------
@@ -59,10 +67,32 @@ def _init_leaf(gen: torch.Generator, shape, dtype, device) -> torch.Tensor:
     return t.mul_(1.0 / math.sqrt(max(fan_in, 1))).to(device)
 
 
-def _block_params(gen, defs, n_stack: int, dtype, device) -> Params:
-    return {name: _init_leaf(gen, ((n_stack,) + shape if n_stack else shape),
-                             dtype, device)
-            for name, shape in sorted(defs.items())}
+def _param_tree(cfg: ModelConfig, leaf: Callable, zeros: Callable
+                ) -> Params:
+    """The parameter tree with ``leaf(shape)`` for each drawn leaf, in the
+    draw order (embed, unembed, then each pattern position's and tail
+    layer's leaves by name, an encoder's last), and ``zeros(shape)`` for
+    the norms' scales."""
+    n_cycles, tail = cfg.cycles_and_tail
+    V, D = cfg.padded_vocab, cfg.d_model
+
+    def block(defs, n_stack):
+        return {name: leaf((n_stack,) + shape if n_stack else shape)
+                for name, shape in sorted(defs.items())}
+
+    params: Params = {"embed": leaf((V, D)), "unembed": leaf((D, V)),
+                      "final_norm": zeros((D,))}
+    params["blocks"] = tuple(
+        block(block_param_defs(cfg, mixer, ffn), n_cycles)
+        for mixer, ffn in cfg.pattern)
+    params["tail"] = tuple(block(block_param_defs(cfg, *cfg.pattern[t]), 0)
+                           for t in range(tail))
+    if cfg.is_encdec:
+        params["encoder"] = block(block_param_defs(cfg, "enc", "gelu"),
+                                  cfg.encoder_layers)
+        params["enc_pos"] = leaf((cfg.encoder_seq, D))
+        params["enc_norm"] = zeros((D,))
+    return params
 
 
 def init_params(cfg: ModelConfig, generator: Union[int, torch.Generator],
@@ -81,28 +111,20 @@ def init_params(cfg: ModelConfig, generator: Union[int, torch.Generator],
     gen = (torch.Generator(device=dev).manual_seed(generator)
            if isinstance(generator, int) else generator)
     pd = torch_dtype(cfg.param_dtype)
-    n_cycles, tail = cfg.cycles_and_tail
-    V, D = cfg.padded_vocab, cfg.d_model
-    params: Params = {
-        "embed": _init_leaf(gen, (V, D), pd, dev),
-        "unembed": _init_leaf(gen, (D, V), pd, dev),
-        "final_norm": torch.zeros((D,), dtype=pd, device=dev),
-    }
-    params["blocks"] = tuple(
-        _block_params(gen, block_param_defs(cfg, mixer, ffn), n_cycles, pd,
-                      dev)
-        for mixer, ffn in cfg.pattern)
-    params["tail"] = tuple(
-        _block_params(gen, block_param_defs(cfg, *cfg.pattern[t]), 0, pd,
-                      dev)
-        for t in range(tail))
-    if cfg.is_encdec:
-        params["encoder"] = _block_params(
-            gen, block_param_defs(cfg, "enc", "gelu"), cfg.encoder_layers,
-            pd, dev)
-        params["enc_pos"] = _init_leaf(gen, (cfg.encoder_seq, D), pd, dev)
-        params["enc_norm"] = torch.zeros((D,), dtype=pd, device=dev)
-    return params
+    return _param_tree(
+        cfg, lambda shape: _init_leaf(gen, shape, pd, dev),
+        lambda shape: torch.zeros(shape, dtype=pd, device=dev))
+
+
+def param_shapes(cfg: ModelConfig) -> Params:
+    """The parameter tree of ``cfg`` on the ``meta`` device: shapes and
+    dtypes, nothing allocated (the reference's `jax.eval_shape` of
+    `init_params`)."""
+    pd = torch_dtype(cfg.param_dtype)
+
+    def empty(shape):
+        return torch.empty(shape, dtype=pd, device="meta")
+    return _param_tree(cfg, empty, empty)
 
 
 # ---------------------------------------------------------------------------
@@ -153,10 +175,57 @@ def forward(params: Params, batch, cfg: ModelConfig, *,
     ``cfg.attn_impl``.  An encoder-decoder model also takes
     ``batch["audio_feats"]``, a VLM ``batch["patch_embeds"]``."""
     x, positions, enc_out = _start(params, batch, cfg, impl)
-    for (mixer, ffn), layer in _layers(params, cfg):
-        x, _ = block_apply(layer, x, mixer, ffn, cfg, positions,
-                           enc_out=enc_out, impl=impl)
+    n_cycles, tail = cfg.cycles_and_tail
+
+    def cycle(x, c):
+        for k, (mixer, ffn) in enumerate(cfg.pattern):
+            layer = {n: t[c] for n, t in params["blocks"][k].items()}
+            x, _ = block_apply(layer, x, mixer, ffn, cfg, positions,
+                               enc_out=enc_out, impl=impl)
+            x = grad_dtype_barrier(x)
+        return x
+
+    run = _maybe_remat(cfg)
+    for c in range(n_cycles):
+        x = run(cycle, x, c)
+    for t in range(tail):
+        mixer, ffn = cfg.pattern[t]
+        x, _ = block_apply(params["tail"][t], x, mixer, ffn, cfg,
+                           positions, enc_out=enc_out, impl=impl)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+# products without batch dimensions: a (B, S, D) @ (D, F) projection is
+# folded into one 2-d product, an attention einsum is a batched one (bmm)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _maybe_remat(cfg: ModelConfig) -> Callable:
+    """``run(fn, *args)`` for one cycle of the layer loop under
+    ``cfg.remat`` (the reference's `_maybe_remat`): ``"none"`` calls it;
+    ``"full"`` checkpoints it (`torch.utils.checkpoint`, non-reentrant);
+    ``"dots"`` checkpoints it keeping the outputs of 2-d products
+    (``aten.mm`` / ``aten.addmm``) and recomputing the rest.  Without
+    autograd every mode is a plain call."""
+    if cfg.remat not in ("none", "full", "dots"):
+        raise ValueError(f"remat {cfg.remat!r}; the port has none, full, "
+                         f"dots")
+
+    def run(fn, *args):
+        if cfg.remat == "none" or not torch.is_grad_enabled():
+            return fn(*args)
+        if cfg.remat == "full":
+            return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=functools.partial(
+                              create_selective_checkpoint_contexts,
+                              _dots_policy))
+    return run
 
 
 def _start(params: Params, batch, cfg: ModelConfig, impl: str):
@@ -189,6 +258,49 @@ def logits_from_h(params: Params, h: torch.Tensor, cfg: ModelConfig
     if pad:
         logits[..., cfg.vocab_size:] = NEG_INF
     return logits
+
+
+def _xent(logits: torch.Tensor, labels: torch.Tensor, valid: torch.Tensor
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sum of the masked token losses, number of valid tokens) of float32
+    ``logits`` (..., V) against integer ``labels``."""
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    return ((lse - gold) * valid).sum(), valid.sum()
+
+
+def loss_fn(params: Params, batch, cfg: ModelConfig, *, impl: str = "jnp"
+            ) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch["tokens"]`` (B, S) (the
+    reference's `loss_fn`): position s predicts token s + 1.  With
+    ``cfg.logit_chunk`` = C the (B, S - 1, V) logits never exist at once:
+    chunks of C positions, each checkpointed (its logits recomputed in
+    the backward), then the remainder.  ``impl`` as in `forward`; the
+    default is the plain path, which autograd can differentiate (the
+    kernels raise under autograd)."""
+    h = forward(params, batch, cfg, impl=impl)
+    tokens = torch.as_tensor(batch["tokens"], device=h.device)
+    labels = tokens[:, 1:].long()
+    valid = torch.ones(labels.shape, dtype=torch.float32, device=h.device)
+    if not cfg.logit_chunk:
+        tot, cnt = _xent(logits_from_h(params, h[:, :-1], cfg), labels,
+                         valid)
+        return tot / torch.clamp(cnt, min=1.0)
+    C = cfg.logit_chunk
+    n = labels.shape[1] // C
+
+    def chunk(hh, ll, vv):
+        return _xent(logits_from_h(params, hh, cfg), ll, vv)
+
+    tot = cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(n):
+        cut = slice(i * C, (i + 1) * C)
+        s, c = checkpointed(chunk, h[:, cut], labels[:, cut], valid[:, cut])
+        tot, cnt = tot + s, cnt + c
+    if labels.shape[1] % C:
+        s, c = chunk(h[:, n * C:-1], labels[:, n * C:], valid[:, n * C:])
+        tot, cnt = tot + s, cnt + c
+    return tot / torch.clamp(cnt, min=1.0)
 
 
 # ---------------------------------------------------------------------------

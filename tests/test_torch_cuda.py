@@ -1414,3 +1414,59 @@ def test_cuda_rollout_sharded_matches_unsharded(cuda_device):
         assert not r["failures"], "\n".join(r["failures"])
         assert r["info"]["collectives_per_period"] == 4, leg
     assert res["chaos"]["info"]["ladder"] > 0
+
+
+# ---------------------------------------------------------------------------
+# training: the backward on the card
+# ---------------------------------------------------------------------------
+def _counts():
+    return (fa_ops.flash_attention_fwd.launches,
+            ssd_ops.ssd_scan_fwd.launches, rg_ops.rglru_scan_fwd.launches,
+            da_ops.decode_attention_fwd.launches)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["paper_edge", "gemma3_1b", "mamba2_130m",
+                                  "recurrentgemma_9b",
+                                  "granite_moe_1b_a400m", "whisper_base"])
+def test_cuda_backward_through_forward_matches_cpu(cuda_device, arch):
+    """`loss_fn`'s gradient through `forward` (``attn_impl="auto"``) on
+    the card against the CPU's, float32, same parameters and tokens: the
+    loss to 1e-5 relative, each gradient leaf to 1e-4 of its largest |g|
+    (the CPU parity bars), no port kernel launched (autograd takes the
+    plain paths); then the eval step on the card launches the kernels of
+    a forward."""
+    from repro_torch import _tree
+    from repro_torch.launch import steps
+    cfg = dataclasses.replace(configs.get_smoke_config(arch),
+                              dtype="float32", attn_impl="auto")
+    cpu_params = init_params(cfg, 7, device="cpu")
+    g = torch.Generator().manual_seed(7)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 40),
+                                     generator=g)}
+    if cfg.is_encdec:
+        batch["audio_feats"] = torch.randn(
+            (2, cfg.encoder_seq, cfg.d_model), generator=g)
+    want_l, want_g = steps.value_and_grad(cpu_params, batch, cfg)
+    params = convert.model_params_from_numpy(_numpy_tree(cpu_params),
+                                             cuda_device)
+    card = {k: v.to(cuda_device) for k, v in batch.items()}
+    before = _counts()
+    got_l, got_g = steps.value_and_grad(params, card, cfg)
+    assert _counts() == before
+    assert abs(float(got_l) - float(want_l)) <= 1e-5 * abs(float(want_l))
+    for a, w in zip(_tree.leaves(got_g), _tree.leaves(want_g)):
+        assert a.is_cuda
+        scale = max(w.abs().max().item(), 1e-30)
+        assert (a.cpu() - w).abs().max().item() <= 1e-4 * scale
+    ev = steps.make_eval_step(cfg)(params, card)
+    assert abs(float(ev) - float(want_l)) <= 1e-4 * abs(float(want_l))
+    launched = [a - b for a, b in zip(_counts(), before)]
+    assert launched[0] == sum(
+        1 for i in range(cfg.num_layers)
+        if cfg.layer_kind(i)[0] not in ("ssd", "rglru")) + (
+        cfg.encoder_layers + cfg.num_layers if cfg.is_encdec else 0)
+    assert launched[1] == sum(1 for i in range(cfg.num_layers)
+                              if cfg.layer_kind(i)[0] == "ssd")
+    assert launched[2] == sum(1 for i in range(cfg.num_layers)
+                              if cfg.layer_kind(i)[0] == "rglru")

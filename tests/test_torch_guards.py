@@ -55,7 +55,13 @@ def test_port_imports_neither_jax_nor_the_reference():
             "repro_torch.serving.planner",
             # the chaos and mobility scenarios
             "repro_torch.core.faults", "repro_torch.core.mobility",
-            "repro_torch.serving.faults"} <= walked
+            "repro_torch.serving.faults",
+            # training
+            "repro_torch.optim", "repro_torch.optim.adamw",
+            "repro_torch.optim.adafactor", "repro_torch.launch.steps",
+            "repro_torch.launch.train", "repro_torch.checkpoint.manager",
+            "repro_torch.distributed.compression",
+            "repro_torch.examples.train_lm"} <= walked
 
 
 def test_chip_smoke_imports_neither_jax_nor_the_reference():
@@ -129,3 +135,98 @@ def test_port_calls_no_library_attention_or_compiler():
                             for a in node.names):
                         found.append((where, mod))
     assert not found, found
+
+
+def _kernel_calls():
+    """Each LM kernel entry with inputs at a tiny shape that requires
+    grad (``x``) — name, call."""
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.rglru_scan import ops as rg
+    from repro_torch.kernels.ssd_scan import ops as ssd
+
+    def t(*shape):
+        return torch.rand(shape)
+
+    def g(*shape):
+        return torch.rand(shape).requires_grad_(True)
+    pos = torch.arange(4, dtype=torch.int32)
+    valid = torch.ones((2, 4), dtype=torch.int32)
+    return [
+        ("flash_attention_fwd", lambda: fa.flash_attention_fwd(
+            g(2, 4, 8), t(2, 4, 8), t(2, 4, 8))),
+        ("flash_attention", lambda: fa.flash_attention(
+            t(1, 4, 2, 8), t(1, 4, 2, 8), g(1, 4, 2, 8), pos, pos,
+            mask_kind="causal")),
+        ("decode_attention_fwd", lambda: da.decode_attention_fwd(
+            t(2, 1, 8), g(2, 4, 8), t(2, 4, 8), valid)),
+        ("decode_attention", lambda: da.decode_attention(
+            g(1, 1, 2, 8), t(1, 4, 2, 8), t(1, 4, 2, 8), 3)),
+        ("ssd_scan_fwd", lambda: ssd.ssd_scan_fwd(
+            t(2, 4, 8), g(2, 4), -t(2, 1), t(1, 4, 3), t(1, 4, 3),
+            heads=2, chunk=2)),
+        ("ssd_scan", lambda: ssd.ssd_scan(
+            g(1, 4, 2, 8), t(1, 4, 2), -t(2), t(1, 4, 3), t(1, 4, 3), 2)),
+        ("rglru_scan_fwd", lambda: rg.rglru_scan_fwd(g(1, 4, 3),
+                                                     t(1, 4, 3))),
+        ("rglru_scan", lambda: rg.rglru_scan(t(1, 4, 3), g(1, 4, 3))),
+    ]
+
+
+def test_lm_kernel_entries_refuse_a_graph_on_the_cpu():
+    """Under autograd every LM kernel entry raises, on CPU tensors too
+    (where its plain version would differentiate): the kernel has no
+    backward, and on the card it would lose the gradient in silence.
+    Without grad, or with no input requiring it, it runs."""
+    for name, call in _kernel_calls():
+        with pytest.raises(RuntimeError, match="has no backward"):
+            call()
+        with torch.no_grad():
+            call()
+        with torch.inference_mode():
+            call()
+
+
+def _loss_and_grads(cfg, params, batch, impl="pallas"):
+    from repro_torch import _tree
+    from repro_torch.models import loss_fn
+    flat, treedef = _tree.flatten(params)
+    live = [p.detach().requires_grad_(True) for p in flat]
+    loss = loss_fn(_tree.unflatten(treedef, live), batch, cfg, impl=impl)
+    return loss, torch.autograd.grad(loss, live)
+
+
+def test_forward_under_grad_with_auto_attention_equals_dense():
+    """``attn_impl="auto"`` under autograd takes the reference's rule
+    (dense at these lengths): the loss and every gradient equal
+    ``"dense"``'s exactly; ``"chunked"`` is the plain chunked scan
+    (float32 to 1e-5 of each leaf's largest |g|); ``"pallas"`` raises.
+    SSD and RG-LRU mixers: ``impl="pallas"`` raises under autograd."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    base = dataclasses.replace(get_smoke_config("paper_edge"),
+                               dtype="float32")
+    params = init_params(base, 0, device="cpu")
+    batch = {"tokens": torch.randint(0, base.vocab_size, (2, 20),
+                                     generator=torch.Generator()
+                                     .manual_seed(0))}
+    runs = {impl: _loss_and_grads(dataclasses.replace(
+        base, attn_impl=impl, attn_chunk=8), params, batch)
+        for impl in ("dense", "auto", "chunked")}
+    assert runs["auto"][0].item() == runs["dense"][0].item()
+    for a, b in zip(runs["auto"][1], runs["dense"][1]):
+        assert torch.equal(a, b)
+    for a, b in zip(runs["chunked"][1], runs["dense"][1]):
+        assert (a - b).abs().max() <= 1e-5 * b.abs().max()
+    with pytest.raises(RuntimeError, match="has no backward"):
+        _loss_and_grads(dataclasses.replace(base, attn_impl="pallas"),
+                        params, batch)
+    for arch in ("mamba2_130m", "recurrentgemma_9b"):
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+        p = init_params(cfg, 0, device="cpu")
+        with pytest.raises(RuntimeError, match="has no backward"):
+            _loss_and_grads(cfg, p, batch, impl="pallas")
+        loss, grads = _loss_and_grads(cfg, p, batch, impl="jnp")
+        assert torch.isfinite(loss) and all(
+            torch.isfinite(g).all() for g in grads)

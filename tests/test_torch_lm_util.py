@@ -283,3 +283,80 @@ def check_init_layout(arch):
         assert tuple(g[p].shape) == w[p].shape, p
         assert str(g[p].dtype).split(".")[-1] == str(w[p].dtype), p
         assert not g[p].float().any()
+
+
+# ---------------------------------------------------------------------------
+# the loss and its gradient (`test_torch_loss*.py`)
+# ---------------------------------------------------------------------------
+LOSS_RTOL = 1e-5             # float32 loss, relative
+GRAD_TOL = 1e-4              # float32 gradient leaf, of its largest |g|
+
+
+def ref_loss_and_grad(arch, dtype, params_dtype="float32", **kw):
+    """The reference's `loss_fn` and its gradient (numpy leaves by path)
+    on the 2 x 24 inputs, from the float32 parameters of ``arch``."""
+    rcfg, _ = cfgs(arch, dtype, **kw)
+    params = ref_params(arch, params_dtype)
+    b = batch_np(rcfg, B, S_FWD)
+    # jitted: one compile is several times faster than eager dispatch
+    loss, grads = jax.jit(jax.value_and_grad(
+        lambda p: ref_models.loss_fn(p, as_jnp(b), rcfg)))(params)
+    return float(loss), dict(leaves(jax.tree.map(np.asarray, grads)))
+
+
+def port_loss_and_grad(arch, dtype, params_dtype="float32", **kw):
+    """The port's `loss_fn` and its gradient (`launch.steps.value_and_grad`)
+    on the same inputs and carried-over parameters."""
+    from repro_torch.launch.steps import value_and_grad
+    _, cfg = cfgs(arch, dtype, **kw)
+    params = port_params(arch, params_dtype)
+    loss, grads = value_and_grad(params, as_torch(batch_np(cfg, B, S_FWD)),
+                                 cfg)
+    return float(loss), {p: g.numpy() for p, g in leaves(grads)}
+
+
+def assert_grads_close(got, want, tol=GRAD_TOL):
+    """Each leaf within ``tol`` of its largest |g|."""
+    assert sorted(got) == sorted(want)
+    for p, w in want.items():
+        scale = max(float(np.abs(w).max()), 1e-30)
+        err = float(np.abs(got[p] - w).max())
+        assert err <= tol * scale, (p, err, scale)
+
+
+def grad_distance(a, b):
+    """||a - b|| / ||b|| over all leaves (dicts by path)."""
+    num = sum(float(np.sum((a[p] - b[p]) ** 2)) for p in b)
+    den = sum(float(np.sum(b[p] ** 2)) for p in b)
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def check_loss_float32(arch, **kw):
+    want_l, want_g = ref_loss_and_grad(arch, "float32", **kw)
+    got_l, got_g = port_loss_and_grad(arch, "float32", **kw)
+    assert np.isfinite(got_l)
+    assert abs(got_l - want_l) <= LOSS_RTOL * abs(want_l), (got_l, want_l)
+    assert_grads_close(got_g, want_g)
+
+
+BF16_FACTOR = 3.0            # see check_loss_bfloat16
+
+
+def check_loss_bfloat16(arch):
+    """bfloat16 compute from the same float32 parameters: the port's
+    distance from the float32 loss and gradient at most BF16_FACTOR times
+    the reference's own bfloat16 distance from it (the two packages round
+    bfloat16 products in other places; XLA keeps excess precision between
+    fused ops).  The float32 point is the port's, which
+    `check_loss_float32` holds to the reference's within 1e-4 of each
+    leaf's largest |g| (measured 5e-6, against bfloat16 distances of
+    1e-2 and more): it saves a compile of the reference."""
+    l32, g32 = port_loss_and_grad(arch, "float32")
+    l16, g16 = ref_loss_and_grad(arch, "bfloat16")
+    pl, pg = port_loss_and_grad(arch, "bfloat16")
+    assert np.isfinite(pl)
+    ref_l, port_l = abs(l16 - l32), abs(pl - l32)
+    assert port_l <= BF16_FACTOR * ref_l, (port_l, ref_l)
+    ref_g, port_g = grad_distance(g16, g32), grad_distance(pg, g32)
+    assert port_g <= BF16_FACTOR * ref_g, (port_g, ref_g)
+    return (ref_l, port_l), (ref_g, port_g)

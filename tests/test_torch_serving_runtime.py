@@ -291,10 +291,13 @@ def test_make_apply_matches_reference():
 
 
 def test_launcher_runs_on_cpu_with_an_outage(capsys):
-    """The port's `main` at a small size: every period lands all jobs and
-    the ES-outage period replans."""
+    """The port's `main` at a small size, the ladder untrained (its
+    default of 20 steps is minutes of CPU; `test_torch_serve_train.py`
+    trains it): every period lands all jobs and the ES-outage period
+    replans."""
     history = port_serve.main(["--periods", "3", "--n", "6",
-                               "--fail-period", "1", "--device", "cpu"])
+                               "--fail-period", "1", "--train-steps", "0",
+                               "--device", "cpu"])
     assert len(history) == 3
     assert all(s.n_dropped == 0 and s.n_jobs == 6 for s in history)
     assert all(np.isfinite([s.predicted_makespan, s.wall_makespan,
