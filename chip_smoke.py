@@ -290,6 +290,38 @@ Phases, each printing JSON lines; any failure exits non-zero:
               sentinel and resumed against an uninterrupted run (bit for
               bit, or the leaf that differs and by how much, then again
               under `torch.use_deterministic_algorithms`).
+     lm_sharded  the train step on DTensor (ROADMAP §1 item 13) on an
+              NCCL world of one rank on the card, a (1, 1) ("data",
+              "model") mesh and the base rules: gemma3-1b at `lm_train`'s
+              width, depth and tokens (2 x 2048, bfloat16 compute, AdamW,
+              ``remat="full"``), 3 steps unsharded and 3 sharded from the
+              same weights (`scripts.smoke_sharded_train.run_steps`): the
+              losses, gradient norms and final parameters bit for bit;
+              then single steps timed in turns (unsharded, sharded,
+              sharded, unsharded; medians), each kind profiled once
+              (kernel launches a step) and the sharded step's collectives
+              counted (`launch.op_cost`).  Then generation on DTensor
+              parameters (`sharded_generation`): gemma3-1b, mamba2-130m
+              and recurrentgemma-9b cut to one cycle (rglru, rglru,
+              local), each prefill of `SHARDED_GEN_B` prompts of
+              `SHARDED_GEN_P` tokens and `SHARDED_GEN_STEPS` decode steps,
+              unsharded and sharded: every kernel of the path (flash,
+              flash-decode, SSD, RG-LRU) launched on the sharded run as
+              often as on the unsharded one (one a layer of its mixer a
+              prefill, one flash-decode an attention layer a step), and
+              the logits bit for bit.
+     pipeline  `distributed.pipeline.pipeline_apply` of ``tanh(h @ W)``
+              on the same world of one stage (`PIPE_*` shapes, 4
+              microbatches) against the sequential loop; a multi-stage run
+              needs a machine with several cards.
+     dryrun   `launch.dryrun` of every (arch, shape) cell on the 16 x 16
+              fake mesh (host only: a ``fake`` group of 256 ranks, meta
+              shards), `DRYRUN_WORKERS` processes at once: one line per
+              cell (status, per-chip argument and peak bytes, flops,
+              collective bytes, dominant term, seconds), every supported
+              cell ok, the 4 long_500k cells of full-attention archs
+              skipped as in the reference; the records go to
+              ``build/dryrun.jsonl``.
   9. parity   the card-marked tests (`pytest -m gpu tests/test_torch_cuda.py`,
               in a child process): each kernel against its plain version,
               a 32-device rollout, a 64-device `FleetEngine` run, the
@@ -4212,6 +4244,292 @@ def phase_lm_train(torch, dev):
          seconds=time.perf_counter() - t0)
 
 
+# lm_sharded / pipeline: an NCCL world of one rank on the card
+SHARDED_ARCH, SHARDED_B, SHARDED_S, SHARDED_STEPS = "gemma3_1b", 2, 2048, 3
+SHARDED_GEN_ARCHS = ("gemma3_1b", "mamba2_130m", RG_ARCH)
+SHARDED_GEN_B, SHARDED_GEN_P, SHARDED_GEN_STEPS = 2, 1000, 4
+PIPE_B, PIPE_D, PIPE_M = 64, 4096, 4
+PIPE_ATOL = 1e-5
+# dryrun: host processes at once (the card's host has 8 cores)
+DRYRUN_WORKERS = 8
+
+
+def nccl_world_of_one():
+    """A context in which this process is the one rank of an NCCL group
+    (a ``file://`` store in a temporary directory)."""
+    import contextlib
+    import tempfile
+
+    import torch.distributed as dist
+
+    @contextlib.contextmanager
+    def world():
+        with tempfile.TemporaryDirectory() as tmp:
+            dist.init_process_group("nccl", init_method=f"file://{tmp}/s",
+                                    rank=0, world_size=1)
+            try:
+                yield
+            finally:
+                dist.destroy_process_group()
+    return world()
+
+
+def phase_lm_sharded(torch, dev):
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import _tree
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.op_cost import OpCost
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import init_params, param_axes
+    from repro_torch.optim import adamw_init
+    from repro_torch.scripts.smoke_sharded_train import run_steps
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(SHARDED_ARCH), remat="full")
+    batch = {"tokens": lm_tokens(torch, dev, cfg, SHARDED_B, SHARDED_S)}
+    params = init_params(cfg, LM_SEED, device=dev)
+    with nccl_world_of_one():
+        mesh = make_mesh((1, 1), ("data", "model"))
+        rules = sh.base_rules()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        want = run_steps(cfg, params, batch, SHARDED_STEPS, TRAIN_FULL_LR)
+        want_params = _tree.tree_map(lambda t: t.cpu(), want["params"])
+        del want["params"], want["opt"]
+        unsharded_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got = run_steps(cfg, params, batch, SHARDED_STEPS, TRAIN_FULL_LR,
+                        mesh=mesh, rules=rules)
+        sharded_peak = torch.cuda.max_memory_allocated()
+        launches = kernel_launches()
+        same = all(torch.equal(a.full_tensor().cpu(), b) for a, b in zip(
+            _tree.leaves(got["params"]), _tree.leaves(want_params)))
+        del got["params"], got["opt"], want_params
+        torch.cuda.empty_cache()
+        check(got["losses"] == want["losses"]
+              and got["grad_norms"] == want["grad_norms"] and same,
+              f"lm_sharded: the sharded step differs from the unsharded: "
+              f"losses {got['losses']} vs {want['losses']}, norms "
+              f"{got['grad_norms']} vs {want['grad_norms']}, parameters "
+              f"equal {same}")
+        check(not any(launches.values()),
+              f"lm_sharded: a train step launched {launches}")
+        # single steps in turns from the same state; each kind profiled
+        # once, the sharded step's collectives counted once
+        step = make_train_step(cfg, lr=TRAIN_FULL_LR)
+        opt = adamw_init(params)
+        shard = sh.tree_shardings(param_axes(cfg), mesh, rules)
+        dparams = sh.distribute_tree(params, shard)
+        with sh.sharding_context(mesh, rules):
+            dopt = adamw_init(dparams)
+        holder = {}
+
+        def run(which):
+            if which == "sharded":
+                with sh.sharding_context(mesh, rules):
+                    holder["s"] = step(dparams, dopt, batch)
+                    float(holder["s"][2].full_tensor())
+            else:
+                holder["s"] = step(params, opt, batch)
+                float(holder["s"][2])
+            holder.clear()
+        walls = {"unsharded": [], "sharded": []}
+        for which in ("unsharded", "sharded", "sharded", "unsharded"):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            run(which)
+            torch.cuda.synchronize()
+            walls[which].append(time.perf_counter() - t1)
+        prof = {w: profiled(torch, lambda w=w: run(w))
+                for w in ("unsharded", "sharded")}
+        with OpCost() as cost:
+            run("sharded")
+        coll = cost.result()
+        del dparams, dopt, opt, holder
+        torch.cuda.empty_cache()
+        generation = {}
+        for arch in SHARDED_GEN_ARCHS:
+            generation[arch] = sharded_generation(
+                torch, dev, mesh, rules, arch,
+                params=params if arch == SHARDED_ARCH else None)
+            torch.cuda.empty_cache()
+    med = {w: float(np.median(v)) for w, v in walls.items()}
+    emit("lm_sharded", model=cfg.name, batch=SHARDED_B, seq=SHARDED_S,
+         mesh="1x1", backend="nccl", remat=cfg.remat,
+         steps=SHARDED_STEPS, losses=got["losses"],
+         grad_norms=got["grad_norms"], bit_for_bit=True,
+         step_seconds=walls, median_seconds=med,
+         wall_ratio=med["sharded"] / med["unsharded"],
+         tokens_per_s={w: SHARDED_B * SHARDED_S / m for w, m in med.items()},
+         peak_mem_bytes=dict(unsharded=unsharded_peak, sharded=sharded_peak),
+         launches_per_step={w: p[1] for w, p in prof.items()},
+         device_seconds_per_step={w: p[0] for w, p in prof.items()},
+         collectives_per_step=coll["coll_counts"],
+         collective_bytes_per_step=coll["coll_bytes"],
+         port_kernel_launches=sum(launches.values()),
+         generation=generation, seconds=time.perf_counter() - t0)
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def sharded_generation(torch, dev, mesh, rules, arch, params=None):
+    """Prefill and decode of ``arch`` (at full width; recurrentgemma cut
+    to one cycle) unsharded and on DTensor parameters over ``mesh``: the
+    kernel launches of each, the largest logit difference and the
+    seconds.  Fails unless both launch every kernel of the path as
+    `expected_launches` says and the logits are equal."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import (decode_step, init_params, param_axes,
+                                    prefill)
+    cfg = get_config(arch)
+    if arch == RG_ARCH:
+        cfg = dataclasses.replace(cfg, num_layers=len(cfg.pattern))
+    if params is None:
+        params = init_params(cfg, LM_SEED, device=dev)
+    P, n = SHARDED_GEN_P, SHARDED_GEN_STEPS
+    tokens = lm_tokens(torch, dev, cfg, SHARDED_GEN_B, P + n)
+    dparams = sh.distribute_tree(
+        params, sh.tree_shardings(param_axes(cfg), mesh, rules))
+
+    def run(p):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            cache, lg = prefill(p, {"tokens": tokens[:, :P]}, cfg, P + n)
+            out = [sh.whole(lg)]
+            for t in range(n):
+                lg, cache = decode_step(p, tokens[:, P + t:P + t + 1],
+                                        cache, cfg)
+                out.append(sh.whole(lg))
+        torch.cuda.synchronize()
+        return (torch.cat(out, dim=1), time.perf_counter() - t0,
+                {k: v for k, v in kernel_launches().items() if v})
+    want, plain_s, plain_l = run(params)
+    with sh.sharding_context(mesh, rules):
+        got, sharded_s, sharded_l = run(dparams)
+    err = (got.float() - want.float()).abs().max().item()
+    expect = expected_launches(cfg)
+    n_attn = expect.get("flash_attention_fwd", 0)
+    if n_attn:
+        expect["decode_attention_fwd"] = n_attn * n
+    check(plain_l == expect and sharded_l == expect,
+          f"lm_sharded {arch}: launches unsharded {plain_l}, sharded "
+          f"{sharded_l}; expected {expect}")
+    check(err == 0.0 and bool(torch.isfinite(got).all()),
+          f"lm_sharded {arch}: sharded logits off by {err}")
+    return dict(model=cfg.name, layers=cfg.num_layers, batch=SHARDED_GEN_B,
+                prompt=P, decode_steps=n, launches=sharded_l,
+                max_abs_err=err, seconds=dict(unsharded=plain_s,
+                                              sharded=sharded_s))
+
+
+def phase_pipeline(torch, dev):
+    from repro_torch.distributed.pipeline import pipeline_apply
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.scripts.smoke_pipeline import stage_fn
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(LM_SEED)
+    W = torch.randn((1, PIPE_D, PIPE_D), generator=g, device=dev) \
+        * PIPE_D ** -0.5
+    x = torch.randn((PIPE_B, PIPE_D), generator=g, device=dev)
+    with nccl_world_of_one():
+        stats = {}
+        y = pipeline_apply(stage_fn, W, x, mesh=make_mesh((1,), ("stage",)),
+                           microbatches=PIPE_M, stats=stats)
+        torch.cuda.synchronize()
+    want = stage_fn(W[0], x)
+    err = (y - want).abs().max().item()
+    emit("pipeline", stages=1, backend="nccl", batch=PIPE_B, width=PIPE_D,
+         microbatches=PIPE_M, ticks=stats["ticks"], max_abs_err=err,
+         atol=PIPE_ATOL, seconds=time.perf_counter() - t0,
+         multi_stage="needs a machine with several cards")
+    check(err <= PIPE_ATOL and stats["ticks"] == PIPE_M,
+          f"pipeline: {err} off the loop, {stats['ticks']} ticks")
+
+
+def dryrun_cell(cell):
+    """One (arch, shape) cell on the 16 x 16 fake mesh (a worker process
+    of `phase_dryrun`): its record, with its seconds."""
+    arch, shape = cell
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch
+    torch.set_num_threads(1)
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    ok, why = dryrun.cell_supported(arch, shape)
+    if not ok:
+        rec = dict(arch=arch, shape=shape, mesh="16x16", status="skipped",
+                   reason=why)
+    else:
+        try:
+            dryrun.fake_world(256)
+            rec = dryrun.lower_cell(arch, shape, verbose=False)
+        except Exception as e:  # noqa: BLE001 — reported, then failed
+            import traceback
+            where = [f"{f.filename.split('/')[-1]}:{f.lineno}"
+                     for f in traceback.extract_tb(e.__traceback__)
+                     if "repro_torch" in f.filename][-4:]
+            rec = dict(arch=arch, shape=shape, mesh="16x16",
+                       status="error",
+                       error=f"{type(e).__name__}: {e} at {where}")
+    rec["wall_s"] = time.perf_counter() - t0
+    return rec
+
+
+def phase_dryrun():
+    import multiprocessing as mp
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.configs import all_archs
+    from repro_torch.launch.specs import FULL_ATTENTION_ARCHS
+    from repro_torch.launch.specs import SHAPES
+    t0 = time.perf_counter()
+    # the longest cells (train) first, for an even load
+    cells = [(a, s) for s in SHAPES for a in all_archs()]
+    with mp.get_context("spawn").Pool(DRYRUN_WORKERS) as pool:
+        records = pool.map(dryrun_cell, cells, chunksize=1)
+    out = os.path.join(ROOT, "build")
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(out, "dryrun.jsonl"), "w") as f:
+        for r in records:
+            f.write(json.dumps(r) + "\n")
+    for r in records:
+        if r["status"] != "ok":
+            emit("dryrun", arch=r["arch"], shape=r["shape"],
+                 status=r["status"], why=r.get("reason", r.get("error")))
+            continue
+        emit("dryrun", arch=r["arch"], shape=r["shape"], status="ok",
+             argument_bytes=r["memory"]["argument_bytes"],
+             peak_bytes=r["memory"]["peak_bytes"],
+             flops_per_chip=r["flops_per_chip"],
+             collective_bytes_per_chip=r["collective_bytes_per_chip"],
+             dominant=r["terms"]["dominant"],
+             step_lower_bound_s=r["terms"]["step_lower_bound_s"],
+             useful_flop_ratio=r["useful_flop_ratio"],
+             traced_cycles=r["depth"]["traced_cycles"],
+             wall_s=r["wall_s"])
+    skipped = {(r["arch"], r["shape"]) for r in records
+               if r["status"] == "skipped"}
+    bad = [(r["arch"], r["shape"], r.get("error")) for r in records
+           if r["status"] not in ("ok", "skipped")]
+    want_skips = {(a, "long_500k") for a in all_archs()
+                  if a in FULL_ATTENTION_ARCHS}
+    emit("dryrun", cells=len(records), ok=len(records) - len(skipped)
+         - len(bad), skipped=len(skipped), workers=DRYRUN_WORKERS,
+         seconds=time.perf_counter() - t0)
+    check(not bad, f"dryrun: cells failed: {bad}")
+    check(skipped == want_skips, f"dryrun: skipped {sorted(skipped)}")
+
+
 def phase_parity():
     """The card-marked tests, in a child process: the kernels against their
     plain versions, and a small rollout on the card against the CPU."""
@@ -4433,6 +4751,9 @@ def main() -> int:
     rows["rglru_scan_fwd"] = rglru_rows[RGLRU_LINE]
     phase_lm_families(torch, dev)
     phase_lm_train(torch, dev)
+    phase_lm_sharded(torch, dev)
+    phase_pipeline(torch, dev)
+    phase_dryrun()
     phase_parity()
     seconds = phase_timing(torch, dev, params)
     phase_profile(torch, dev, params, seconds, serve_seconds)

@@ -54,21 +54,32 @@ def fleet_mesh(n_shards: Optional[int] = None):
     The mesh's device type is ``"cuda"`` for an NCCL group and ``"cpu"``
     for gloo."""
     from torch.distributed.device_mesh import init_device_mesh
-    if not (dist.is_available() and dist.is_initialized()):
-        raise ValueError(
-            "fleet_mesh needs an initialised default process group: call "
-            "torch.distributed.init_process_group(backend, init_method=, "
-            "world_size=, rank=) in every shard's process first")
-    world = dist.get_world_size()
+    world = group_world_size("fleet_mesh")
     n = world if n_shards is None else int(n_shards)
     if n != world:
         raise ValueError(
             f"asked for {n} shards but the process group has {world} "
             f"ranks; one process per shard: start {n} processes and call "
             f"torch.distributed.init_process_group(world_size={n}) in each")
-    backend = str(dist.get_backend()).lower()
-    dtype = "cuda" if backend == "nccl" else "cpu"
-    return init_device_mesh(dtype, (n,), mesh_dim_names=(FLEET_AXIS,))
+    return init_device_mesh(mesh_device_type(), (n,),
+                            mesh_dim_names=(FLEET_AXIS,))
+
+
+def group_world_size(what: str) -> int:
+    """The default process group's world size; raises unless the group
+    is initialised already (nothing here initialises one)."""
+    if not (dist.is_available() and dist.is_initialized()):
+        raise ValueError(
+            f"{what} needs an initialised default process group: call "
+            "torch.distributed.init_process_group(backend, init_method=, "
+            "world_size=, rank=) in every rank's process first")
+    return dist.get_world_size()
+
+
+def mesh_device_type() -> str:
+    """The device type a mesh over the default group moves: ``"cuda"``
+    for NCCL, ``"cpu"`` for gloo (and the host-only ``fake`` backend)."""
+    return "cuda" if str(dist.get_backend()).lower() == "nccl" else "cpu"
 
 
 @dataclasses.dataclass(frozen=True)

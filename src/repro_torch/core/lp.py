@@ -461,7 +461,7 @@ class BatchLPResult:
     status: np.ndarray   # (B,) int
     niter: np.ndarray    # (B,) int
     basis: np.ndarray    # (B, R) int
-    warm: np.ndarray     # (B,) bool: warm start accepted
+    warm: Optional[np.ndarray] = None  # (B,) bool: warm start accepted
 
     def __len__(self) -> int:
         return self.x.shape[0]
@@ -469,7 +469,9 @@ class BatchLPResult:
     def __getitem__(self, b: int) -> LPResult:
         return LPResult(x=self.x[b], fun=float(self.fun[b]),
                         status=int(self.status[b]), niter=int(self.niter[b]),
-                        basis=self.basis[b], warm=bool(self.warm[b]))
+                        basis=self.basis[b],
+                        warm=(bool(self.warm[b]) if self.warm is not None
+                              else False))
 
 
 def _canonicalize_batch(c, A_ub, b_ub, A_eq, b_eq):

@@ -79,6 +79,10 @@ class Problem:
     def m(self) -> int:
         return self.p_ed.shape[1]
 
+    @property
+    def es_index(self) -> int:
+        return self.m
+
     def is_identical(self, rtol: float = 1e-9) -> bool:
         return self.to_instance().is_identical(rtol=rtol)
 

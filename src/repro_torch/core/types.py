@@ -1,7 +1,7 @@
 """Problem containers for the offloading problem `P` (paper §III).
 
 Port of `repro.core.types` (`OffloadInstance`, `InstanceBatch`,
-`Schedule`, `next_pow2`).  They stay NumPy containers: they hold host-side
+`Schedule`, `next_pow2`, the `ES` alias).  They stay NumPy containers: they hold host-side
 instance data that the solvers and the fleet constructors turn into
 tensors, and the schedules that come back.
 
@@ -16,6 +16,8 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
+
+ES = -1  # sentinel alias: instance.es_index == m
 
 
 def next_pow2(x: int) -> int:
@@ -50,6 +52,14 @@ class OffloadInstance:
     @property
     def m(self) -> int:
         return self.p_ed.shape[1]
+
+    @property
+    def es_index(self) -> int:
+        return self.m
+
+    def p(self, j: int, i: int) -> float:
+        """Unified p_{ij} with i == m meaning the ES."""
+        return float(self.p_es[j]) if i == self.m else float(self.p_ed[j, i])
 
     def is_identical(self, rtol: float = 1e-9) -> bool:
         """True when all jobs share processing times (paper §VI setting)."""
@@ -160,3 +170,17 @@ class Schedule:
     def violation(self) -> float:
         """makespan / T - 1 (0 when within budget)."""
         return max(0.0, self.makespan / self.instance.T - 1.0)
+
+    def counts(self) -> np.ndarray:
+        """(m+1,) number of jobs per model."""
+        return np.bincount(self.assignment, minlength=self.instance.m + 1)
+
+    def summary(self) -> str:
+        lp = (self.lp_accuracy if self.lp_accuracy is None
+              else round(self.lp_accuracy, 3))
+        return (f"[{self.solver}] A={self.total_accuracy:.3f} "
+                f"(LP bound {lp}) "
+                f"makespan ed={self.ed_makespan:.3f} "
+                f"es={self.es_makespan:.3f} "
+                f"T={self.instance.T} viol={100 * self.violation:.1f}% "
+                f"status={self.status}")

@@ -17,6 +17,7 @@ from __future__ import annotations
 from typing import Any, Callable, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 from .. import _tree
 from ..models import ModelConfig, decode_step, loss_fn, prefill
@@ -41,9 +42,21 @@ def value_and_grad(params: PyTree, batch, cfg: ModelConfig, *,
 
 
 def _split(batch, M: int, i: int):
-    """Microbatch ``i`` of ``M``: rows i·B/M .. (i+1)·B/M of every input."""
-    return {k: v.reshape((M, v.shape[0] // M) + tuple(v.shape[1:]))[i]
-            for k, v in batch.items()}
+    """Microbatch ``i`` of ``M``: rows i·B/M .. (i+1)·B/M of every input,
+    as the reference cuts them.  A DTensor input is cut from its whole
+    rows (gathered: token ids and a few embeddings, small beside the
+    step) and given back its placements, so that a MoE's capacity groups
+    hold the reference's tokens."""
+    return {k: _rows(v, M, i) for k, v in batch.items()}
+
+
+def _rows(v, M: int, i: int):
+    cut = (M, v.shape[0] // M) + tuple(v.shape[1:])
+    if not isinstance(v, DTensor):
+        return v.reshape(cut)[i]
+    mesh, placements = v.device_mesh, v.placements
+    whole = v.redistribute(mesh, [Replicate()] * mesh.ndim)
+    return whole.reshape(cut)[i].redistribute(mesh, placements)
 
 
 def make_train_step(cfg: ModelConfig, *, lr=3e-4, impl: str = "jnp",
@@ -61,9 +74,9 @@ def make_train_step(cfg: ModelConfig, *, lr=3e-4, impl: str = "jnp",
             loss, grads = value_and_grad(params, batch, cfg, impl=impl)
         else:
             loss = 0.0
+            # zeros_like: a DTensor parameter's accumulator keeps its split
             grads = _tree.tree_map(
-                lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                      device=p.device), params)
+                lambda p: torch.zeros_like(p, dtype=torch.float32), params)
             for i in range(M):
                 l, g = value_and_grad(params, _split(batch, M, i), cfg,
                                       impl=impl)

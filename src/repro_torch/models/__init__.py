@@ -9,12 +9,17 @@ and under autograd their plain paths and the `grad_dtype_barrier`);
 `init_params` / `param_shapes` / `forward` / `logits_from_h` /
 `loss_fn` and the generation path `init_cache` / `prefill` /
 `decode_step` (`model`), the encoder of an encoder-decoder, a VLM's
-patch embeddings, ``cfg.remat`` and ``cfg.logit_chunk`` included.
+patch embeddings, ``cfg.remat`` and ``cfg.logit_chunk`` included; and
+the sharding metadata, `param_axes`, `cache_axes` and `cache_specs`: the
+logical axes of every parameter and cache leaf (`layers`' parameter
+definitions carry them) and the cache's shapes on the ``meta`` device.
 """
 from .config import ModelConfig, dense_lm, moe_lm, pad_vocab
-from .model import (decode_step, forward, init_cache, init_params,
-                    logits_from_h, loss_fn, param_shapes, prefill)
+from .model import (cache_axes, cache_specs, decode_step, forward,
+                    init_cache, init_params, logits_from_h, loss_fn,
+                    param_axes, param_shapes, prefill)
 
 __all__ = ["ModelConfig", "dense_lm", "moe_lm", "pad_vocab", "init_params",
-           "param_shapes", "forward", "logits_from_h", "loss_fn",
-           "init_cache", "prefill", "decode_step"]
+           "param_axes", "param_shapes", "forward", "logits_from_h",
+           "loss_fn", "prefill", "decode_step",
+           "init_cache", "cache_specs", "cache_axes"]

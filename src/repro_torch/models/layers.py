@@ -47,13 +47,24 @@ online-softmax scan over KV chunks (`_chunked_attention`, each chunk
 step checkpointed; `_qblock_attention` with ``cfg.q_block``) — and
 ``"chunked"`` is that plain chunked path, as in the reference;
 ``"pallas"`` raises, as does ``impl="pallas"`` of the SSD and RG-LRU
-mixers (the kernel entries refuse a graph on every device).  The rule
-depends on the grad mode alone, never on a kernel failing.  The
-backward dtype barrier (`grad_dtype_barrier`) sits where the reference
-puts it, on q, k and v.  The reference's sharding constraints
-(`shard_activation`) are no-ops on one card and are not ported.
-Parameter definitions map names to shapes (the reference's logical
-sharding axes are dropped).
+mixers and every impl of `attn_decode` but ``"dense"`` (the kernel
+entries refuse a graph on every device).  On ``meta`` tensors (the dry
+run, where nothing runs) ``"auto"`` and ``"chunked"`` take the same
+plain paths, whose ops give the shapes and the counts; ``"pallas"``
+raises there.  The rule depends on the grad mode and the device type
+alone, never on a kernel failing.  The backward dtype barrier
+(`grad_dtype_barrier`) sits where the reference puts it, on q, k and v.
+
+The reference's sharding constraints
+(`distributed.sharding.shard_activation`) sit at its call sites too — q,
+k and v on the heads, a chunk's scores, a MoE dispatch's token groups:
+each redistributes a DTensor under a sharding context and returns a
+plain tensor untouched.  A kernel given DTensors runs on each rank's own
+rows (`sharding.on_local_rows`: the inputs split along the batch alone,
+each rank's shard handed to the kernel as a plain tensor; every kernel
+computes each batch row on its own), so a sharded program launches the
+same kernels as an unsharded one.  Parameter definitions map names to
+(shape, logical axes), the axes naming each dim for the sharding rules.
 
 A "dec" layer given ``enc_out`` adds cross-attention after its
 self-attention: q from the decoder, K and V from ``enc_out``, no mask and
@@ -69,13 +80,19 @@ the format's range, where `Tensor.to` saturates).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
+from ..distributed.sharding import (batch_split_only, evened,
+                                   grad_batch_split_only, merged,
+                                   on_local_rows, replicated,
+                                   shard_activation, split_ready, whole)
 from ..kernels.decode_attention.ops import decode_attention
 from ..kernels.decode_attention.ref import ring_validity
 from ..kernels.flash_attention.ops import flash_attention
@@ -109,6 +126,13 @@ def wants_grad(*tensors: torch.Tensor) -> bool:
     """Whether autograd records a function of ``tensors``: grad enabled and
     one of them requiring it."""
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def on_meta(*tensors: torch.Tensor) -> bool:
+    """Whether an input lives on the ``meta`` device (the dry run's
+    shards): no kernel runs there, so ``"auto"`` attention takes its
+    plain path, whose ops carry the shapes and the counts."""
+    return any(t.device.type == "meta" for t in tensors)
 
 
 def checkpointed(fn, *args):
@@ -199,6 +223,14 @@ def zeros_of(shape, dtype: torch.dtype, device) -> torch.Tensor:
     return torch.zeros(shape, dtype=dtype, device=device)
 
 
+def _zero_rows(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``n`` zero rows shaped like ``x``'s along dim 1 (F.pad's zeros; a
+    DTensor's keep its other splits: DTensor has no strategy for `pad` in
+    torch 2.11)."""
+    return torch.zeros_like(x[:, :1]).expand(
+        (x.shape[0], n) + tuple(x.shape[2:]))
+
+
 def _mask(kind: str, q_pos: torch.Tensor, k_pos: torch.Tensor,
           window: int) -> torch.Tensor:
     """(Sq, Sk) boolean mask from absolute positions."""
@@ -246,8 +278,8 @@ def _chunked_attention(q, k, v, q_pos, k_pos, mask_kind, window, chunk,
     pad = nchunk * chunk - Sk
     live = torch.ones(nchunk * chunk, dtype=torch.bool, device=q.device)
     if pad:
-        k = F.pad(k, (0, 0, 0, 0, 0, pad))
-        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        k = torch.cat([k, _zero_rows(k, pad)], dim=1)
+        v = torch.cat([v, _zero_rows(v, pad)], dim=1)
         k_pos = F.pad(k_pos, (0, pad))
         live[Sk:] = False
     scale = D ** -0.5
@@ -256,6 +288,8 @@ def _chunked_attention(q, k, v, q_pos, k_pos, mask_kind, window, chunk,
     def step(acc, mx, den, kb, vb, pb, lb):
         s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kb.float())
         s = s.to(score_dtype).float() * scale
+        s = batch_split_only(shard_activation(s, "batch", "act_heads",
+                                              None, None))
         m = _mask(mask_kind, q_pos, pb, window) & lb[None]
         s = torch.where(m[None, None], s, neg)
         bmx = torch.maximum(mx, s.amax(dim=-1))
@@ -266,10 +300,12 @@ def _chunked_attention(q, k, v, q_pos, k_pos, mask_kind, window, chunk,
         den = den * corr + p.sum(dim=-1)
         return acc, bmx, den
 
-    acc = q.new_zeros((B, H, Sq, D), dtype=torch.float32)
-    mx = torch.full((B, H, Sq), NEG_INF, dtype=torch.float32,
-                    device=q.device)
-    den = q.new_zeros((B, H, Sq), dtype=torch.float32)
+    # *_like of q: a DTensor q gives them its split (a factory's would be
+    # whole at the global shape on every rank)
+    qt = q.transpose(1, 2)
+    acc = torch.zeros_like(qt, dtype=torch.float32)
+    mx = torch.full_like(qt[..., 0], NEG_INF, dtype=torch.float32)
+    den = torch.zeros_like(qt[..., 0], dtype=torch.float32)
     for c in range(nchunk):
         cut = slice(c * chunk, (c + 1) * chunk)
         acc, mx, den = checkpointed(step, acc, mx, den, k[:, cut],
@@ -303,30 +339,39 @@ def attention(q, k, v, q_pos, k_pos, *, mask_kind: str, window: int,
     (B, Sq, H, D).
 
     Without autograd, ``"auto"``, ``"chunked"`` and ``"pallas"`` run the
-    flash kernel.  Under autograd (`wants_grad` of q, k, v) the reference's
-    dispatch holds: ``"auto"`` is dense when Sq·Sk <= 2048², else chunked;
-    ``"chunked"`` the plain chunked scan (`_qblock_attention` with
-    ``cfg.q_block`` on a causal or windowed mask longer than a block);
-    ``"pallas"`` reaches the kernel, which raises."""
+    flash kernel, DTensors on each rank's own rows (`on_local_rows`).
+    Under autograd (`wants_grad` of q, k, v), or on ``meta`` tensors,
+    the reference's dispatch holds: ``"auto"`` is dense when Sq·Sk <=
+    2048², else chunked; ``"chunked"`` the plain chunked scan
+    (`_qblock_attention` with ``cfg.q_block`` on a causal or windowed
+    mask longer than a block); ``"pallas"`` reaches the kernel, which
+    raises."""
     B, Sq, H, D = q.shape
     impl = cfg.attn_impl
     if impl not in FLASH_IMPLS + ("dense",):
         raise ValueError(f"attn_impl {impl!r}; the port has "
                          f"{FLASH_IMPLS + ('dense',)}")
-    if impl in ("auto", "chunked") and wants_grad(q, k, v):
+    if impl in ("auto", "chunked") and (wants_grad(q, k, v)
+                                        or on_meta(q, k, v)):
         if impl == "auto":
             impl = "dense" if Sq * k.shape[1] <= 2048 * 2048 else "chunked"
     elif impl in FLASH_IMPLS:
         impl = "pallas"
     if impl == "pallas":
-        o = flash_attention(q, k, v, q_pos, k_pos, mask_kind=mask_kind,
-                            window=window)
+        def kernel(q, k, v):
+            return (flash_attention(q, k, v, q_pos, k_pos,
+                                    mask_kind=mask_kind, window=window),)
+        o, = on_local_rows(kernel, q, k, v)
         return o.reshape(B, Sq, H, D)
     G = H // k.shape[2]
     if G > 1:
         k = k.repeat_interleave(G, dim=2)
         v = v.repeat_interleave(G, dim=2)
-    q, k, v = (grad_dtype_barrier(t) for t in (q, k, v))
+    # the reference's constraint, then the batch split alone: the einsums
+    # fold (batch, heads) into one dim, which DTensor (torch 2.11) refuses
+    # when both are split
+    q, k, v = (grad_dtype_barrier(batch_split_only(shard_activation(
+        t, "batch", None, "act_heads", None))) for t in (q, k, v))
     if impl == "dense":
         o = _dense_attention(q, k, v, q_pos, k_pos, mask_kind, window)
     elif (cfg.q_block and mask_kind in ("causal", "window")
@@ -336,22 +381,32 @@ def attention(q, k, v, q_pos, k_pos, *, mask_kind: str, window: int,
         o = _chunked_attention(q, k, v, q_pos, k_pos, mask_kind, window,
                                cfg.attn_chunk,
                                score_dtype=torch_dtype(cfg.score_dtype))
-    return o.reshape(B, Sq, H, D)
+    # its gradient arrives split as the output projection's: the batch
+    # split alone again for the einsums' backward
+    return grad_batch_split_only(o).reshape(B, Sq, H, D)
 
 
 # ---------------------------------------------------------------------------
 # attention block
 # ---------------------------------------------------------------------------
-Shapes = Dict[str, Tuple[int, ...]]
+# name -> (shape, logical axes): the axes name each dim for the sharding
+# rules (`distributed.sharding`)
+Defs = Dict[str, Tuple[Tuple[int, ...], Tuple[Optional[str], ...]]]
 
 
-def attn_param_defs(cfg: ModelConfig, cross: bool = False) -> Shapes:
+def attn_param_defs(cfg: ModelConfig, cross: bool = False) -> Defs:
     D, H, KH, Hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    defs = {"norm": (D,), "wq": (D, H * Hd), "wk": (D, KH * Hd),
-            "wv": (D, KH * Hd), "wo": (H * Hd, D)}
+    defs = {"norm": ((D,), ("embed",)),
+            "wq": ((D, H * Hd), ("embed", "qkv")),
+            "wk": ((D, KH * Hd), ("embed", "kv")),
+            "wv": ((D, KH * Hd), ("embed", "kv")),
+            "wo": ((H * Hd, D), ("qkv", "embed"))}
     if cross:
-        defs.update({"xnorm": (D,), "xwq": (D, H * Hd), "xwk": (D, KH * Hd),
-                     "xwv": (D, KH * Hd), "xwo": (H * Hd, D)})
+        defs.update({"xnorm": ((D,), ("embed",)),
+                     "xwq": ((D, H * Hd), ("embed", "qkv")),
+                     "xwk": ((D, KH * Hd), ("embed", "kv")),
+                     "xwv": ((D, KH * Hd), ("embed", "kv")),
+                     "xwo": ((H * Hd, D), ("qkv", "embed"))})
     return defs
 
 
@@ -359,9 +414,9 @@ def _proj_qkv(x, p, cfg: ModelConfig):
     B, S, _ = x.shape
     H, KH, Hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dt = x.dtype
-    q = (x @ p["wq"].to(dt)).reshape(B, S, H, Hd)
-    k = (x @ p["wk"].to(dt)).reshape(B, S, KH, Hd)
-    v = (x @ p["wv"].to(dt)).reshape(B, S, KH, Hd)
+    q = split_ready(x @ p["wq"].to(dt), -1, H).reshape(B, S, H, Hd)
+    k = split_ready(x @ p["wk"].to(dt), -1, KH).reshape(B, S, KH, Hd)
+    v = split_ready(x @ p["wv"].to(dt), -1, KH).reshape(B, S, KH, Hd)
     return q, k, v
 
 
@@ -390,13 +445,15 @@ def _cross_attend(p, x, enc_out: torch.Tensor, q_pos, cfg: ModelConfig):
     H, KH, Hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dt = x.dtype
     h = rms_norm(x, p["xnorm"], cfg.norm_eps)
-    q = (h @ p["xwq"].to(dt)).reshape(B, S, H, Hd)
-    k = (enc_out @ p["xwk"].to(dt)).reshape(B, -1, KH, Hd)
-    v = (enc_out @ p["xwv"].to(dt)).reshape(B, -1, KH, Hd)
+    q = split_ready(h @ p["xwq"].to(dt), -1, H).reshape(B, S, H, Hd)
+    k = split_ready(enc_out @ p["xwk"].to(dt), -1, KH).reshape(B, -1, KH,
+                                                                Hd)
+    v = split_ready(enc_out @ p["xwv"].to(dt), -1, KH).reshape(B, -1, KH,
+                                                                Hd)
     epos = torch.arange(enc_out.shape[1], dtype=torch.int32,
                         device=x.device)
     o = attention(q, k, v, q_pos, epos, mask_kind="none", window=0, cfg=cfg)
-    return x + o.reshape(B, S, -1) @ p["xwo"].to(dt)
+    return x + merged(o.reshape(B, S, -1), -1, H) @ p["xwo"].to(dt)
 
 
 def attn_apply(p, x, mixer: str, cfg: ModelConfig, positions,
@@ -416,7 +473,8 @@ def attn_apply(p, x, mixer: str, cfg: ModelConfig, positions,
              if want_cache else None)
     o = attention(q, k, v, positions, positions, mask_kind=mask_kind,
                   window=window, cfg=cfg)
-    x = x + o.reshape(x.shape[0], x.shape[1], -1) @ p["wo"].to(x.dtype)
+    x = x + merged(o.reshape(x.shape[0], x.shape[1], -1), -1,
+                   cfg.num_heads) @ p["wo"].to(x.dtype)
     if mixer == "dec" and enc_out is not None:
         x = _cross_attend(p, x, enc_out, positions, cfg)
     return x, cache
@@ -436,13 +494,46 @@ def attn_prefill_cache(p, x_normed_kv: Tuple[torch.Tensor, torch.Tensor],
     B, S, KH, Hd = k.shape
     W = attn_cache_len(mixer, cfg, max_seq)
     cdt = getattr(torch, cfg.kv_cache_dtype)
-    ck = zeros_of((B, W, KH, Hd), cdt, k.device)
-    cv = zeros_of((B, W, KH, Hd), cdt, k.device)
     take = min(S, W)
-    slots = (torch.arange(take, device=k.device) + (S - take)) % W
-    _bits(ck)[:, slots] = _bits(cast_kv(k[:, S - take:], cdt))
-    _bits(cv)[:, slots] = _bits(cast_kv(v[:, S - take:], cdt))
-    return {"k": ck, "v": cv}
+    if not isinstance(k, DTensor):
+        slots = (torch.arange(take, device=k.device) + (S - take)) % W
+        out = {}
+        for name, x in (("k", k), ("v", v)):
+            out[name] = zeros_of((B, W, KH, Hd), cdt, k.device)
+            _bits(out[name])[:, slots] = _bits(cast_kv(x[:, S - take:], cdt))
+        return out
+
+    def ring(x):
+        # a DTensor ring (DTensor cannot write indexed rows into a split
+        # dim; torch 2.11 has no `roll` strategy): row S - take + j lands
+        # in slot (S - take + j) % W, so the rows padded with zeros to W
+        # slots, their last r = (S - take) % W moved to the front
+        rows = _bits(cast_kv(x[:, S - take:], cdt))
+        if take < W:
+            rows = torch.cat([rows, _zero_rows(rows, W - take)], dim=1)
+        r = (S - take) % W
+        if r:
+            rows = torch.cat([rows[:, W - r:], rows[:, :W - r]], dim=1)
+        rows = rows.contiguous()
+        rows = rows.view(FP8) if cdt == FP8 else rows
+        return shard_activation(rows, "cache_batch", "cache_seq",
+                                "cache_kv", None)
+    return {"k": ring(k), "v": ring(v)}
+
+
+def _write_slot(ring: torch.Tensor, slot: int, row: torch.Tensor) -> None:
+    """Write ``row`` (B, KH, Hd) into slot ``slot`` of the ring (B, W, KH,
+    Hd) in place, in the ring's dtype (`cast_kv`).  A DTensor ring (split
+    over its slots) is rewritten whole with a one-hot select, as the
+    reference writes its ring: DTensor cannot index a split dim in
+    place."""
+    new = _bits(cast_kv(row, ring.dtype))
+    if not isinstance(ring, DTensor):
+        _bits(ring)[:, slot] = new
+        return
+    hit = torch.arange(ring.shape[1], device=row.device) == slot
+    _bits(ring).copy_(torch.where(hit[None, :, None, None], new[:, None],
+                                  _bits(ring)))
 
 
 def _grouped_decode_attention(q, ck, cv, index: int, window: int):
@@ -452,7 +543,7 @@ def _grouped_decode_attention(q, ck, cv, index: int, window: int):
     W, KH = ck.shape[1], ck.shape[2]
     G = H // KH
     valid = ring_validity(W, index, window, device=q.device) != 0
-    qg = q.reshape(B, 1, KH, G, Hd)
+    qg = batch_split_only(q).reshape(B, 1, KH, G, Hd)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
                      ck.to(q.dtype).float()) * (Hd ** -0.5)
     s = torch.where(valid, s, torch.tensor(NEG_INF, dtype=s.dtype,
@@ -478,14 +569,16 @@ def attn_decode(p, x, cache, mixer: str, cfg: ModelConfig, index: int,
     pos = torch.full((1,), index, dtype=torch.int32, device=x.device)
     q = rope(q, pos, theta)
     k = rope(k, pos, theta)
-    slot = index % W
-    _bits(ck)[:, slot] = _bits(cast_kv(k[:, 0], ck.dtype))
-    _bits(cv)[:, slot] = _bits(cast_kv(v[:, 0], cv.dtype))
+    _write_slot(ck, index % W, k[:, 0])
+    _write_slot(cv, index % W, v[:, 0])
     win = window if mask_kind == "window" else 0
     impl = cfg.attn_impl
     B = x.shape[0]
+    if impl in ("auto", "chunked") and on_meta(q, ck):
+        impl = "dense"
     if impl in FLASH_IMPLS:
-        o = decode_attention(q, ck, cv, index, window=win)
+        o, = on_local_rows(lambda q, ck, cv: (decode_attention(
+            q, ck, cv, index, window=win),), q, ck, cv)
     elif impl == "dense":
         o = _grouped_decode_attention(q, ck, cv, index, win)
     else:
@@ -500,17 +593,24 @@ def attn_decode(p, x, cache, mixer: str, cfg: ModelConfig, index: int,
 # ---------------------------------------------------------------------------
 # FFNs
 # ---------------------------------------------------------------------------
-def ffn_param_defs(cfg: ModelConfig, kind: str) -> Shapes:
+def ffn_param_defs(cfg: ModelConfig, kind: str) -> Defs:
     D, Fd = cfg.d_model, cfg.d_ff
     if kind == "swiglu":
-        return {"fnorm": (D,), "wi_gate": (D, Fd), "wi_up": (D, Fd),
-                "wo_ffn": (Fd, D)}
+        return {"fnorm": ((D,), ("embed",)),
+                "wi_gate": ((D, Fd), ("embed", "mlp")),
+                "wi_up": ((D, Fd), ("embed", "mlp")),
+                "wo_ffn": ((Fd, D), ("mlp", "embed"))}
     if kind == "gelu":
-        return {"fnorm": (D,), "wi": (D, Fd), "wo_ffn": (Fd, D)}
+        return {"fnorm": ((D,), ("embed",)),
+                "wi": ((D, Fd), ("embed", "mlp")),
+                "wo_ffn": ((Fd, D), ("mlp", "embed"))}
     if kind == "moe":
         E, Fe = cfg.num_experts, cfg.moe_d_ff
-        return {"fnorm": (D,), "router": (D, E), "we_gate": (E, D, Fe),
-                "we_up": (E, D, Fe), "we_down": (E, Fe, D)}
+        return {"fnorm": ((D,), ("embed",)),
+                "router": ((D, E), ("embed", "expert")),
+                "we_gate": ((E, D, Fe), ("expert", "embed", "expert_mlp")),
+                "we_up": ((E, D, Fe), ("expert", "embed", "expert_mlp")),
+                "we_down": ((E, Fe, D), ("expert", "expert_mlp", "embed"))}
     if kind == "none":
         return {}
     raise ValueError(kind)
@@ -587,6 +687,12 @@ def moe_apply(p, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     run as batched products over (E, groups · capacity, D), each pair's
     output gathered back, weighted by its gate (0 if dropped) and summed
     over k in the compute dtype."""
+    if isinstance(h, DTensor):
+        # DTensor has no strategy for the dispatch's indexed writes
+        # (`index_put_`, torch 2.11): the FFN runs on every rank's whole
+        # tensors and hands its output back replicated
+        y = moe_apply({k: whole(v) for k, v in p.items()}, whole(h), cfg)
+        return replicated(y, h.device_mesh)
     B, S, D = h.shape
     E, K = cfg.num_experts, cfg.experts_per_token
     dt = h.dtype
@@ -604,9 +710,10 @@ def moe_apply(p, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     Gr, Nl, cap = moe_groups(N, cfg)
     e_flat, slot, keep = moe_slots(idx, Gr, cap, E)
     grp = torch.arange(Gr, device=h.device)[:, None].expand_as(e_flat)
+    xg = shard_activation(x.reshape(Gr, Nl, D), "moe_group", None, None)
     buf = h.new_zeros((Gr, E, cap + 1, D))
     # slots are unique but for the overflow slot, which is cut off
-    buf[grp, e_flat, slot] = x.reshape(Gr, Nl, D).repeat_interleave(K, dim=1)
+    buf[grp, e_flat, slot] = xg.repeat_interleave(K, dim=1)
     xe = buf[:, :, :cap].transpose(0, 1).reshape(E, Gr * cap, D)
     g = F.silu(torch.bmm(xe, p["we_gate"].to(dt)))
     u = torch.bmm(xe, p["we_up"].to(dt))
@@ -625,7 +732,7 @@ def _causal_conv(x, w, state=None):
     new conv state (the last K - 1 inputs)."""
     K = w.shape[0]
     if state is None:
-        xp = F.pad(x, (0, 0, K - 1, 0))
+        xp = torch.cat([_zero_rows(x, K - 1), x], dim=1)
     else:
         xp = torch.cat([state.to(x.dtype), x], dim=1)
     S = x.shape[1]
@@ -633,15 +740,19 @@ def _causal_conv(x, w, state=None):
     return y, xp[:, -(K - 1):]
 
 
-def ssd_param_defs(cfg: ModelConfig) -> Shapes:
+def ssd_param_defs(cfg: ModelConfig) -> Defs:
     D = cfg.d_model
     di = cfg.d_inner
     N, H = cfg.ssm_state, cfg.ssm_heads
     conv_dim = di + 2 * N
-    return {"norm": (D,), "in_proj": (D, 2 * di + 2 * N + H),
-            "conv_w": (cfg.conv_width, conv_dim), "A_log": (H,),
-            "D_skip": (H,), "dt_bias": (H,), "gnorm": (di,),
-            "out_proj": (di, D)}
+    return {"norm": ((D,), ("embed",)),
+            "in_proj": ((D, 2 * di + 2 * N + H), ("embed", "ssm_in")),
+            "conv_w": ((cfg.conv_width, conv_dim), ("conv", "ssm_conv")),
+            "A_log": ((H,), ("ssm_heads",)),
+            "D_skip": ((H,), ("ssm_heads",)),
+            "dt_bias": ((H,), ("ssm_heads",)),
+            "gnorm": ((di,), ("ssm_inner",)),
+            "out_proj": ((di, D), ("ssm_inner", "embed"))}
 
 
 def _ssd_inputs(p, x, cfg: ModelConfig, conv_state=None):
@@ -649,13 +760,16 @@ def _ssd_inputs(p, x, cfg: ModelConfig, conv_state=None):
     di, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     P = di // H
     h = rms_norm(x, p["norm"], cfg.norm_eps)
-    zxbcdt = h @ p["in_proj"].to(x.dtype)
+    # its gradient, gathered from the conv's and the splits', may come
+    # split along the sequence: the batch split alone before the
+    # product's backward folds (batch, sequence) (DTensor, torch 2.11)
+    zxbcdt = grad_batch_split_only(h @ p["in_proj"].to(x.dtype))
     z, xbc, dt = torch.split(zxbcdt, [di, di + 2 * N, H], dim=-1)
     xbc, new_conv = _causal_conv(xbc, p["conv_w"], state=conv_state)
     xbc = F.silu(xbc)
     xs, B_, C_ = torch.split(xbc, [di, N, N], dim=-1)
     B, S = x.shape[0], x.shape[1]
-    xs = xs.reshape(B, S, H, P)
+    xs = split_ready(xs, -1, H).reshape(B, S, H, P)
     dt = F.softplus(dt.float() + p["dt_bias"].float())
     A = -torch.exp(p["A_log"].float())                    # (H,)
     return z, xs, B_, C_, dt, A, new_conv
@@ -666,7 +780,14 @@ def ssd_scan_chunked(xs, dt, A, B_, C_, chunk: int):
 
     xs: (B, S, H, P); dt: (B, S, H); A: (H,); B_, C_: (B, S, N) (a single
     group).  Returns y (B, S, H, P) and the final state (B, H, P, N), both
-    float32: `kernels.ssd_scan.ref.ssd_chunked_ref` in head-major rows."""
+    float32: `kernels.ssd_scan.ref.ssd_chunked_ref` in head-major rows.
+    DTensor inputs: each rank scans its own rows (`on_local_rows`; no
+    DTensor strategy for the flip in a cumsum's backward, torch 2.11)."""
+    return on_local_rows(functools.partial(_ssd_scan_rows, chunk=chunk),
+                         xs, dt, A, B_, C_)
+
+
+def _ssd_scan_rows(xs, dt, A, B_, C_, chunk: int):
     Bb, S, H, P = xs.shape
     x = xs.transpose(1, 2).reshape(Bb * H, S, P)
     d = dt.transpose(1, 2).reshape(Bb * H, S)
@@ -683,13 +804,16 @@ def ssd_apply(p, x, cfg: ModelConfig, impl: str = "pallas",
     ``(x, cache)``; the cache holds the final state and the conv state."""
     z, xs, B_, C_, dt, A, conv_state = _ssd_inputs(p, x, cfg)
     if impl == "pallas":
-        y, final_state = ssd_scan(xs, dt, A, B_, C_, cfg.ssm_chunk)
+        y, final_state = on_local_rows(
+            functools.partial(ssd_scan, chunk=cfg.ssm_chunk),
+            xs, dt, A, B_, C_)
     elif impl == "jnp":
         y, final_state = ssd_scan_chunked(xs, dt, A, B_, C_, cfg.ssm_chunk)
     else:
         raise ValueError(f"impl {impl!r}; the port has {SCAN_IMPLS}")
     y = y + xs.float() * p["D_skip"].float()[:, None]
-    y = y.reshape(x.shape[0], x.shape[1], cfg.d_inner)
+    y = merged(y.reshape(x.shape[0], x.shape[1], cfg.d_inner), -1,
+               cfg.ssm_heads)
     y = rms_norm(y.to(x.dtype) * F.silu(z), p["gnorm"], cfg.norm_eps)
     cache = ({"state": final_state, "conv": conv_state}
              if want_cache else None)
@@ -708,7 +832,7 @@ def ssd_decode(p, x, cache, cfg: ModelConfig, index: int):
     C1 = C_[:, 0].float()
     dA = torch.exp(dt1 * A)                               # (B, H)
     dBx = torch.einsum("bh,bn,bhp->bhpn", dt1, B1, xs1)
-    state = cache["state"] * dA[..., None, None] + dBx
+    state = evened(cache["state"] * dA[..., None, None] + dBx)
     y = torch.einsum("bhpn,bn->bhp", state, C1)
     y = y + xs1 * p["D_skip"].float()[:, None]
     y = y.reshape(Bb, 1, cfg.d_inner)
@@ -720,12 +844,17 @@ def ssd_decode(p, x, cache, cfg: ModelConfig, index: int):
 # ---------------------------------------------------------------------------
 # RG-LRU block (RecurrentGemma recurrent block)
 # ---------------------------------------------------------------------------
-def rglru_param_defs(cfg: ModelConfig) -> Shapes:
+def rglru_param_defs(cfg: ModelConfig) -> Defs:
     D, W, H = cfg.d_model, cfg.lru_width, cfg.num_heads
     bw = W // H
-    return {"norm": (D,), "wx": (D, W), "wy": (D, W),
-            "conv_w": (cfg.conv_width, W), "gate_a": (H, bw, bw),
-            "gate_x": (H, bw, bw), "a_param": (W,), "wout": (W, D)}
+    return {"norm": ((D,), ("embed",)),
+            "wx": ((D, W), ("embed", "lru")),
+            "wy": ((D, W), ("embed", "lru")),
+            "conv_w": ((cfg.conv_width, W), ("conv", "lru")),
+            "gate_a": ((H, bw, bw), ("heads", "lru_block", "lru_block2")),
+            "gate_x": ((H, bw, bw), ("heads", "lru_block", "lru_block2")),
+            "a_param": ((W,), ("lru",)),
+            "wout": ((W, D), ("lru", "embed"))}
 
 
 _LRU_C = 8.0
@@ -736,7 +865,7 @@ def _rglru_gates(p, x):
     coefficient a = exp(log_a) and sqrt(1 - a^2) i x, with the gates r and
     i block-diagonal per head."""
     H, bw, _ = p["gate_a"].shape
-    xs = x.reshape(x.shape[:-1] + (H, bw)).float()
+    xs = split_ready(x, -1, H).reshape(x.shape[:-1] + (H, bw)).float()
     r = torch.sigmoid(torch.einsum("...hb,hbc->...hc", xs,
                                    p["gate_a"].float()))
     i = torch.sigmoid(torch.einsum("...hb,hbc->...hc", xs,
@@ -773,7 +902,7 @@ def rglru_apply(p, x, cfg: ModelConfig, impl: str = "pallas",
     hidden state (B, W) float32 and the conv state (B, K - 1, W)."""
     a, b, ygate, conv_state = _rglru_inputs(p, x, cfg)
     if impl == "pallas":
-        hseq = rglru_scan(a, b)
+        hseq, = on_local_rows(lambda a, b: (rglru_scan(a, b),), a, b)
     elif impl == "jnp":
         hseq = rglru_scan_ref(a, b)
     else:
@@ -800,7 +929,9 @@ def rglru_decode(p, x, cache, cfg: ModelConfig, index: int):
 # ---------------------------------------------------------------------------
 # block dispatcher
 # ---------------------------------------------------------------------------
-def block_param_defs(cfg: ModelConfig, mixer: str, ffn: str) -> Shapes:
+def block_param_defs(cfg: ModelConfig, mixer: str, ffn: str) -> Defs:
+    """name -> (shape, logical axes) of one layer's parameters: the
+    mixer's, then the FFN's."""
     if mixer == "rglru":
         defs = dict(rglru_param_defs(cfg))
     elif mixer == "ssd":

@@ -1,6 +1,7 @@
 """The LM of the port (`repro.models.model`): `init_params`, `forward`,
-`logits_from_h`, and the generation path `init_cache`, `prefill` and
-`decode_step`.
+`logits_from_h`, the generation path `init_cache`, `prefill` and
+`decode_step`, and the sharding metadata `param_axes`, `cache_axes` and
+`cache_specs` (ROADMAP §1 item 13).
 
 Layout: ``num_layers = n_cycles * len(pattern) + tail``.  The parameters
 keep the reference's pytree: ``embed`` (V, D), ``unembed`` (D, V),
@@ -35,6 +36,17 @@ reference's `grad_dtype_barrier` at each cycle's block boundaries.
 Under autograd attention, the SSD and the RG-LRU take their plain paths
 (`layers`); ``impl="pallas"`` then raises.  `param_shapes` gives the
 parameter tree on the ``meta`` device, allocating nothing.
+
+Sharded (ROADMAP §1 item 13): the same functions run on DTensor
+parameters distributed by `distributed.sharding` inside its
+`sharding_context`.  The reference's activation constraints
+(`shard_activation`) sit at its call sites, and after each tail layer
+too; each layer's parameters are gathered over the data-parallel mesh
+dims at use (`gather_params`, FSDP style); a DTensor loss takes its gold
+logit by a one-hot select; the kernels run on each rank's own rows
+(`layers`), and a prefill's cache leaves are put on their logical axes
+(`cache_axes`) for decode's in-place writes.  Without a context every
+one of these is the plain tensor's own path.
 """
 from __future__ import annotations
 
@@ -44,10 +56,13 @@ from typing import Any, Callable, Dict, Tuple, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from .._device import DeviceLike, resolve_device
+from ..distributed.sharding import gather_params, shard_activation, unshard
 from .config import ModelConfig
 from .layers import (NEG_INF, attn_cache_len, block_apply, block_decode,
                      block_param_defs, checkpointed, grad_dtype_barrier,
@@ -78,7 +93,7 @@ def _param_tree(cfg: ModelConfig, leaf: Callable, zeros: Callable
 
     def block(defs, n_stack):
         return {name: leaf((n_stack,) + shape if n_stack else shape)
-                for name, shape in sorted(defs.items())}
+                for name, (shape, _axes) in sorted(defs.items())}
 
     params: Params = {"embed": leaf((V, D)), "unembed": leaf((D, V)),
                       "final_norm": zeros((D,))}
@@ -116,6 +131,37 @@ def init_params(cfg: ModelConfig, generator: Union[int, torch.Generator],
         lambda shape: torch.zeros(shape, dtype=pd, device=dev))
 
 
+def _block_axes(defs, stacked: bool):
+    return {name: (("layers",) + axes if stacked else axes)
+            for name, (_shape, axes) in sorted(defs.items())}
+
+
+def param_axes(cfg: ModelConfig) -> Params:
+    """The parameter tree's logical axes, one tuple per leaf (names the
+    sharding rules map onto mesh axes, `distributed.sharding`): a stacked
+    leaf's first axis is ``"layers"``."""
+    n_cycles, tail = cfg.cycles_and_tail
+    axes: Params = {
+        # the input table has its own axes: a gather from a
+        # vocab-sharded table replicates it whole on every rank
+        "embed": ("in_vocab", "in_embed"),
+        "unembed": ("embed", "vocab"),
+        "final_norm": ("embed",),
+    }
+    axes["blocks"] = tuple(
+        _block_axes(block_param_defs(cfg, m, f), stacked=n_cycles > 0)
+        for (m, f) in cfg.pattern)
+    axes["tail"] = tuple(
+        _block_axes(block_param_defs(cfg, *cfg.pattern[t]), stacked=False)
+        for t in range(tail))
+    if cfg.is_encdec:
+        axes["encoder"] = _block_axes(block_param_defs(cfg, "enc", "gelu"),
+                                      stacked=True)
+        axes["enc_pos"] = (None, "embed")
+        axes["enc_norm"] = ("embed",)
+    return axes
+
+
 def param_shapes(cfg: ModelConfig) -> Params:
     """The parameter tree of ``cfg`` on the ``meta`` device: shapes and
     dtypes, nothing allocated (the reference's `jax.eval_shape` of
@@ -134,10 +180,10 @@ def _embed_inputs(params: Params, batch, cfg: ModelConfig) -> torch.Tensor:
     """Token embeddings in the compute dtype; a VLM's ``patch_embeds``
     (B, num_patches, D), cast to it, replace the first num_patches
     positions."""
-    table = params["embed"]
+    table = gather_params(params["embed"])
     dt = torch_dtype(cfg.dtype)
     tokens = torch.as_tensor(batch["tokens"], device=table.device)
-    x = table[tokens.long()].to(dt)
+    x = F.embedding(tokens.long(), table).to(dt)
     if cfg.num_patches and "patch_embeds" in batch:
         pe = torch.as_tensor(batch["patch_embeds"], device=table.device)
         x = torch.cat([pe.to(dt), x[:, cfg.num_patches:]], dim=1)
@@ -156,9 +202,10 @@ def _encode(params: Params, batch, cfg: ModelConfig, impl: str
     x = feats.to(dt) + pos_table.to(dt)[None]
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     for layer in range(cfg.encoder_layers):
-        lp = {n: t[layer] for n, t in params["encoder"].items()}
+        lp = gather_params({n: t[layer] for n, t in
+                            params["encoder"].items()})
         x, _ = block_apply(lp, x, "enc", "gelu", cfg, positions, impl=impl)
-    return rms_norm(x, params["enc_norm"], cfg.norm_eps)
+    return rms_norm(x, gather_params(params["enc_norm"]), cfg.norm_eps)
 
 
 def forward(params: Params, batch, cfg: ModelConfig, *,
@@ -179,9 +226,11 @@ def forward(params: Params, batch, cfg: ModelConfig, *,
 
     def cycle(x, c):
         for k, (mixer, ffn) in enumerate(cfg.pattern):
-            layer = {n: t[c] for n, t in params["blocks"][k].items()}
+            layer = gather_params({n: t[c] for n, t in
+                                   params["blocks"][k].items()})
             x, _ = block_apply(layer, x, mixer, ffn, cfg, positions,
                                enc_out=enc_out, impl=impl)
+            x = shard_activation(x, "batch", "seq", "act_embed")
             x = grad_dtype_barrier(x)
         return x
 
@@ -190,9 +239,12 @@ def forward(params: Params, batch, cfg: ModelConfig, *,
         x = run(cycle, x, c)
     for t in range(tail):
         mixer, ffn = cfg.pattern[t]
-        x, _ = block_apply(params["tail"][t], x, mixer, ffn, cfg,
-                           positions, enc_out=enc_out, impl=impl)
-    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+        x, _ = block_apply(gather_params(params["tail"][t]), x, mixer, ffn,
+                           cfg, positions, enc_out=enc_out, impl=impl)
+        # not in the reference (XLA keeps the batch split through the
+        # tail); DTensor's strategies may gather it whole otherwise
+        x = shard_activation(x, "batch", "seq", "act_embed")
+    return rms_norm(x, gather_params(params["final_norm"]), cfg.norm_eps)
 
 
 # products without batch dimensions: a (B, S, D) @ (D, F) projection is
@@ -231,7 +283,10 @@ def _maybe_remat(cfg: ModelConfig) -> Callable:
 def _start(params: Params, batch, cfg: ModelConfig, impl: str):
     """Embedded tokens, their positions 0 .. S-1, and the encoder's output
     (None unless the model is an encoder-decoder)."""
-    x = _embed_inputs(params, batch, cfg)
+    # batch and sequence only: the reference keeps the embed dim whole
+    # here (an SPMD partitioner fault inside its microbatch loop)
+    x = shard_activation(_embed_inputs(params, batch, cfg), "batch", "seq",
+                         None)
     enc_out = _encode(params, batch, cfg, impl) if cfg.is_encdec else None
     return (x, torch.arange(x.shape[1], dtype=torch.int32, device=x.device),
             enc_out)
@@ -253,9 +308,13 @@ def logits_from_h(params: Params, h: torch.Tensor, cfg: ModelConfig
                   ) -> torch.Tensor:
     """float32 logits (B, S, V_padded); the vocabulary padding is masked
     to -1e30."""
-    logits = (h @ params["unembed"].to(h.dtype)).float()
+    logits = (h @ gather_params(params["unembed"]).to(h.dtype)).float()
     pad = cfg.padded_vocab - cfg.vocab_size
-    if pad:
+    if pad and isinstance(logits, DTensor):
+        # DTensor (torch 2.11) has no `fill_` strategy: a select
+        live = torch.arange(logits.shape[-1], device=logits.device)
+        logits = torch.where(live < cfg.vocab_size, logits, NEG_INF)
+    elif pad:
         logits[..., cfg.vocab_size:] = NEG_INF
     return logits
 
@@ -263,9 +322,20 @@ def logits_from_h(params: Params, h: torch.Tensor, cfg: ModelConfig
 def _xent(logits: torch.Tensor, labels: torch.Tensor, valid: torch.Tensor
           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(sum of the masked token losses, number of valid tokens) of float32
-    ``logits`` (..., V) against integer ``labels``."""
+    ``logits`` (..., V) against integer ``labels``.  On DTensor logits
+    (pending sums reduced first) the gold logit is a one-hot select
+    summed over the vocabulary, which may stay split: DTensor's gather
+    from a split dim fails on the view after it, and its backward
+    scatters into zeros of the global shape, whole on every rank.  The
+    value is the gather's (one term and zeros)."""
+    logits = unshard(logits)
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    if isinstance(logits, DTensor):
+        hit = labels[..., None] == torch.arange(logits.shape[-1],
+                                                device=labels.device)
+        gold = torch.where(hit, logits, 0.0).sum(-1)
+    else:
+        gold = torch.gather(logits, -1, labels[..., None])[..., 0]
     return ((lse - gold) * valid).sum(), valid.sum()
 
 
@@ -280,8 +350,8 @@ def loss_fn(params: Params, batch, cfg: ModelConfig, *, impl: str = "jnp"
     kernels raise under autograd)."""
     h = forward(params, batch, cfg, impl=impl)
     tokens = torch.as_tensor(batch["tokens"], device=h.device)
-    labels = tokens[:, 1:].long()
-    valid = torch.ones(labels.shape, dtype=torch.float32, device=h.device)
+    labels = shard_activation(tokens[:, 1:].long(), "batch", "seq")
+    valid = torch.ones_like(labels, dtype=torch.float32)
     if not cfg.logit_chunk:
         tot, cnt = _xent(logits_from_h(params, h[:, :-1], cfg), labels,
                          valid)
@@ -307,22 +377,51 @@ def loss_fn(params: Params, batch, cfg: ModelConfig, *, impl: str = "jnp"
 # cache
 # ---------------------------------------------------------------------------
 def _block_cache_shape(cfg: ModelConfig, mixer: str, B: int, max_seq: int):
-    """{name: (shape, dtype)} of one layer's cache."""
+    """{name: (shape, dtype, logical axes)} of one layer's cache."""
+    dt = torch_dtype(cfg.dtype)
     if mixer == "rglru":
         W = cfg.lru_width
-        return {"state": ((B, W), torch.float32),
-                "conv": ((B, cfg.conv_width - 1, W), torch_dtype(cfg.dtype))}
+        return {"state": ((B, W), torch.float32, ("cache_batch", "lru")),
+                "conv": ((B, cfg.conv_width - 1, W), dt,
+                         ("cache_batch", None, "lru"))}
     if mixer == "ssd":
         H = cfg.ssm_heads
         P = cfg.d_inner // H
-        return {"state": ((B, H, P, cfg.ssm_state), torch.float32),
+        return {"state": ((B, H, P, cfg.ssm_state), torch.float32,
+                          ("cache_batch", "ssm_heads", None, None)),
                 "conv": ((B, cfg.conv_width - 1,
-                          cfg.d_inner + 2 * cfg.ssm_state),
-                         torch_dtype(cfg.dtype))}
+                          cfg.d_inner + 2 * cfg.ssm_state), dt,
+                         ("cache_batch", None, "ssm_conv"))}
     W = attn_cache_len(mixer, cfg, max_seq)
     shape = (B, W, cfg.num_kv_heads, cfg.head_dim)
     cdt = torch_dtype(cfg.kv_cache_dtype)
-    return {"k": (shape, cdt), "v": (shape, cdt)}
+    axes = ("cache_batch", "cache_seq", "cache_kv", None)
+    return {"k": (shape, cdt, axes), "v": (shape, cdt, axes)}
+
+
+def _cache_tree(cfg: ModelConfig, B: int, max_seq: int, make_leaf: Callable,
+                index) -> Params:
+    """The cache tree with ``make_leaf(shape, dtype, axes)`` for each
+    leaf (``blocks`` stacked over the cycles, ``tail``, an
+    encoder-decoder's ``enc_out``) and ``index`` as given."""
+    n_cycles, tail = cfg.cycles_and_tail
+
+    def layer(mixer, stack):
+        return {name: make_leaf(stack + shp, dt, ("layers",) * len(stack)
+                                + ax)
+                for name, (shp, dt, ax) in _block_cache_shape(
+                    cfg, mixer, B, max_seq).items()}
+
+    cache = {"blocks": tuple(layer(mixer, (n_cycles,))
+                             for mixer, _f in cfg.pattern),
+             "tail": tuple(layer(cfg.pattern[t][0], ())
+                           for t in range(tail)),
+             "index": index}
+    if cfg.is_encdec:
+        cache["enc_out"] = make_leaf((B, cfg.encoder_seq, cfg.d_model),
+                                     torch_dtype(cfg.dtype),
+                                     ("cache_batch", None, "act_embed"))
+    return cache
 
 
 def init_cache(cfg: ModelConfig, B: int, max_seq: int,
@@ -332,26 +431,22 @@ def init_cache(cfg: ModelConfig, B: int, max_seq: int,
     cycles, ``tail``, ``index`` = 0; an encoder-decoder's ``enc_out``
     (B, encoder_seq, D) in the compute dtype)."""
     dev = resolve_device(device)
-    n_cycles, tail = cfg.cycles_and_tail
+    return _cache_tree(cfg, B, max_seq,
+                       lambda shp, dt, _ax: zeros_of(shp, dt, dev), 0)
 
-    def zeros(shapes, stack):
-        return {name: zeros_of(stack + shp, dt, dev)
-                for name, (shp, dt) in shapes.items()}
 
-    cache = {"blocks": tuple(
-                 zeros(_block_cache_shape(cfg, mixer, B, max_seq),
-                       (n_cycles,))
-                 for mixer, _f in cfg.pattern),
-             "tail": tuple(
-                 zeros(_block_cache_shape(cfg, cfg.pattern[t][0], B,
-                                          max_seq), ())
-                 for t in range(tail)),
-             "index": 0}
-    if cfg.is_encdec:
-        cache["enc_out"] = torch.zeros(
-            (B, cfg.encoder_seq, cfg.d_model), dtype=torch_dtype(cfg.dtype),
-            device=dev)
-    return cache
+def cache_specs(cfg: ModelConfig, B: int, max_seq: int) -> Params:
+    """The cache tree on the ``meta`` device (``index`` an int32 scalar, as
+    the reference's): shapes and dtypes, nothing allocated."""
+    def empty(shp, dt):
+        return torch.empty(shp, dtype=dt, device="meta")
+    return _cache_tree(cfg, B, max_seq, lambda shp, dt, _ax: empty(shp, dt),
+                       empty((), torch.int32))
+
+
+def cache_axes(cfg: ModelConfig, B: int, max_seq: int) -> Params:
+    """The cache tree's logical axes (``index``: None, replicated)."""
+    return _cache_tree(cfg, B, max_seq, lambda _shp, _dt, ax: ax, None)
 
 
 # ---------------------------------------------------------------------------
@@ -368,15 +463,20 @@ def prefill(params: Params, batch, cfg: ModelConfig, max_seq: int, *,
     P = len(cfg.pattern)
     caches = []
     for (mixer, ffn), layer in _layers(params, cfg):
-        x, c = block_apply(layer, x, mixer, ffn, cfg, positions,
+        x, c = block_apply(gather_params(layer), x, mixer, ffn, cfg,
+                           positions,
                            enc_out=enc_out, impl=impl, want_cache=True,
                            max_seq=max_seq)
-        caches.append(c)
+        # a DTensor cache on its logical axes (no pending sum), which
+        # decode's in-place writes keep
+        axes = _block_cache_shape(cfg, mixer, x.shape[0], max_seq)
+        caches.append({n: shard_activation(t, *axes[n][2])
+                       for n, t in c.items()})
     blocks = tuple({name: torch.stack([caches[c * P + k][name]
                                        for c in range(n_cycles)])
                     for name in caches[k]}
                    for k in range(P)) if n_cycles else ()
-    h = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    h = rms_norm(x, gather_params(params["final_norm"]), cfg.norm_eps)
     logits = logits_from_h(params, h[:, -1:], cfg)
     cache = {"blocks": blocks, "tail": tuple(caches[n_cycles * P:]),
              "index": x.shape[1]}
@@ -395,18 +495,19 @@ def decode_step(params: Params, tokens, cache: Params, cfg: ModelConfig
     the SSD and RG-LRU states and conv windows overwritten — and returns
     it with ``index`` advanced: a cache decoded from no longer holds the
     state it had before the call."""
-    table = params["embed"]
+    table = gather_params(params["embed"])
     tok = torch.as_tensor(tokens, device=table.device).long()
-    x = table[tok].to(torch_dtype(cfg.dtype))
+    x = shard_activation(F.embedding(tok, table).to(torch_dtype(cfg.dtype)),
+                         "batch", None, "act_embed")
     index = int(cache["index"])
     enc_out = cache.get("enc_out")
     for ((mixer, ffn), layer), (_kind, views) in zip(_layers(params, cfg),
                                                      _layers(cache, cfg)):
-        x, new = block_decode(layer, x, views, mixer, ffn, cfg, index,
-                              enc_out=enc_out)
+        x, new = block_decode(gather_params(layer), x, views, mixer, ffn,
+                              cfg, index, enc_out=enc_out)
         for name, t in new.items():       # recurrent states, conv windows
             if t is not views[name]:
                 views[name].copy_(t)
-    h = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    h = rms_norm(x, gather_params(params["final_norm"]), cfg.norm_eps)
     logits = logits_from_h(params, h, cfg)
     return logits, dict(cache, index=index + 1)

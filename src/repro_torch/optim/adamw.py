@@ -38,7 +38,8 @@ def _device_of(tree) -> torch.device:
 def adamw_init(params: PyTree) -> AdamWState:
     """Step 0 and float32 zero moments shaped like ``params``."""
     def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        # *_like: a DTensor parameter's moments keep its split
+        return torch.zeros_like(p, dtype=torch.float32)
     return AdamWState(step=torch.zeros((), dtype=torch.int32,
                                        device=_device_of(params)),
                       m=_tree.tree_map(zeros, params),

@@ -56,11 +56,9 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
-import datetime
 import json
 import os
 import sys
-import tempfile
 import time
 from typing import Callable, Dict, List, Optional, Sequence
 
@@ -101,46 +99,26 @@ def _rank_device(rank: int, backend: str, device: str):
     return torch.device("cuda", index)
 
 
-def _rank_entry(rank: int, world: int, backend: str, store: str, out: str,
-                fn: Callable, device: str, args: tuple) -> None:
-    import torch
-    import torch.distributed as dist
-
+def _fleet_rank(rank: int, world: int, backend: str, fn: Callable,
+                device: str, args: tuple):
     from ..api import engine as E
-    if device == "cpu":
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
-    dev = _rank_device(rank, backend, device)
-    dist.init_process_group(
-        backend, init_method=f"file://{store}", rank=rank, world_size=world,
-        timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
-    try:
-        result = fn(rank, E.fleet_mesh(world), dev, *args)
-        with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
-            json.dump(result, f)
-    finally:
-        dist.destroy_process_group()
+    return fn(rank, E.fleet_mesh(world), _rank_device(rank, backend, device),
+              *args)
 
 
 def spawn_ranks(fn: Callable, shards: int, *, backend: str = "gloo",
                 device: str = "cpu", args: tuple = ()) -> List:
     """Run ``fn(rank, mesh, device, *args)`` on ``shards`` fresh processes,
-    one rank each of a ``backend`` group rendezvousing through a
-    ``file://`` store in a temporary directory; returns each rank's
-    (JSON-serialisable) result in rank order.  ``fn`` must be a
-    module-level function.  A rank that raises raises here."""
-    import torch.multiprocessing as mp
+    one rank each of a ``backend`` group (`distributed.ranks.run_ranks`)
+    with the fleet mesh over it; returns each rank's result in rank
+    order.  ``fn`` must be a module-level function.  A rank that raises
+    raises here."""
+    from ..distributed.ranks import run_ranks
     if device == "cpu" and backend != "gloo":
         raise ValueError(f"CPU ranks need the gloo backend; got {backend!r}")
-    with tempfile.TemporaryDirectory(prefix="repro_torch_ranks_") as tmp:
-        mp.spawn(_rank_entry, args=(shards, backend,
-                                    os.path.join(tmp, "store"), tmp, fn,
-                                    device, args),
-                 nprocs=shards, join=True)
-        out = []
-        for r in range(shards):
-            with open(os.path.join(tmp, f"rank{r}.json")) as f:
-                out.append(json.load(f))
-        return out
+    return run_ranks(_fleet_rank, shards, backend=backend,
+                     args=(backend, fn, device, args),
+                     timeout=RANK_TIMEOUT_S)
 
 
 # --------------------------------------------------------------------------

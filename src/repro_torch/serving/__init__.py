@@ -11,6 +11,8 @@ ladder), `hi` (online hierarchical inference), `engine_v2` (the tensor
 engine under the serving namespace) and the deprecated `planner` shims.
 """
 from . import engine_v2, hi
+from .hi import (HILearnerState, HIModel, arm_grid, hi_period,
+                 presample_stream, sample_confidence)
 from .faults import (FaultModel, FaultRealization, greedy_local_fill,
                      realize_execution, sample_realization)
 from .executor import (EXEC_DROPPED, EXEC_FALLBACK_LOCAL, EXEC_OK_ED,
@@ -40,5 +42,7 @@ __all__ = [
     "paper_style_profile", "roofline_style_profile",
     "FaultModel", "FaultRealization", "sample_realization",
     "greedy_local_fill", "realize_execution",
+    "HIModel", "HILearnerState", "arm_grid", "sample_confidence",
+    "presample_stream", "hi_period",
     "engine_v2", "hi",
 ]

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
@@ -39,8 +39,10 @@ class ExecutionReport:
     ed_wall: float
     es_wall: float
     results: Dict[int, object]
-    status: np.ndarray                       # (n,) int32 EXEC_* per sample
     replanned: bool = False
+    # (n,) int32 EXEC_* per sample; None only for a report that `execute`
+    # did not build
+    status: Optional[np.ndarray] = None
 
     @property
     def wall_makespan(self) -> float:
@@ -48,7 +50,10 @@ class ExecutionReport:
 
     @property
     def n_dropped(self) -> int:
-        """Samples that fell through execution with no result."""
+        """Samples that fell through execution with no result (0 without
+        a status)."""
+        if self.status is None:
+            return 0
         return int((self.status == EXEC_DROPPED).sum())
 
 

@@ -54,7 +54,7 @@ class PeriodStats:
     violation: float
     replanned: bool
     profile_updated: bool
-    n_dropped: int        # samples with no result (executor EXEC_DROPPED)
+    n_dropped: int = 0    # samples with no result (executor EXEC_DROPPED)
 
 
 class ServingRuntime:

@@ -282,9 +282,10 @@ def test_param_defs_match_reference():
     rcfg, cfg, rp, tp, _ = _block_case()
     defs = layers.rglru_param_defs(cfg)
     want = ref_layers.rglru_param_defs(rcfg)
-    assert defs == {k: shape for k, (shape, _ax) in want.items()}
-    assert {k: tuple(v.shape) for k, v in tp.items()} == \
-        {**defs, **layers.ffn_param_defs(cfg, "swiglu")}
+    assert defs == want
+    assert {k: tuple(v.shape) for k, v in tp.items()} == {
+        k: shape for k, (shape, _ax) in
+        {**defs, **layers.ffn_param_defs(cfg, "swiglu")}.items()}
     assert layers._LRU_C == ref_layers._LRU_C
 
 
