@@ -10,7 +10,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
               `src/repro_torch/kernels/*/csrc` (one nvcc each, all at once)
               and prints what ptxas reports (registers, static shared
               memory, stack and spills) for each kernel instance, failing
-              on a spill in the simplex, SSD or CCKP kernels; then the
+              on a spill in the simplex, SSD or CCKP kernels, and unless
+              the flash library's SASS (cuobjdump) holds wgmma (HGMMA) and
+              TMA loads (UTMALDG) and no mma.sync (HMMA); then the
               pivot kernels' lanes per CTA at the fleet shape, each SSD
               kernel's, the CCKP instances' and the RG-LRU geometries'
               dynamic shared memory and CTAs per SM (the occupancy
@@ -450,7 +452,7 @@ DECODE_SHAPES = (
 
 # the LM families' new flash shapes, run in bfloat16 (their compute type):
 # granite-moe-3b's group 3, internlm2's 6 and deepseek-coder's 7 (2 x 2048,
-# causal), h2o-danube's head_dim 80 (padded to 128) under its window of
+# causal), h2o-danube's head_dim 80 (unpadded) under its window of
 # 4096 (1 x 8192), whisper's unmasked cross-attention of 8 x 448 decoder
 # tokens and of one decode token (4 sequences) against 1500 frames
 FAMILY_FLASH_SHAPES = (
@@ -525,6 +527,32 @@ def ptxas_instances(log):
     except (OSError, subprocess.SubprocessError):
         pass
     return out
+
+
+def flash_sass(path, instances) -> None:
+    """The flash library's bfloat16 kernel as Hopper code: its SASS
+    (``cuobjdump -sass``) holds `wgmma` (HGMMA) and TMA loads (UTMALDG)
+    and no `mma.sync` (HMMA), and ptxas reported its 8 instances.  Prints
+    each instance's registers and spills and the instruction counts."""
+    from repro_torch.kernels import _build
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts = {op: len(re.findall(rf"\b{op}\b", sass))
+              for op in ("HGMMA", "UTMALDG", "HMMA")}
+    wgmma = [dict(kernel=i["kernel"], registers=i["registers"],
+                  spill_stores=i["spill_stores"],
+                  spill_loads=i["spill_loads"])
+             for i in instances if "flash_wgmma_kernel" in i["kernel"]]
+    emit("build", source=FLASH_SRC, sass=counts, instances=wgmma)
+    check(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0,
+          f"build: flash attention's SASS lacks wgmma or TMA loads: {counts}")
+    check(counts["HMMA"] == 0,
+          f"build: flash attention's SASS still holds mma.sync: {counts}")
+    # (no ptxas report where the library was built before: nothing to read)
+    check(not instances or len(wgmma) == 8,
+          f"build: flash attention's wgmma instances are missing: {wgmma}")
 
 
 def run(cmd) -> str:
@@ -864,6 +892,7 @@ def phase_flash_kernel(torch, dev):
     times.  Returns the rows by (shape, dtype)."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
+    t0 = time.perf_counter()
     sdpa = torch.nn.functional.scaled_dot_product_attention
     g = torch.Generator(device=dev).manual_seed(5)
     rows = {}
@@ -922,6 +951,8 @@ def phase_flash_kernel(torch, dev):
                                         mask=mask, window=window), **row)
             rows[(name, dname)] = row
             del q, k, v, qq, kk, vv
+    emit("kernels", kernel="flash_attention_fwd",
+         phase_seconds=time.perf_counter() - t0)
     return rows
 
 
@@ -4685,6 +4716,8 @@ def main() -> int:
             check(all(i["spill_stores"] == 0 and i["spill_loads"] == 0
                       for i in instances),
                   f"build: ptxas spills in {source}: {instances}")
+        if source == FLASH_SRC:
+            flash_sass(path, instances)
     emit("build", seconds=time.perf_counter() - t0)
     emit("build", occupancy=dict(
         simplex_pivot=ops.occupancy("simplex_pivot", R + 1, C0 + 1),

@@ -410,8 +410,9 @@ FLASH_CASES = [  # (B*KH, G, Sq, Sk, D, mask_kind, window)
     (2, 2, 96, 96, 128, "window", 200),
     (2, 16, 200, 200, 256, "window", 64),    # recurrentgemma: 16 q on 1 KV
     (1, 16, 130, 130, 256, "causal", 0),
-    # the 64 x 64 tiles' edges: ragged Sq and Sk, D padded to 32 and 128,
-    # a window straddling two kv tiles, group 16 causal, Sq > Sk unmasked
+    # ragged Sq and Sk, D of 20 and 100 (no multiple of 8: the wrapper
+    # zero-pads bfloat16 rows to 24 and 104), a window straddling two kv
+    # tiles, group 16 causal, Sq > Sk unmasked
     (2, 2, 129, 191, 64, "none", 0),
     (2, 2, 129, 191, 128, "causal", 0),
     (2, 1, 77, 77, 20, "causal", 0),
@@ -420,8 +421,8 @@ FLASH_CASES = [  # (B*KH, G, Sq, Sk, D, mask_kind, window)
     (1, 16, 300, 300, 256, "causal", 0),
     (2, 2, 191, 129, 64, "none", 0),
     # the LM families' shapes: groups 3 (granite-moe-3b), 6 (internlm2), 7
-    # (deepseek-coder) and 8 (internvl2); h2o-danube's D of 80 padded to
-    # 128 under a window; whisper's cross-attention, unmasked, of one
+    # (deepseek-coder) and 8 (internvl2); h2o-danube's D of 80 (unpadded)
+    # under a window; whisper's cross-attention, unmasked, of one
     # query (a decode step) and of 448 against 1500 encoder frames
     (2, 3, 130, 130, 64, "causal", 0),
     (1, 6, 100, 100, 128, "causal", 0),
@@ -430,6 +431,30 @@ FLASH_CASES = [  # (B*KH, G, Sq, Sk, D, mask_kind, window)
     (2, 4, 150, 150, 80, "window", 64),
     (8, 1, 1, 1500, 64, "none", 0),
     (2, 1, 448, 1500, 64, "none", 0),
+    # the bfloat16 kernel's tiles (128 queries, or 64 where Sq <= 64; kv
+    # tiles of 128 keys, 80 at D 256; a ring of 4, 3 or 2 stages): Sq and
+    # Sk at 127, 128, 129 and 257; Sk shorter than one kv tile; kv loops
+    # that wrap the ring twice and more (the mbarriers' phase parity);
+    # short q tiles (one consumer of 64 rows) over many kv tiles;
+    # h2o's D of 80 unpadded under a window straddling a 128-row tile;
+    # group 16 causal at D 256
+    (2, 2, 127, 127, 128, "causal", 0),
+    (2, 2, 128, 128, 64, "causal", 0),
+    (2, 2, 129, 129, 128, "none", 0),
+    (1, 3, 257, 257, 64, "causal", 0),
+    (2, 2, 128, 257, 256, "none", 0),
+    (2, 1, 257, 129, 80, "none", 0),
+    (2, 2, 100, 40, 128, "none", 0),
+    (1, 2, 300, 70, 256, "none", 0),
+    (1, 2, 130, 1100, 128, "none", 0),
+    (1, 2, 70, 900, 256, "none", 0),
+    (2, 2, 60, 1000, 64, "none", 0),
+    (1, 4, 50, 700, 128, "none", 0),
+    (2, 2, 33, 600, 80, "none", 0),
+    (2, 2, 64, 64, 128, "causal", 0),
+    (1, 2, 40, 500, 256, "none", 0),
+    (1, 4, 300, 300, 80, "window", 100),
+    (1, 16, 257, 257, 256, "causal", 0),
 ]
 
 

@@ -127,31 +127,100 @@ def test_layer_layout_is_contiguous_and_heads_major(B, H):
             assert torch.equal(got[b * H + h], x[b, :, h])
 
 
-@pytest.mark.parametrize("Sq", [1, 63, 64, 65, 129, 2048, 4097])
+@pytest.mark.parametrize("Sq", [1, 63, 64, 65, 128, 129, 257, 2048, 4097])
 @pytest.mark.parametrize("mask_kind", ["none", "causal", "window"])
-@pytest.mark.parametrize("group", [1, 2, 16])
-def test_launch_plan_covers_every_query_row_once(Sq, mask_kind, group):
+@pytest.mark.parametrize("D", [16, 20, 64, 80, 100, 128, 256])
+def test_launch_plan_covers_every_query_row_once(Sq, mask_kind, D):
     """The CUDA launch's geometry, computed on every device: the grid rows'
-    q tiles cover rows 0 .. Sq-1 exactly once; under a mask the last tile
-    (the longest kv band) goes first; D is padded to a multiple of 16; the
-    warp groups split the kv tiles under a causal mask or an odd group
-    (else they take two q heads of one kv head)."""
-    n_qtiles, dp, reverse, split = ops.launch_plan(Sq, 100, mask_kind, group)
-    covered = np.zeros(n_qtiles * ops.Q_TILE, dtype=int)
-    for y in range(n_qtiles):
-        covered[list(ops.q_tile(y, n_qtiles, reverse))] += 1
-    np.testing.assert_array_equal(covered[:Sq], 1)
-    assert n_qtiles * ops.Q_TILE - Sq < ops.Q_TILE  # padding < one tile
-    assert reverse == (mask_kind != "none")
-    if reverse:
-        assert ops.q_tile(0, n_qtiles, reverse)[-1] >= Sq - 1
-    assert dp == 128 and dp % 16 == 0
-    assert split == (mask_kind == "causal" or group % 2 == 1)
-    for D, want in ((4, 32), (20, 32), (32, 32), (36, 64), (100, 128),
-                    (128, 128), (132, 256), (256, 256)):
-        assert ops.launch_plan(Sq, D, mask_kind, group)[1] == want
+    q tiles cover rows 0 .. Sq-1 exactly once; bfloat16 tiles of 128
+    queries (two consumer warp groups), of 64 (one) where Sq <= 64; under
+    a mask the last tile (the longest kv band) goes first; q, k and v read
+    at D rounded up to a multiple of 8 (the TMA's 16-byte rows) by tiles
+    holding 64, 80, 128 or 256 columns, kv tiles of 128 keys (80 at D
+    256); float32 keeps tiles of 64 queries at the true D."""
+    for bf16 in (True, False):
+        plan = ops.launch_plan(Sq, D, mask_kind, bf16)
+        covered = np.zeros(plan.n_qtiles * plan.q_rows, dtype=int)
+        for y in range(plan.n_qtiles):
+            covered[list(ops.q_tile(y, plan))] += 1
+        np.testing.assert_array_equal(covered[:Sq], 1)
+        assert plan.n_qtiles * plan.q_rows - Sq < plan.q_rows
+        assert plan.reverse == (mask_kind != "none")
+        if plan.reverse:
+            assert ops.q_tile(0, plan)[-1] >= Sq - 1
+    plan = ops.launch_plan(Sq, D, mask_kind)
+    assert plan.q_rows == (64 if Sq <= 64 else 128)
+    assert plan.consumers == plan.q_rows // 64
+    assert plan.width % 8 == 0 and D <= plan.width < D + 8
+    want = {16: 64, 20: 64, 64: 64, 80: 80, 100: 128, 128: 128, 256: 256}
+    assert plan.instance == want[D] and plan.width <= plan.instance
+    assert plan.kv_tile == (80 if D == 256 else 128)
+    assert ops.launch_plan(Sq, 80, mask_kind).width == 80   # unpadded
+    f32 = ops.launch_plan(Sq, D, mask_kind, bf16=False)
+    assert (f32.q_rows, f32.width) == (64, D)
     with pytest.raises(ValueError, match="head_dim"):
-        ops.launch_plan(Sq, 260, mask_kind, group)
+        ops.launch_plan(Sq, 260, mask_kind)
+
+
+# (mask, window, Sq, Sk): every mask at short, ragged and long shapes,
+# windows of one key, of less than a kv tile and past the sequence; none
+# leaves a query row without a live key (the wrapper refuses those)
+KV_BAND_CASES = [
+    (mask, window, Sq, Sk)
+    for mask, window in (("none", 0), ("causal", 0), ("window", 1),
+                         ("window", 100), ("window", 4096))
+    for Sq, Sk in ((1, 1500), (64, 64), (129, 191), (200, 200), (300, 257),
+                   (448, 1500), (1000, 1000))
+    if mask != "window" or Sq < Sk + window]
+
+
+@pytest.mark.parametrize("mask_kind,window,Sq,Sk", KV_BAND_CASES)
+@pytest.mark.parametrize("D", [64, 256])
+def test_kv_tiles_hold_every_live_pair_and_no_dead_tile(mask_kind, window,
+                                                        Sq, Sk, D):
+    """The kv tiles a q tile visits (`kv_tiles`, the kernel's band) hold
+    every live (query, key) pair of `ref.index_mask` for the tile's rows,
+    and each visited tile holds at least one: under a mask no tile wholly
+    outside the band is loaded."""
+    plan = ops.launch_plan(Sq, D, mask_kind)
+    live = ref.index_mask(mask_kind, Sq, Sk, window, "cpu").numpy()
+    for y in range(plan.n_qtiles):
+        rows = ops.q_tile(y, plan)
+        tile_rows = live[rows[0]:min(rows[-1] + 1, Sq)]
+        seen = np.zeros(Sk, dtype=bool)
+        for k0 in ops.kv_tiles(rows, Sq, Sk, mask_kind, window,
+                               plan.kv_tile):
+            assert k0 % plan.kv_tile == 0 and 0 <= k0 < Sk
+            assert tile_rows[:, k0:k0 + plan.kv_tile].any(), (y, k0)
+            seen[k0:k0 + plan.kv_tile] = True
+        assert not (tile_rows & ~seen).any(), y
+
+
+@pytest.mark.parametrize("D", [20, 100])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mask_kind,window", CASES)
+def test_padded_width_with_the_true_scale_equals_attention_ref(
+        D, dtype, mask_kind, window):
+    """What the wrapper hands the bfloat16 kernel for a D that is no
+    multiple of 8: q, k and v zero-padded to the plan's width.  Fed to the
+    plain version with the true D's scale (q scaled by sqrt(width / D) in
+    float32, since the plain version scales by its input's width), the
+    output's first D columns equal `attention_ref` on the unpadded inputs
+    and the padded columns are zero (bfloat16 within its tolerance: the
+    scaled scores may round p to the other side of a bfloat16 step)."""
+    _, (q, k, v) = _inputs(D, 2, 2, 90, 90, D, dtype)
+    plan = ops.launch_plan(90, D, mask_kind)
+    assert plan.width == D + (8 - D % 8)
+    qp, kp, vp = (ops.pad_width(t, plan.width) for t in (q, k, v))
+    assert qp.shape[-1] == plan.width and qp.is_contiguous()
+    assert torch.equal(qp[..., :D], q) and not qp[..., D:].any()
+    kw = dict(mask_kind=mask_kind, window=window, group=2)
+    got = ref.attention_ref(qp.float() * (plan.width / D) ** 0.5, kp, vp,
+                            **kw)
+    want = ref.attention_ref(q.float(), k, v, **kw)
+    assert not got[..., D:].any()
+    np.testing.assert_allclose(_np(got[..., :D]), _np(want), **_tol(dtype))
+    assert ops.pad_width(q, D) is q
 
 
 def test_plain_version_reads_kv_head_b_over_group():
