@@ -12,7 +12,10 @@ Phases, each printing JSON lines; any failure exits non-zero:
               memory, stack and spills) for each kernel instance, failing
               on a spill in the simplex, SSD or CCKP kernels, and unless
               the flash library's SASS (cuobjdump) holds wgmma (HGMMA) and
-              TMA loads (UTMALDG) and no mma.sync (HMMA); then the
+              TMA loads (UTMALDG) and no mma.sync (HMMA), and the SSD
+              library's bfloat16 kernel, counted by function, holds
+              HGMMA and UTMALDG and no HMMA (its float32 kernels keep
+              their split-TF32 mma.sync); then the
               pivot kernels' lanes per CTA at the fleet shape, each SSD
               kernel's, the CCKP instances' and the RG-LRU geometries'
               dynamic shared memory and CTAs per SM (the occupancy
@@ -48,14 +51,15 @@ Phases, each printing JSON lines; any failure exits non-zero:
               attention and of the plain version on the card and on the
               host (unless the host's own float32 result is more than
               1e-5 from float64: that is printed as the host's fault).
-              The SSD scan kernels at mamba2-130m's shapes (8 x 2048
-              tokens, 24 heads, P 64, N 128, chunk 256, decays past
-              exp's float32 overflow) in bfloat16 and float32, held with
-              their plain
-              version to the float64 recurrence (errors beside their
-              bars), the bound priced at the TF32 tensor rate, the
-              kernels one call launches with each one's device time and
-              CTAs per SM; the flash-decode kernel
+              The SSD scan kernels at mamba2-130m's forward and prefill
+              shapes (8 x 2048 and 4 x 1000 tokens, 24 heads, P 64, N
+              128, chunk 256, decays past exp's float32 overflow) in
+              bfloat16 and float32, held with their plain version to the
+              float64 recurrence (errors beside their bars), the bound
+              priced at the TF32 tensor rate, the kernels one call
+              launches (each of its type's once) with each one's device
+              time and CTAs per SM against the design's, and the
+              phase's seconds; the flash-decode kernel
               through the model's entry at gemma3-1b's decode shapes (4
               sequences, 4 q heads on 1, head_dim 256, rings of 512 and
               1032 slots; recurrentgemma-9b: 16 q heads on 1, a ring of
@@ -418,6 +422,12 @@ SSD_TPU = "src/repro/kernels/ssd_scan/ssd_scan.py:73"
 # steps, caches of max_seq = 1032 slots (gemma3-1b's local rings: 512)
 GEN_BATCH, GEN_PROMPT, GEN_STEPS = 4, 1000, 32
 GEN_MAX_SEQ = GEN_PROMPT + GEN_STEPS
+# the SSD scan at mamba2-130m's forward and prefill: (name, batch, S, heads)
+SSD_SHAPES = (
+    ("mamba2_forward", SSM_BATCH, SSM_SEQ, 24),
+    ("mamba2_prefill", GEN_BATCH, GEN_PROMPT, 24),
+)
+SSD_LINE = ("mamba2_forward", "bfloat16")     # the kernels line's shape
 DECODE_SRC = ("src/repro_torch/kernels/decode_attention/csrc/"
               "decode_attention.cu")
 DECODE_TPU = ("src/repro/kernels/decode_attention/decode_attention.py:60")
@@ -553,6 +563,43 @@ def flash_sass(path, instances) -> None:
     # (no ptxas report where the library was built before: nothing to read)
     check(not instances or len(wgmma) == 8,
           f"build: flash attention's wgmma instances are missing: {wgmma}")
+
+
+def sass_by_function(path, ops=("HGMMA", "UTMALDG", "HMMA")):
+    """{kernel function (mangled): {op: count}} of a library's SASS
+    (``cuobjdump -sass``)."""
+    from repro_torch.kernels import _build
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    out = {}
+    for part in re.split(r"\n\s*Function : ", sass)[1:]:
+        name, _, body = part.partition("\n")
+        out[name.strip()] = {op: len(re.findall(rf"\b{op}\b", body))
+                             for op in ops}
+    return out
+
+
+def ssd_sass(path, instances) -> None:
+    """The SSD library as Hopper code: its bfloat16 kernel
+    (`ssd_wg_scan_kernel`) holds `wgmma` (HGMMA) and TMA loads (UTMALDG)
+    and no `mma.sync` (HMMA), counted by function in the SASS; the float32
+    kernels keep their split-TF32 `mma.sync`.  Prints each instance's
+    registers and spills (a spill fails the build phase in every SSD
+    kernel)."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    by_fn = sass_by_function(path)
+    bf16 = {name: [v for k, v in by_fn.items() if name in k]
+            for name in ssd_ops.KERNEL_NAMES[torch.bfloat16]}
+    emit("build", source=SSD_SRC, sass_by_function=by_fn,
+         instances=[dict(kernel=i["kernel"], registers=i["registers"],
+                         spill_stores=i["spill_stores"],
+                         spill_loads=i["spill_loads"]) for i in instances])
+    check(all(len(v) == 1 and v[0]["HGMMA"] > 0 and v[0]["UTMALDG"] > 0
+              and v[0]["HMMA"] == 0 for v in bf16.values()),
+          f"build: the SSD bfloat16 kernel is not wgmma + TMA alone: {bf16}")
 
 
 def run(cmd) -> str:
@@ -2975,6 +3022,22 @@ def ssd_exact(torch, x, dt, A, Bm, Cm, heads):
     return ys.view(BH, S, P), h.view(BH, P, N)
 
 
+def ssd_inputs(torch, dev, Bb, S, H, P, N, seed=17):
+    """x (B·H, S, P), dt (B·H, S), A (B·H, 1), B and C (B, S, N), float32
+    on the card, at mamba2-130m's initial scale: dt = softplus(0.3 N(0,
+    1)) ~ 0.7, A = -exp(0.2 N(0, 1)) ~ -1 per head."""
+    import torch.nn.functional as F
+    BH = Bb * H
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((BH, S, P), generator=g, device=dev)
+    dt = F.softplus(0.3 * torch.randn((BH, S), generator=g, device=dev))
+    A = (-torch.exp(0.2 * torch.randn((H,), generator=g, device=dev)))[
+        None].expand(Bb, H).reshape(BH, 1).contiguous()
+    Bm, Cm = (torch.randn((Bb, S, N), generator=g, device=dev)
+              for _ in range(2))
+    return x, dt, A, Bm, Cm
+
+
 def ssd_work(BH, Bb, S, P, N, itemsize):
     """Bytes and operations one `ssd_scan_fwd` call needs: x, B and C in
     their type, dt and A in float32 read once, y and the state written
@@ -2987,91 +3050,126 @@ def ssd_work(BH, Bb, S, P, N, itemsize):
     return nbytes, 4 * P * N * S * BH
 
 
+def ssd_errors(torch, got, want, exact):
+    """[{out, max_abs_err, err_vs_float64, their bars, plain's own error,
+    scale}] of y and the state, and whether both are finite and within
+    the bars: 1e-5 + twice the plain version's own error from the float64
+    recurrence, 1e-5 + three times it from the plain version."""
+    errs, ok = [], True
+    for name, gv, wv, ev in zip(("y", "state"), got, want, exact):
+        own = (wv.double() - ev).abs().max().item()
+        err = (gv - wv).abs().max().item()
+        err_exact = (gv.double() - ev).abs().max().item()
+        ok = ok and bool(torch.isfinite(gv).all()) and \
+            err_exact <= 1e-5 + 2 * own and err <= 1e-5 + 3 * own
+        errs.append(dict(out=name, max_abs_err=err,
+                         bar_vs_plain=1e-5 + 3 * own,
+                         err_vs_float64=err_exact,
+                         bar_vs_float64=1e-5 + 2 * own,
+                         plain_err_vs_float64=own,
+                         scale=ev.abs().max().item()))
+    return errs, ok
+
+
+def ssd_row(torch, ssd_ops, ssd_ref, dev, Bb, S, H, dtype, reps=10,
+            plain_reps=3):
+    """One `ssd_scan_fwd` shape (P 64, N 128, chunk 256; `ssd_inputs`):
+    the kernels held to the float64 recurrence and the plain version
+    (`ssd_errors`), the call's mean time over ``reps`` calls after a warm
+    one (CUDA events; ``ms_queued`` with the calls queued behind a device
+    sleep, so that the device's time is read where the host's launch rate
+    would set it), the plain version's, the bound (`ssd_work` at the TF32
+    rate), and each kernel's device time and launches in one profiled
+    call.  Returns (row, errors, ok, per-kernel list, the chunks' lowest
+    cumulative decay)."""
+    import torch.nn.functional as F
+    P, N, Q = 64, 128, 256
+    BH = Bb * H
+    x32, dt, A, B32, C32 = ssd_inputs(torch, dev, Bb, S, H, P, N)
+    cum = torch.cumsum((F.pad(dt, (0, -S % Q)) * A).view(BH, -1, Q), -1)
+    min_cum = cum.min().item()
+    x, Bm, Cm = (t.to(dtype) for t in (x32, B32, C32))
+    del x32, B32, C32
+
+    def kernel():
+        return ssd_ops.ssd_scan_fwd(x, dt, A, Bm, Cm, heads=H, chunk=Q)
+
+    got = kernel()
+    want = ssd_ref.ssd_chunked_ref(x, dt, A, Bm, Cm, Q)
+    exact = ssd_exact(torch, x, dt, A, Bm, Cm, H)
+    torch.cuda.synchronize()
+    errs, ok = ssd_errors(torch, got, want, exact)
+    del got, want, exact
+    ms = cuda_ms(kernel, [()] * reps, torch, warm_up=True)
+    ms_queued = cuda_ms(kernel, [()] * reps, torch, ahead=True)
+    plain_ms = cuda_ms(lambda: ssd_ref.ssd_chunked_ref(x, dt, A, Bm, Cm, Q),
+                       [()] * plain_reps, torch)
+    nbytes, flops = ssd_work(BH, Bb, S, P, N, x.element_size())
+    bound_ms, bound_by = bound_of(nbytes, flops, TF32_FLOPS)
+    _s, _n, per_kernel = profiled(torch, kernel)
+    row = dict(max_abs_err=errs[0]["max_abs_err"], ms=ms,
+               ms_queued=ms_queued, plain_ms=plain_ms,
+               library_ms=None, bytes=nbytes, flops=flops,
+               bound_ms=bound_ms, bound_by=bound_by,
+               bound_share=bound_ms / ms)
+    return row, errs, ok, per_kernel, min_cum
+
+
 def phase_ssd_kernel(torch, dev):
-    """The SSD scan kernel against its plain version at mamba2-130m's
-    shapes (8 x 2048 tokens, 24 heads, P 64, N 128, chunk 256), with dt and
-    A at the model's initial scale (dt ~ softplus(0.3 N(0, 1)) ~ 0.7, A ~
-    -exp(0.2 N(0, 1)) ~ -1), so a chunk's cumulative decay reaches ~-180:
+    """The SSD scan kernels against their plain version at mamba2-130m's
+    shapes (`SSD_SHAPES`: the forward's 8 x 2048 tokens and the prefill's
+    4 x 1000, 24 heads, P 64, N 128, chunk 256), with dt and A at the
+    model's initial scale, so a chunk's cumulative decay reaches ~-180:
     exp of the unselected upper triangle would overflow.  Both are held
     to the float64 recurrence: the kernel within 1e-5 + twice the plain
     version's own error, and within 1e-5 + three times it of the plain
     version (the kernels sum the decays in float64 where the plain
     version sums them in float32, and take their products on the tensor
-    cores in split TF32).  Each row also gives the
-    kernels one call launches and each one's device time (profiler) and
-    CTAs per SM."""
-    import torch.nn.functional as F
-
+    cores with every float32 operand split: three bfloat16 parts for
+    bfloat16 inputs, two TF32 parts for float32).  Each row also gives
+    the kernels one call launches (`ssd_ops.KERNEL_NAMES` of its type,
+    each exactly once: bfloat16's one persistent kernel, float32's four),
+    each one's device time (profiler), and its CTAs per SM against the
+    design's (`ssd_ops.CTAS_PER_SM`: the bfloat16 kernel one, all of an
+    SM's shared memory; the float32 kernels at least two)."""
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan import ref as ssd_ref
-    H, P, N, Q = 24, 64, 128, 256
-    Bb, S = SSM_BATCH, SSM_SEQ
-    BH = Bb * H
-    g = torch.Generator(device=dev).manual_seed(17)
-    x32 = torch.randn((BH, S, P), generator=g, device=dev)
-    dt = F.softplus(0.3 * torch.randn((BH, S), generator=g, device=dev))
-    A = (-torch.exp(0.2 * torch.randn((H,), generator=g, device=dev)))[
-        None].expand(Bb, H).reshape(BH, 1).contiguous()
-    B32, C32 = (torch.randn((Bb, S, N), generator=g, device=dev)
-                for _ in range(2))
-    cum = torch.cumsum((dt * A).view(BH, S // Q, Q), dim=-1)
-    min_cum = cum.min().item()
-    check(min_cum < -88.0, f"ssd inputs never pass exp's overflow "
-                           f"({min_cum})")
+    t0 = time.perf_counter()
     rows = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        dname = str(dtype).split(".")[-1]
-        x, Bm, Cm = (t.to(dtype) for t in (x32, B32, C32))
-        got = ssd_ops.ssd_scan_fwd(x, dt, A, Bm, Cm, heads=H, chunk=Q)
-        want = ssd_ref.ssd_chunked_ref(x, dt, A, Bm, Cm, Q)
-        exact = ssd_exact(torch, x, dt, A, Bm, Cm, H)
-        torch.cuda.synchronize()
-        errs = []
-        for name, gv, wv, ev in zip(("y", "state"), got, want, exact):
-            check(bool(torch.isfinite(gv).all()),
-                  f"ssd_scan_fwd {dname}: {name} not finite")
-            own = (wv.double() - ev).abs().max().item()
-            err = (gv - wv).abs().max().item()
-            err_exact = (gv.double() - ev).abs().max().item()
-            check(err_exact <= 1e-5 + 2 * own and err <= 1e-5 + 3 * own,
-                  f"ssd_scan_fwd {dname} {name}: {err} from the plain "
-                  f"version, {err_exact} from float64 (plain's own {own})")
-            errs.append(dict(out=name, max_abs_err=err,
-                             bar_vs_plain=1e-5 + 3 * own,
-                             err_vs_float64=err_exact,
-                             bar_vs_float64=1e-5 + 2 * own,
-                             plain_err_vs_float64=own,
-                             scale=ev.abs().max().item()))
-        del got, want, exact
-        ms = cuda_ms(lambda: ssd_ops.ssd_scan_fwd(x, dt, A, Bm, Cm, heads=H,
-                                                  chunk=Q), [()] * 10, torch)
-        plain_ms = cuda_ms(lambda: ssd_ref.ssd_chunked_ref(x, dt, A, Bm, Cm,
-                                                           Q),
-                           [()] * 3, torch)
-        nbytes, flops = ssd_work(BH, Bb, S, P, N, x.element_size())
-        bound_ms, bound_by = bound_of(nbytes, flops, TF32_FLOPS)
-        _s, _n, per_kernel = profiled(torch, lambda: ssd_ops.ssd_scan_fwd(
-            x, dt, A, Bm, Cm, heads=H, chunk=Q))
-        launched = sum(d["calls"] for d in per_kernel
-                       if "ssd_" in d["name"])
-        check(launched == ssd_ops.KERNELS_PER_CALL,
-              f"ssd_scan_fwd {dname}: one call launched {launched} kernels")
-        occupancy = ssd_ops.occupancy(dtype == torch.bfloat16)
-        check(all(blocks >= 2 for _smem, blocks in occupancy.values()),
-              f"ssd_scan_fwd {dname}: a kernel fits fewer than two CTAs "
-              f"per SM: {occupancy}")
-        row = dict(max_abs_err=errs[0]["max_abs_err"], ms=ms,
-                   plain_ms=plain_ms, library_ms=None, bytes=nbytes,
-                   flops=flops, bound_ms=bound_ms, bound_by=bound_by)
-        emit("kernels", kernel="ssd_scan_fwd", dtype=dname,
-             dims=dict(BH=BH, B=Bb, S=S, P=P, N=N, Q=Q),
-             min_chunk_cum=min_cum, errors=errs,
-             kernels_per_call=ssd_ops.KERNELS_PER_CALL,
-             device_us_by_kernel={d["name"]: d["ms"] * 1e3 for d in
-                                  per_kernel},
-             smem_and_ctas_per_sm=occupancy, **row)
-        rows[dname] = row
-        del x, Bm, Cm
+    for shape, Bb, S, H in SSD_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[-1]
+            row, errs, ok, per_kernel, min_cum = ssd_row(
+                torch, ssd_ops, ssd_ref, dev, Bb, S, H, dtype)
+            check(min_cum < -88.0, f"ssd inputs never pass exp's overflow "
+                                   f"({min_cum})")
+            check(ok, f"ssd_scan_fwd {shape} {dname}: outside its bars: "
+                      f"{errs}")
+            names = ssd_ops.KERNEL_NAMES[dtype]
+            launched = {n: sum(d["calls"] for d in per_kernel
+                               if n + "<" in d["name"] or
+                               n + "(" in d["name"]) for n in names}
+            others = sum(d["calls"] for d in per_kernel
+                         if "ssd_" in d["name"]) - sum(launched.values())
+            check(all(v == 1 for v in launched.values()) and others == 0,
+                  f"ssd_scan_fwd {shape} {dname}: one call launched "
+                  f"{launched} and {others} other SSD kernels")
+            occupancy = ssd_ops.occupancy(dtype == torch.bfloat16)
+            check(all(blocks >= ssd_ops.CTAS_PER_SM[name]
+                      for name, (_smem, blocks) in occupancy.items()),
+                  f"ssd_scan_fwd {dname}: fewer CTAs per SM than designed: "
+                  f"{occupancy}")
+            emit("kernels", kernel="ssd_scan_fwd", shape=shape, dtype=dname,
+                 dims=dict(BH=Bb * H, B=Bb, S=S, P=64, N=128, Q=256),
+                 min_chunk_cum=min_cum, errors=errs,
+                 kernels_per_call=ssd_ops.KERNELS_PER_CALL[dtype],
+                 launched=launched,
+                 device_us_by_kernel={d["name"]: d["ms"] * 1e3 for d in
+                                      per_kernel},
+                 smem_and_ctas_per_sm=occupancy, **row)
+            rows[(shape, dname)] = row
+    emit("kernels", kernel="ssd_scan_fwd",
+         phase_seconds=time.perf_counter() - t0)
     return rows
 
 
@@ -3417,7 +3515,8 @@ def phase_lm_forward_ssm(torch, dev):
         run(cfg)
         torch.cuda.synchronize()
         steady.append(time.perf_counter() - t0)
-    device_s, n_launch, top = profiled(torch, lambda: run(cfg))
+    device_s, n_launch, top = profiled(torch, lambda: run(cfg),
+                                       keep=("ssd_",))
     emit("profile", path="lm_forward mamba2", device_seconds=device_s,
          wall_seconds=min(steady), busy_share=device_s / min(steady),
          n_kernel_launches=n_launch, top=top)
@@ -4718,6 +4817,8 @@ def main() -> int:
                   f"build: ptxas spills in {source}: {instances}")
         if source == FLASH_SRC:
             flash_sass(path, instances)
+        if source == SSD_SRC:
+            ssd_sass(path, instances)
     emit("build", seconds=time.perf_counter() - t0)
     emit("build", occupancy=dict(
         simplex_pivot=ops.occupancy("simplex_pivot", R + 1, C0 + 1),
@@ -4777,7 +4878,7 @@ def main() -> int:
         torch, dev, "gemma3_1b")["decode_attention_fwd"]
     launches["ssd_scan_fwd"] = phase_lm_generate(
         torch, dev, "mamba2_130m")["ssd_scan_fwd"]
-    rows["ssd_scan_fwd"] = ssd_rows["bfloat16"]
+    rows["ssd_scan_fwd"] = ssd_rows[SSD_LINE]
     rows["decode_attention_fwd"] = decode_rows[DECODE_LINE]
     launches["rglru_scan_fwd"] = phase_recurrentgemma(
         torch, dev)["rglru_scan_fwd"]

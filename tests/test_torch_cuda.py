@@ -39,8 +39,9 @@ kernel, y and state alike, to 1e-5 plus twice its plain version's own
 error against the float64 recurrence, and so to 1e-5 plus three times it
 against the plain version: the plain version's float32 error grows with
 the chunk's cumulative decay, which it sums in float32, while the kernels
-sum it in float64 and take their products on the tensor cores in split
-TF32 (~2^-22 of each product); the flash-decode kernel as the flash
+sum it in float64 and take their products on the tensor cores with
+every float32 operand split (bfloat16 inputs: three bfloat16 parts, 24
+bits; float32 inputs: two TF32 parts, ~2^-22 of each product); the flash-decode kernel as the flash
 kernel (1e-5 in float32, 2^-7 in bfloat16: p is rounded
 against a running max per 32-key block; a float8 cache is widened
 exactly on both sides, so the same bars hold, and a lone valid slot
@@ -564,6 +565,21 @@ SSD_CASES = [  # (B, S, H, P, N, chunk, dt scale)
     (1, 200, 2, 64, 128, 256, 1.0),
     (2, 300, 3, 50, 100, 64, 1.0),
     (1, 37, 2, 3, 5, 16, 1.0),           # P N odd: one state value a load
+    # the bfloat16 kernels' edges: S across a chunk and a 64-row tile
+    # boundary (one step short of a chunk, one chunk, one step past it,
+    # two chunks and one step), B 8 and H 24 at S 512 (the 24 heads share
+    # each batch row's C·Bᵀ; 384 units of 4 tiles, about 12 tiles a CTA
+    # on 132 SMs, so each persistent CTA's ring of 3 stages wraps about
+    # four times: both mbarrier phase parities), 48
+    # rows of 8 chunks, and 41 chunks in one row (a long start-state
+    # chain, its last chunk ragged)
+    (1, 255, 2, 64, 128, 256, 1.0),
+    (1, 256, 2, 64, 128, 256, 1.0),
+    (1, 257, 2, 64, 128, 256, 1.0),
+    (1, 513, 2, 64, 128, 256, 1.0),
+    (8, 512, 24, 64, 128, 256, 1.0),
+    (4, 2048, 12, 64, 128, 256, 1.0),
+    (1, 10300, 1, 64, 128, 256, 1.0),
 ]
 
 
@@ -611,6 +627,103 @@ def test_cuda_ssd_kernel_matches_plain_version(cuda_device, monkeypatch,
         g = g.cpu()
         assert g.dtype == torch.float32 and g.shape == w.shape
         assert torch.isfinite(g).all()
+        own = (w.double() - e).abs().max().item()
+        assert (g.double() - e).abs().max().item() <= 1e-5 + 2.0 * own
+        assert (g - w).abs().max().item() <= 1e-5 + 3.0 * own
+
+
+# Holds SMs for a while: one CTA an SM (200 KB of shared memory, which
+# leaves no room for the SSD kernel's CTA), spinning on the global timer
+# for `ns` nanoseconds; `started` counts the CTAs that have begun.
+_HOLD_SMS_SRC = r'''
+#include <cuda_runtime.h>
+__global__ void hold_sms(unsigned long long ns, int* started) {
+  extern __shared__ unsigned char smem[];
+  unsigned long long t0, t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t0));
+  if (threadIdx.x == 0) atomicAdd(started, 1);
+  do {
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  } while (t - t0 < ns);
+  smem[threadIdx.x] = 0;
+}
+extern "C" int hold_sms_launch(int ctas, unsigned long long ns,
+                               int* started, cudaStream_t stream) {
+  const int bytes = 200 * 1024;
+  cudaError_t err = cudaFuncSetAttribute(
+      hold_sms, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  hold_sms<<<ctas, 128, bytes, stream>>>(ns, started);
+  return static_cast<int>(cudaGetLastError());
+}
+'''
+
+
+@pytest.mark.gpu
+def test_cuda_ssd_bf16_chain_runs_while_another_kernel_holds_the_sms(
+        cuda_device, tmp_path):
+    """The bfloat16 kernel's chunks wait on their predecessors' start
+    states; its CTAs take the (row, chunk) units in order from a ticket, so
+    two resident CTAs finish the scan while another stream's kernel holds
+    every other SM (a CTA that waited on a unit of a CTA not yet resident
+    would stall until that kernel ends).  y and the state are copied on a
+    third stream while the holder still runs, and held to the plain
+    version with the bars of `test_cuda_ssd_kernel_matches_plain_version`;
+    the call's final outputs equal those copies."""
+    import ctypes
+    import time
+
+    from repro_torch.kernels import _build
+    src = tmp_path / "hold_sms.cu"
+    src.write_text(_HOLD_SMS_SRC)
+    lib = ctypes.CDLL(str(_build.build(src)[0]))
+    lib.hold_sms_launch.argtypes = [ctypes.c_int, ctypes.c_ulonglong,
+                                    ctypes.c_void_p, ctypes.c_void_p]
+    lib.hold_sms_launch.restype = ctypes.c_int
+
+    Bb, S, H, P, N, chunk = 2, 2048, 24, 64, 128, 256   # 384 units
+    x, dt, A, B_, C_ = _ssd_case(Bb, S, H, P, N, 1.0)
+    x, B_, C_ = (t.to(torch.bfloat16) for t in (x, B_, C_))
+    want = ssd_ops.ssd_scan(x, dt, A, B_, C_, chunk)        # plain, CPU
+    exact = _ssd_exact(x.float(), dt, A, B_.float(), C_.float())
+    xf, d, a = ssd_ops.kernel_layout(x, dt, A)
+    args = [t.to(cuda_device) for t in (xf, d, a, B_, C_)]
+    started = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    ssd_ops.ssd_scan_fwd(*args, heads=H, chunk=chunk)        # built, warm
+    torch.cuda.synchronize()
+
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    hold, work, copy = (torch.cuda.Stream(cuda_device) for _ in range(3))
+    held = torch.cuda.Event()
+    with torch.cuda.stream(hold):
+        assert lib.hold_sms_launch(sms - 2, 2_000_000_000,
+                                   started.data_ptr(),
+                                   hold.cuda_stream) == 0
+        held.record()
+    seen = torch.zeros(1, dtype=torch.int32).pin_memory()
+    deadline = time.monotonic() + 1.0
+    with torch.cuda.stream(copy):
+        while seen.item() < sms - 2 and time.monotonic() < deadline:
+            seen.copy_(started, non_blocking=True)
+            copy.synchronize()
+    assert seen.item() == sms - 2, "the holder did not start on every SM"
+    ssd_ops.reset_launches()
+    with torch.cuda.stream(work):
+        y, st = ssd_ops.ssd_scan_fwd(*args, heads=H, chunk=chunk)
+    time.sleep(0.3)
+    early = [torch.empty(t.shape, dtype=t.dtype).pin_memory()
+             for t in (y, st)]
+    with torch.cuda.stream(copy):
+        for e, t in zip(early, (y, st)):
+            e.copy_(t, non_blocking=True)
+        copy.synchronize()
+    assert not held.query(), "the holder ended before the copies"
+    torch.cuda.synchronize()
+    assert ssd_ops.ssd_scan_fwd.launches == 1
+    assert torch.equal(early[0], y.cpu()) and torch.equal(early[1], st.cpu())
+    y_e = early[0].reshape(Bb, H, S, P).permute(0, 2, 1, 3)
+    st_e = early[1].reshape(Bb, H, P, N)
+    for g, w, e in zip((y_e, st_e), want, exact):
         own = (w.double() - e).abs().max().item()
         assert (g.double() - e).abs().max().item() <= 1e-5 + 2.0 * own
         assert (g - w).abs().max().item() <= 1e-5 + 3.0 * own

@@ -31,6 +31,7 @@ from repro.kernels.ssd_scan.ref import ssd_sequential_ref as ref_sequential
 from repro.models.layers import _segsum as ref_segsum
 from repro.models.layers import ssd_scan_chunked as ref_chunked
 from repro_torch.kernels.ssd_scan import ops, ref
+from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref
 from repro_torch.models import layers
 
 SAME = dict(rtol=1e-5, atol=1e-5)
@@ -224,11 +225,46 @@ def test_wrapper_checks_shapes_and_devices():
                                        (96, 64, 2, 64), (200, 200, 1, 256),
                                        (0, 0, 0, 64)])
 def test_scratch_shapes_cover_every_chunk(S, Q, nc, Qp):
-    """The card's scratch: C·Bᵀ tiles per (batch row, chunk), padded to
-    the kernels' 64-row tiles; cumulative decays and states per (row,
-    chunk).  Q is the wrapper's min(chunk, S)."""
-    cb, cum, states = ops.scratch_shapes(6, 2, S, 4, 8, Q)
-    assert cb == (2, nc, Qp, Qp)
-    assert cum == (6, nc, Qp)
-    assert states == (6, nc, 4, 8)
-    assert ops.KERNELS_PER_CALL == len(ops.KERNEL_NAMES) == 4
+    """The card's scratch, Q the wrapper's min(chunk, S).  bfloat16: a
+    start state per (row, chunk) in the kernel's 64 x 128 tile and one
+    publication count per (row, chunk).  float32: C·Bᵀ tiles per (batch
+    row, chunk) padded to the kernels' 64-row tiles (Qp), cumulative decays
+    and states per (row, chunk)."""
+    bf = ops.scratch_shapes(6, 2, S, 8, 8, Q)
+    assert bf == {"states": ((6, nc, 64, 128), torch.float32),
+                  "sync": ((1 + 6 * nc,), torch.int32)}
+    f32 = ops.scratch_shapes(6, 2, S, 4, 8, Q, torch.float32)
+    assert f32 == {"cb": ((2, nc, Qp, Qp), torch.float32),
+                   "cum": ((6, nc, Qp), torch.float64),
+                   "states": ((6, nc, 4, 8), torch.float32)}
+    assert ops.KERNELS_PER_CALL == {torch.bfloat16: 1, torch.float32: 4}
+    assert all(len(ops.KERNEL_NAMES[d]) == n
+               for d, n in ops.KERNELS_PER_CALL.items())
+    assert set(ops.CTAS_PER_SM) == {name for names in
+                                    ops.KERNEL_NAMES.values()
+                                    for name in names}
+
+
+@pytest.mark.parametrize("P,N", [(50, 100), (3, 5), (32, 16), (64, 128)])
+def test_padding_to_multiples_of_8_changes_nothing(P, N):
+    """What the wrapper hands the bfloat16 kernels: P of x and N of B_ and
+    C_ zero-padded to multiples of 8 (16-byte rows for the TMA unit).
+    Zero columns add nothing to C·Bᵀ or to the state, so the padded scan,
+    y and state sliced back, is the unpadded one (the plain version
+    computes both)."""
+    Bb, S, H, chunk = 2, 40, 3, 16
+    x, dt, A, B_, C_ = _torch(_inputs(P * N, Bb, S, H, P, N))
+    xf, d, a = ops.kernel_layout(x, dt, A)
+    xp, Bp, Cp = ops.pad8(xf, B_, C_)
+    assert xp.shape == (Bb * H, S, ops.round8(P))
+    assert Bp.shape == Cp.shape == (Bb, S, ops.round8(N))
+    assert xp.is_contiguous() and Bp.is_contiguous() and Cp.is_contiguous()
+    if (P, N) == (64, 128):
+        assert xp is xf and Bp is B_ and Cp is C_
+    assert torch.equal(xp[..., :P], xf) and not xp[..., P:].any()
+    assert torch.equal(Bp[..., :N], B_) and not Bp[..., N:].any()
+    y, st = ssd_chunked_ref(xf, d, a, B_, C_, chunk)
+    yp, stp = ssd_chunked_ref(xp, d, a, Bp, Cp, chunk)
+    np.testing.assert_allclose(yp[..., :P].numpy(), y.numpy(), **SAME)
+    np.testing.assert_allclose(stp[:, :P, :N].numpy(), st.numpy(), **SAME)
+    assert not stp[:, P:].any() and not stp[:, :, N:].any()
