@@ -15,7 +15,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
               TMA loads (UTMALDG) and no mma.sync (HMMA), and the SSD
               library's bfloat16 kernel, counted by function, holds
               HGMMA and UTMALDG and no HMMA (its float32 kernels keep
-              their split-TF32 mma.sync); then the
+              their split-TF32 mma.sync), and unless every flash-decode
+              instance holds bulk copies (UBLKCP) and the cluster barrier
+              (UCGABAR_ARV / _WAIT) with no spill; then the
               pivot kernels' lanes per CTA at the fleet shape, each SSD
               kernel's, the CCKP instances' and the RG-LRU geometries'
               dynamic shared memory and CTAs per SM (the occupancy
@@ -64,10 +66,14 @@ Phases, each printing JSON lines; any failure exits non-zero:
               sequences, 4 q heads on 1, head_dim 256, rings of 512 and
               1032 slots; recurrentgemma-9b: 16 q heads on 1, a ring of
               2048 slots), in bfloat16 and float32, with SDPA timed beside
-              it.  Flash attention also at recurrentgemma-9b's shape (2 x
-              4096 tokens, 16 heads on 1 KV head, head_dim 256, window
-              2048).  The RG-LRU recurrence kernel at recurrentgemma-9b's
-              forward and prefill shapes (2 x 4096, 4 x 2100 and 1 x
+              it, each row's device time queued behind a sleep
+              (`device_ms`), its plan (cluster size, keys per CTA,
+              clusters resident, bytes in flight) and the kernels one
+              call launches (one).  Flash attention also at
+              recurrentgemma-9b's shape (2 x 4096 tokens, 16 heads on 1
+              KV head, head_dim 256, window 2048).  The RG-LRU
+              recurrence kernel at recurrentgemma-9b's forward and
+              prefill shapes (2 x 4096, 4 x 2100 and 1 x
               2100 tokens x 4096 channels, a and b from the model's
               gates) and a ragged one (1 x 2085 x 999, a in (0.9, 1);
               again at W 1000, where the tiles load in 16-byte copies)
@@ -235,7 +241,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
               memory, launch counts (gemma3-1b: 26 flash per prefill, 26
               flash-decode per step; mamba2-130m: 24 SSD per prefill, none
               per step) and every logit against `forward` of all 1032
-              tokens (`GEN_*`); a profile of one gemma3-1b decode step.
+              tokens (`GEN_*`); a profile of one gemma3-1b decode step
+              (one `decode_attention_kernel` per attention layer).
      recurrentgemma  recurrentgemma-9b at full width and depth (38 layers:
               26 RG-LRU, 12 local attention of window 2048; d 4096, 16 q
               heads on 1 KV head, vocabulary 256000; 38.5 GB of float32
@@ -432,6 +439,8 @@ DECODE_SRC = ("src/repro_torch/kernels/decode_attention/csrc/"
               "decode_attention.cu")
 DECODE_TPU = ("src/repro/kernels/decode_attention/decode_attention.py:60")
 DECODE_LINE = ("gemma3_local", "bfloat16")  # the kernels line's shape
+DECODE_KERNEL = "decode_attention_kernel"   # the one kernel of a call
+PROFILED_CALLS = 5                  # flash-decode calls of a traced window
 # recurrentgemma-9b: a forward of 2 requests of 4096 tokens (past the local
 # window of 2048, so the window masks) and generation from 4 prompts of
 # 2100 tokens (the 2048-slot local rings wrap at prefill), 32 steps
@@ -600,6 +609,30 @@ def ssd_sass(path, instances) -> None:
     check(all(len(v) == 1 and v[0]["HGMMA"] > 0 and v[0]["UTMALDG"] > 0
               and v[0]["HMMA"] == 0 for v in bf16.values()),
           f"build: the SSD bfloat16 kernel is not wgmma + TMA alone: {bf16}")
+
+
+DECODE_SASS = ("UBLKCP", "UCGABAR_ARV", "UCGABAR_WAIT", "HMMA")
+
+
+def decode_sass(path, instances) -> None:
+    """The flash-decode library as Hopper code: every instance of
+    `decode_attention_kernel` holds bulk copies (UBLKCP) and the cluster
+    barrier (UCGABAR_ARV, UCGABAR_WAIT), counted by function in the SASS,
+    and ptxas reports no spill in any.  Prints each instance's registers
+    and spills and the counts."""
+    by_fn = {k: v for k, v in sass_by_function(path, DECODE_SASS).items()
+             if DECODE_KERNEL in k}
+    inst = [dict(kernel=i["kernel"], registers=i["registers"],
+                 spill_stores=i["spill_stores"],
+                 spill_loads=i["spill_loads"]) for i in instances]
+    emit("build", source=DECODE_SRC, sass_by_function=by_fn, instances=inst)
+    check(len(by_fn) == 18 and all(
+        v["UBLKCP"] > 0 and v["UCGABAR_ARV"] > 0 and v["UCGABAR_WAIT"] > 0
+        for v in by_fn.values()),
+        f"build: a flash-decode instance lacks bulk copies or the cluster "
+        f"barrier: {by_fn}")
+    check(all(i["spill_stores"] == 0 and i["spill_loads"] == 0
+              for i in inst), f"build: ptxas spills in {DECODE_SRC}: {inst}")
 
 
 def run(cmd) -> str:
@@ -3184,6 +3217,172 @@ def decode_work(rows, G, D, n_valid, itemsize, W, kv_itemsize=None):
     return nbytes, 4 * D * G * n_valid
 
 
+def host_us_per_call(fn, reps, torch) -> float:
+    """Microseconds of host time a call of ``fn()`` takes to enqueue, its
+    calls queued behind a device sleep so that the device never holds the
+    host back (the garbage collector off meanwhile)."""
+    torch.cuda.synchronize()
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        torch.cuda._sleep(AHEAD_CYCLES)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        t = time.perf_counter() - t0
+    finally:
+        if collecting:
+            gc.enable()
+    torch.cuda.synchronize()
+    return t / reps * 1e6
+
+
+def decode_trace(torch, dev, entry):
+    """The flash-decode kernels of `PROFILED_CALLS` calls of ``entry()``
+    under `torch.profiler`: ([{name, calls, ms}], kernels a call).  A trace
+    now and then misses a kernel, so up to 3 windows are traced (each
+    after a marker kernel) and the first whose count is a whole number of
+    kernels a call is kept."""
+    marker = torch.zeros(1, device=dev)
+
+    def traced():
+        marker.add_(1)
+        torch.cuda.synchronize()
+        for _ in range(PROFILED_CALLS):
+            entry()
+
+    for _ in range(3):
+        _s, _n, items = profiled(torch, traced, keep=("decode_",))
+        per_kernel = [d for d in items if "decode_" in d["name"]]
+        counts = {d["calls"] for d in per_kernel}
+        if counts == {PROFILED_CALLS}:
+            break
+    return per_kernel, sum(d["calls"] for d in per_kernel) / PROFILED_CALLS
+
+
+def decode_cases():
+    """(name, W, window, KH, G, D, index, q type, cache type) of every
+    flash-decode row: `DECODE_SHAPES` in bfloat16 and float32, then
+    `FAMILY_DECODE_SHAPES`."""
+    return [(name, W, window, 1, G, 256, index, dt, dt)
+            for name, W, window, G, index in DECODE_SHAPES
+            for dt in ("bfloat16", "float32")] + list(FAMILY_DECODE_SHAPES)
+
+
+def decode_row(torch, da_ops, da_ref, dev, g, case, reps=50):
+    """One flash-decode row through the model's entry (`decode_attention`,
+    the caches read in place, 4 sequences) at ``case`` (`decode_cases`):
+    the kernel against its plain version (float32 to 1e-5, bfloat16 to
+    2^-7 relative and absolute); the entry's mean time over ``reps``
+    calls (``ms``, the host's launch rate included), the device's
+    (``device_ms``, the same calls queued behind a device sleep) and the
+    host's alone (``host_us``, `host_us_per_call`); the flash-decode
+    kernels a call launches and their device time under `torch.profiler`
+    (`PROFILED_CALLS` calls); the plan (`ops.card_plan`: cluster size, keys per
+    CTA, clusters resident, bytes in flight per CTA; the splits of a tree
+    before it); SDPA on the same inputs as the library column, and the
+    bound.  ``da_ops`` may be another tree's (`time_decode.py`).  Returns
+    (row, ok)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    B = GEN_BATCH
+    name, W, window, KH, G, D, index, dname, kvname = case
+    dtype, kvdt = getattr(torch, dname), getattr(torch, kvname)
+    fp8 = kvdt == torch.float8_e4m3fn
+    H = KH * G
+    ok = da_ref.ring_validity(W, index, window, device=dev)
+    valid = ok[None].expand(B * KH, W).contiguous()
+    n_valid = int(valid.sum())
+    q = torch.randn((B, 1, H, D), generator=g, device=dev).to(dtype)
+    ck, cv = (torch.randn((B, W, KH, D), generator=g,
+                          device=dev).to(kvdt) for _ in range(2))
+    got = da_ops.decode_attention(q, ck, cv, index, window=window)
+    qg = da_ops.grouped_rows(q, KH)
+
+    def flat(c):                        # (B, W, KH, D) -> (B·KH, W, D)
+        b = c.view(torch.uint8) if fp8 else c
+        return b.transpose(1, 2).reshape(B * KH, W, D).view(c.dtype)
+
+    kf, vf = flat(ck), flat(cv)
+    want = da_ref.decode_attention_ref(qg, kf, vf, valid)
+    torch.cuda.synchronize()
+    err = (got.reshape(want.shape).float() - want.float()).abs().max().item()
+    rtol, atol = ((0.0, 1e-5) if dtype == torch.float32
+                  else (2.0 ** -7, 2.0 ** -7))
+    passed = torch.allclose(got.reshape(want.shape).float(), want.float(),
+                            rtol=rtol, atol=atol)
+
+    def entry():
+        return da_ops.decode_attention(q, ck, cv, index, window=window)
+
+    ms = cuda_ms(entry, [()] * reps, torch, warm_up=True)
+    device_ms = cuda_ms(entry, [()] * reps, torch, warm_up=True, ahead=True)
+    host_us = host_us_per_call(entry, reps, torch)
+    per_kernel, kernels_per_call = decode_trace(torch, dev, entry)
+    plain_ms = cuda_ms(lambda: da_ref.decode_attention_ref(
+        qg, kf, vf, valid), [()] * 10, torch)
+    qq = q.transpose(1, 2)                              # (B, H, 1, D)
+    kk, vv = ((c.to(dtype).transpose(1, 2).expand(B, H, W, D) if KH == 1
+               else c.to(dtype).transpose(1, 2).repeat_interleave(
+                   G, dim=1)) for c in (ck, cv))
+    mask = (ok != 0).view(1, 1, 1, W).expand(B, H, 1, W)
+
+    def library():
+        return sdpa(qq, kk, vv, attn_mask=mask)
+
+    lib_err = (library().transpose(1, 2).float()
+               - got.float()).abs().max().item()
+    library_ms = cuda_ms(library, [()] * reps, torch, warm_up=True)
+    nbytes, flops = decode_work(B * KH, G, D, n_valid, q.element_size(), W,
+                                ck.element_size())
+    bound_ms, bound_by = bound_of(
+        nbytes, flops, BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
+    if hasattr(da_ops, "card_plan"):
+        p = da_ops.card_plan(B * KH, G, W, D, KH, dtype, kvdt, dev)
+        plan = dict(cluster=p.cluster, head_blocks=p.head_blocks,
+                    keys_per_cta=p.keys_per_cta, tile_keys=p.tile_keys,
+                    stages=p.stages,
+                    clusters_resident=p.resident, ctas_per_sm=p.per_sm,
+                    ctas=B * KH * p.head_blocks * p.cluster,
+                    in_flight_bytes_per_cta=p.in_flight,
+                    in_flight_bytes_per_sm=p.in_flight * min(
+                        p.per_sm, -(-B * KH * p.head_blocks * p.cluster
+                                    // da_ops.sm_count(dev))),
+                    bulk=p.bulk, smem=p.smem)
+    else:
+        plan = dict(splits=list(da_ops.splits(B * KH, W,
+                                              da_ops.sm_count(dev))))
+    row = dict(max_abs_err=err, ms=ms, device_ms=device_ms,
+               host_us=host_us, plain_ms=plain_ms,
+               library_ms=None if fp8 else library_ms,
+               library_max_abs_err=lib_err, bytes=nbytes, flops=flops,
+               bound_ms=bound_ms, bound_by=bound_by,
+               tflops=flops / ms * 1e-9, bound_share=bound_ms / ms,
+               device_bound_share=bound_ms / device_ms,
+               kernels_per_call=kernels_per_call,
+               kernels=[dict(name=d["name"], calls=d["calls"],
+                             us_per_call=d["ms"] * 1e3 / d["calls"])
+                        for d in per_kernel],
+               dims=dict(B=B, W=W, KH=KH, G=G, D=D, index=index,
+                         window=window, live=n_valid // (B * KH)),
+               plan=plan)
+    if fp8:
+        row["library_widened_ms"] = library_ms
+    return row, passed
+
+
+def check_decode_kernels(top, n_attn, what):
+    """A profiled decode step (`profiled`'s items, ``keep`` holding
+    `DECODE_KERNEL`) ran `DECODE_KERNEL` and no other flash-decode kernel
+    (the combine of an earlier design), at most once per attention layer
+    (the launch counters hold the step to exactly one launch a layer; a
+    trace now and then misses a kernel)."""
+    calls = {d["name"]: d["calls"] for d in top if "decode_" in d["name"]}
+    check(0 < sum(calls.values()) <= n_attn
+          and all(DECODE_KERNEL in name for name in calls),
+          f"{what}: a decode step ran flash-decode kernels {calls}, "
+          f"expected {n_attn} {DECODE_KERNEL}")
+
+
 def phase_decode_kernel(torch, dev):
     """The flash-decode kernel through the model's entry
     (`decode_attention`, the caches read in place) against its plain
@@ -3192,91 +3391,32 @@ def phase_decode_kernel(torch, dev):
     position 1016 from a local ring of 512 slots (window 512, all slots
     live) and a global one of max_seq = 1032 slots (1017 live), and
     recurrentgemma-9b's 16 q heads decoding position 2116 from a local
-    ring of 2048 slots (window 2048, all live); in bfloat16 and float32
-    (float32 to 1e-5, bfloat16 to 2^-7 relative and absolute).  Then the
-    LM families' shapes (`FAMILY_DECODE_SHAPES`: 8 KV heads of head_dim
-    128, internvl2's float8_e4m3fn cache at group 8, groups 6 and 7 in
-    bfloat16).  The library column is `scaled_dot_product_attention` of
-    (B, H, 1, D) against the KV expanded to the H heads with the boolean
+    ring of 2048 slots (window 2048, all live); in bfloat16 and float32.
+    Then the LM families' shapes (`FAMILY_DECODE_SHAPES`: 8 KV heads of
+    head_dim 128, internvl2's float8_e4m3fn cache at group 8, groups 6
+    and 7 in bfloat16).  Each row as `decode_row` makes it, one kernel a
+    call.  The library column is `scaled_dot_product_attention` of (B, H,
+    1, D) against the KV expanded to the H heads with the boolean
     validity mask; a float8 cache has no such call (SDPA takes no float8
     K/V): its row gives SDPA on the cache widened to bfloat16 beforehand
     as ``library_widened_ms`` and ``library_ms`` null."""
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.decode_attention import ref as da_ref
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    B = GEN_BATCH
     g = torch.Generator(device=dev).manual_seed(23)
     rows = {}
-    cases = [(name, W, window, 1, G, 256, index, dt, dt)
-             for name, W, window, G, index in DECODE_SHAPES
-             for dt in ("bfloat16", "float32")] + list(FAMILY_DECODE_SHAPES)
-    for name, W, window, KH, G, D, index, dname, kvname in cases:
-        dtype, kvdt = getattr(torch, dname), getattr(torch, kvname)
-        fp8 = kvdt == torch.float8_e4m3fn
-        H = KH * G
-        ok = da_ref.ring_validity(W, index, window, device=dev)
-        valid = ok[None].expand(B * KH, W).contiguous()
-        n_valid = int(valid.sum())
-        q = torch.randn((B, 1, H, D), generator=g, device=dev).to(dtype)
-        ck, cv = (torch.randn((B, W, KH, D), generator=g,
-                              device=dev).to(kvdt) for _ in range(2))
-        got = da_ops.decode_attention(q, ck, cv, index, window=window)
-        qg = da_ops.grouped_rows(q, KH)
-
-        def flat(c):                    # (B, W, KH, D) -> (B·KH, W, D)
-            b = c.view(torch.uint8) if fp8 else c
-            return b.transpose(1, 2).reshape(B * KH, W, D).view(c.dtype)
-
-        kf, vf = flat(ck), flat(cv)
-        want = da_ref.decode_attention_ref(qg, kf, vf, valid)
-        torch.cuda.synchronize()
-        err = (got.reshape(want.shape).float()
-               - want.float()).abs().max().item()
-        rtol, atol = ((0.0, 1e-5) if dtype == torch.float32
-                      else (2.0 ** -7, 2.0 ** -7))
-        check(torch.allclose(got.reshape(want.shape).float(),
-                             want.float(), rtol=rtol, atol=atol),
-              f"decode_attention_fwd {name} {dname}/{kvname} disagrees "
-              f"with its plain version (max {err})")
-        ms = cuda_ms(lambda: da_ops.decode_attention(
-            q, ck, cv, index, window=window), [()] * 50, torch,
-            warm_up=True)
-        plain_ms = cuda_ms(lambda: da_ref.decode_attention_ref(
-            qg, kf, vf, valid), [()] * 10, torch)
-        qq = q.transpose(1, 2)                              # (B, H, 1, D)
-        kk, vv = ((c.to(dtype).transpose(1, 2).expand(B, H, W, D) if KH == 1
-                   else c.to(dtype).transpose(1, 2).repeat_interleave(
-                       G, dim=1)) for c in (ck, cv))
-        mask = (ok != 0).view(1, 1, 1, W).expand(B, H, 1, W)
-
-        def library():
-            return sdpa(qq, kk, vv, attn_mask=mask)
-
-        lib_err = (library().transpose(1, 2).float()
-                   - got.float()).abs().max().item()
-        library_ms = cuda_ms(library, [()] * 50, torch, warm_up=True)
-        nbytes, flops = decode_work(B * KH, G, D, n_valid,
-                                    q.element_size(), W, ck.element_size())
-        bound_ms, bound_by = bound_of(
-            nbytes, flops,
-            BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
-        row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                   library_ms=None if fp8 else library_ms,
-                   library_max_abs_err=lib_err,
-                   bytes=nbytes, flops=flops, bound_ms=bound_ms,
-                   bound_by=bound_by, tflops=flops / ms * 1e-9,
-                   bound_share=bound_ms / ms)
-        if fp8:
-            row["library_widened_ms"] = library_ms
+    for case in decode_cases():
+        name, dname, kvname = case[0], case[7], case[8]
+        row, passed = decode_row(torch, da_ops, da_ref, dev, g, case)
+        check(passed, f"decode_attention_fwd {name} {dname}/{kvname} "
+                      f"disagrees with its plain version "
+                      f"(max {row['max_abs_err']})")
+        check(row["kernels_per_call"] == 1
+              and DECODE_KERNEL in row["kernels"][0]["name"],
+              f"decode_attention_fwd {name} {dname}/{kvname}: a call "
+              f"launched {row['kernels']}, not one {DECODE_KERNEL}")
         emit("kernels", kernel="decode_attention_fwd", shape=name,
-             dtype=dname, kv_dtype=kvname,
-             dims=dict(B=B, W=W, KH=KH, G=G, D=D, index=index,
-                       window=window, live=n_valid // (B * KH),
-                       splits=list(da_ops.splits(B * KH, W,
-                                                 da_ops.sm_count(dev)))),
-             **row)
+             dtype=dname, kv_dtype=kvname, **row)
         rows[(name, dname)] = row
-        del q, ck, cv, kk, vv, kf, vf, want, got
     phase_fp8_cast(torch, dev)
     return rows
 
@@ -3780,11 +3920,13 @@ def phase_lm_generate(torch, dev, arch, params=None, n_prompt=GEN_PROMPT):
             cmp = compare_logits(got, ref, V)
             if arch in ("gemma3_1b", RG_ARCH) and dname == "bfloat16":
                 device_s, n_launch, top = profiled(torch, lambda: (
-                    decode_step(params, tokens[:, -1:], cache, c)))
+                    decode_step(params, tokens[:, -1:], cache, c)),
+                    keep=(DECODE_KERNEL,))
                 emit("profile", path=f"lm_generate {cfg.name} decode_step",
                      device_seconds=device_s, wall_seconds=min(walls),
                      busy_share=device_s / min(walls),
                      n_kernel_launches=n_launch, top=top)
+                check_decode_kernels(top, n_attn, f"lm_generate {arch}")
             del cache, empty, got, ref
         emit("lm_generate", model=cfg.name, dtype=dname, batch=GEN_BATCH,
              prompt=n_prompt, steps=GEN_STEPS, max_seq=max_seq,
@@ -4018,12 +4160,15 @@ def family_generate(torch, dev, cfg, params, n_seq, n_prompt):
             if kv == kinds[0]:          # one more step, profiled
                 device_s, n_launch, top = profiled(torch, lambda: (
                     decode_step(params, tokens[:, -1:], cache, c)),
-                    keep=("decode_partial_kernel", "flash_tc_kernel"))
+                    keep=(DECODE_KERNEL, "flash_wgmma_kernel"))
                 emit("profile", path=f"lm_generate {cfg.name} decode_step",
                      kv_cache=kv, device_seconds=device_s,
                      wall_seconds=min(walls),
                      busy_share=device_s / min(walls),
                      n_kernel_launches=n_launch, top=top)
+                check_decode_kernels(
+                    top, want_dec["decode_attention_fwd"] // GEN_STEPS,
+                    f"lm_generate {cfg.name} {kv}")
             check(cache_leaves(empty) == cache_leaves(cache)
                   and cache["index"] == max_seq,
                   f"lm_generate {cfg.name} {kv}: init_cache and prefill "
@@ -4819,6 +4964,8 @@ def main() -> int:
             flash_sass(path, instances)
         if source == SSD_SRC:
             ssd_sass(path, instances)
+        if source == DECODE_SRC:
+            decode_sass(path, instances)
     emit("build", seconds=time.perf_counter() - t0)
     emit("build", occupancy=dict(
         simplex_pivot=ops.occupancy("simplex_pivot", R + 1, C0 + 1),

@@ -16,16 +16,17 @@
 K and V may be float32, bfloat16 or float8_e4m3fn (the last with a
 bfloat16 or float32 q); they are taken in q's type, as the reference's
 wrapper casts the cache: on the card the kernel widens each float8
-element exactly as it loads it, so no widened copy of the ring is made.
-The output is in q's type.  On a
-CUDA tensor the hand-written kernel runs, built at first use with
-``nvcc`` into ``build/kernels/`` of the checkout and bound with `ctypes`:
-the cache is cut into `splits` of whole 64-key blocks, one CTA per
-(row, split, 16 q heads).  A call is two CUDA launches (the split
-partials, then their combine, one CTA per (row, q head)) and adds one to
-``decode_attention_fwd.launches``.  On a CPU tensor the plain version in
-`ref.py` runs and nothing is counted.  There is no fallback: a CUDA
-tensor gets the kernel or an exception.
+element exactly as it reads it, so no widened copy of the ring is made.
+The output is in q's type.  On a CUDA tensor the hand-written kernel
+runs, built at first use with ``nvcc`` into ``build/kernels/`` of the
+checkout and bound with `ctypes`: a call is one launch of thread-block
+clusters, one per (row, 16 q heads), whose CTAs split the row's whole
+64-key blocks and merge their pieces through distributed shared memory
+(`plan` sizes it), and adds one to ``decode_attention_fwd.launches``.
+The plan of a shape is made once and kept (`_PLANS`), so a call costs
+its checks, the output's allocation and one C call.  On a CPU tensor the
+plain version in `ref.py` runs and nothing is counted.  There is no
+fallback: a CUDA tensor gets the kernel or an exception.
 
 The kernel has no backward, as the reference's ``pallas_call`` has
 none: with grad enabled and an input that requires it, every entry
@@ -37,11 +38,11 @@ from __future__ import annotations
 import ctypes
 import functools
 from pathlib import Path
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from .._build import (Library, check_tensor, copy_width, raise_on,
-                      refuse_grad, stream_of)
+from .._build import Library, check_tensor, raise_on, refuse_grad, stream_of
 from .ref import decode_attention_ref, ring_validity
 
 # the plain path (decoding is never differentiated in the model)
@@ -51,15 +52,28 @@ _DTYPES = (torch.float32, torch.bfloat16)
 # the cache types the kernel reads, by its launcher's code
 KV_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
 MAX_HEAD_DIM = 256
-SPLIT_KEYS = 64                         # a split is whole blocks of these
+BLOCK_KEYS = 64                         # a CTA's run is whole blocks of these
+HEADS = 16                              # q heads of one cluster
+STAGES = 3                              # the bulk-copy ring
+MAX_CLUSTER = 16                        # CTAs of a cluster (non-portable > 8)
+SMEM_LIMIT = 232448                     # a block's opt-in shared memory
+
+
+class _PlanArgs(ctypes.Structure):
+    """The C launcher's ``DecodePlan``, field for field."""
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "instance", "rows", "G", "W", "D", "kh", "valid_stride", "n_blocks",
+        "cluster", "head_blocks")] + [("scale", ctypes.c_float)]
 
 
 def _declare(lib: ctypes.CDLL) -> None:
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.decode_attention_launch.argtypes = [
-        P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, ctypes.c_float, I, I,
-        I, P]
-    lib.decode_attention_launch.restype = I
+    lib.decode_attention_prepare.argtypes = [I, I, ctypes.POINTER(I),
+                                             ctypes.POINTER(I),
+                                             ctypes.POINTER(I)]
+    lib.decode_attention_prepare.restype = I
+    lib.decode_attention_run.argtypes = [P, P, P, P, P, P, P]
+    lib.decode_attention_run.restype = I
 
 
 LIBRARY = Library(Path(__file__).resolve().parent / "csrc"
@@ -78,66 +92,202 @@ def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def splits(rows: int, W: int, sms: int):
-    """(number of splits, keys per split) of a W-slot cache over ``rows``
-    (batch, kv-head) rows: whole 64-key blocks, about one split per SM in
-    all (a CTA of the partial kernel takes ~150 KB of shared memory at
-    D = 256, so one fits an SM), at most one split per block."""
-    blocks = -(-W // SPLIT_KEYS)
-    nsplit = max(1, min(blocks, -(-sms // max(rows, 1))))
-    per = -(-blocks // nsplit)
-    return -(-blocks // per), per * SPLIT_KEYS
+# ---------------------------------------------------------------------------
+# the launch plan (pure Python: mirrors the source's `Layout` and runs)
+# ---------------------------------------------------------------------------
+def padded_width(D: int) -> int:
+    """The kernel instance's width: D padded to 64, 128 or 256."""
+    return 64 if D <= 64 else 128 if D <= 128 else 256
 
 
-_SCRATCH = {}                           # (device index, stream) -> buffer
+def tile_keys(q_dtype: torch.dtype, kv_dtype: torch.dtype) -> int:
+    """Keys of a ring stage: 32 where q or the cache is float32, else 64."""
+    return 32 if torch.float32 in (q_dtype, kv_dtype) else 64
 
 
-def _scratch(n: int, dev: torch.device, stream: int) -> torch.Tensor:
-    """A float32 buffer of at least ``n`` elements for the partials of
-    launches on ``stream``.  Launches on one stream run in order, so a
-    call's combine has read the buffer before the next call's partials
-    write it; each stream has its own."""
-    buf = _SCRATCH.get((dev.index, stream))
-    if buf is None or buf.numel() < n:
-        buf = torch.empty(n, dtype=torch.float32, device=dev)
-        _SCRATCH[(dev.index, stream)] = buf
-    return buf
+def smem_bytes(q_dtype: torch.dtype, kv_dtype: torch.dtype, D: int) -> int:
+    """Dynamic shared memory of one CTA (the source's ``Layout::kBytes``):
+    the ring's K and V tiles of every stage (8 groups of tile_keys / 8
+    rows, 16 bytes of padding a group), a widened bfloat16 tile for a
+    float8 cache under bfloat16 q, Q, two tiles of scores (bfloat16 q) or
+    the scores and P (float32 q), the per-head rescale and the full and
+    empty mbarriers."""
+    qb = 2 if q_dtype == torch.bfloat16 else 4
+    gb = torch.empty(0, dtype=kv_dtype).element_size()
+    dp, tk = padded_width(D), tile_keys(q_dtype, kv_dtype)
+    ring = 2 * STAGES * 8 * (tk // 8 * dp * gb + 16)
+    wide = 2 * 8 * (tk // 8 * dp * 2 + 16) if (qb == 2 and gb == 1) else 0
+    scores = 2 * 4 * HEADS * (tk + 4)
+    return (ring + wide + qb * HEADS * (dp + 16 // qb) + scores + 4 * HEADS
+            + 16 * STAGES)
 
 
-def _launch(q, k, v, valid, valid_stride: int, kh: int, W: int):
-    """Launch the kernel: q (rows, G, D); k and v rows of W keys, row r
-    being kv head r % kh of batch r // kh in a (B, W, kh, D) buffer;
-    valid row r at ``valid_stride * r``."""
-    rows, G, D = q.shape
+def instance(q_dtype: torch.dtype, kv_dtype: torch.dtype, D: int) -> int:
+    """The launcher's kernel instance: (q bf16, cache type, width)."""
+    width = {64: 0, 128: 1, 256: 2}[padded_width(D)]
+    return ((int(q_dtype == torch.bfloat16) * 3 + KV_TYPES[kv_dtype]) * 3
+            + width)
+
+
+class Plan(NamedTuple):
+    """How one shape is launched.  ``cluster`` CTAs per (row, 16 q heads),
+    ``head_blocks`` = ceil(G / 16) such clusters per row; the
+    row's ``blocks`` 64-key blocks split into runs (`cta_runs`) of at most
+    ``keys_per_cta`` keys, walked in tiles of ``tile_keys`` through a ring
+    of ``stages``; ``bulk``: a cache row is a multiple of 16 bytes, so K
+    and V arrive by copies (given 16-byte aligned pointers, which the
+    launcher checks per call), else by element loads; ``in_flight``: the
+    bytes of K and V a CTA has in flight once its ring is full;
+    ``per_sm``: CTAs an SM holds; ``resident``: clusters of this size
+    that can run at once on the card (None for a plan made without
+    one)."""
+    cluster: int
+    head_blocks: int
+    blocks: int
+    keys_per_cta: int
+    tile_keys: int
+    stages: int
+    width: int
+    smem: int
+    bulk: bool
+    in_flight: int
+    instance: int
+    per_sm: int
+    resident: Optional[int]
+
+
+def cta_runs(W: int, blocks: int, cluster: int):
+    """[(first slot, end slot)] of each CTA of a cluster: CTA r takes the
+    whole blocks [r blocks / C, (r + 1) blocks / C), as the kernel does."""
+    return [(r * blocks // cluster * BLOCK_KEYS,
+             min(W, (r + 1) * blocks // cluster * BLOCK_KEYS))
+            for r in range(cluster)]
+
+
+def plan(rows: int, G: int, W: int, D: int, kh: int, q_dtype: torch.dtype,
+         kv_dtype: torch.dtype, sms: int,
+         resident: Optional[Callable[[int], int]] = None,
+         per_sm: int = 1) -> Plan:
+    """The launch of a (rows, G, W, D) call with ``kh`` kv heads a batch
+    row on a card of ``sms`` SMs that hold ``per_sm`` CTAs each.  The
+    cluster size C aims rows x head_blocks x C at one CTA per slot, at most
+    16 and at most one CTA per 64-key block (so no run is empty), and then
+    shrinks until every cluster is resident at once: ``resident(C)`` gives
+    how many clusters of C fit the card (on the card, the occupancy
+    calculator; by default ``sms per_sm // C``)."""
+    del kh                              # rows of any stride plan alike
+    blocks = -(-W // BLOCK_KEYS)
+    slots = sms * per_sm
+    head_blocks = -(-G // HEADS)
+    per_row = rows * head_blocks
+    fits = resident or (lambda c: slots // c)
+    C = max(1, min(MAX_CLUSTER, blocks, slots // max(per_row, 1)))
+    while C > 1 and fits(C) < per_row:
+        C -= 1
+    tk = tile_keys(q_dtype, kv_dtype)
+    kv_bytes = torch.empty(0, dtype=kv_dtype).element_size()
+    keys = -(-blocks // C) * BLOCK_KEYS
+    longest = max(e - b for b, e in cta_runs(W, blocks, C))
+    return Plan(cluster=C, head_blocks=head_blocks,
+                blocks=blocks, keys_per_cta=keys, tile_keys=tk,
+                stages=STAGES, width=padded_width(D),
+                smem=smem_bytes(q_dtype, kv_dtype, D),
+                bulk=D * kv_bytes % 16 == 0,
+                in_flight=2 * min(longest, STAGES * tk) * D * kv_bytes,
+                instance=instance(q_dtype, kv_dtype, D), per_sm=per_sm,
+                resident=fits(C) if resident else None)
+
+
+# ---------------------------------------------------------------------------
+# the card
+# ---------------------------------------------------------------------------
+_PLANS = {}     # (rows, G, W, D, kh, valid stride, q, kv, device) -> launch
+_OCCUPANCY = {}  # (instance, cluster, device index) -> (per SM, resident)
+
+
+def _occupancy(lib, inst: int, dev: torch.device, smem: int, C: int):
+    """(CTAs an SM holds, clusters of C CTAs resident at once) of instance
+    ``inst`` on ``dev``, setting the instance's attributes there on first
+    use."""
+    key = (inst, C, dev.index)
+    if key not in _OCCUPANCY:
+        got_smem, per_sm, n = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        with torch.cuda.device(dev):
+            raise_on(lib.decode_attention_prepare(inst, C, got_smem, per_sm,
+                                                  n),
+                     "decode_attention_fwd")
+        if got_smem.value != smem:
+            raise RuntimeError(f"decode_attention: the kernel takes "
+                               f"{got_smem.value} bytes of shared memory, "
+                               f"ops.smem_bytes says {smem}")
+        _OCCUPANCY[key] = (per_sm.value, n.value)
+    return _OCCUPANCY[key]
+
+
+def card_plan(rows: int, G: int, W: int, D: int, kh: int,
+              q_dtype: torch.dtype, kv_dtype: torch.dtype,
+              dev: torch.device) -> Plan:
+    """`plan` on the card ``dev``: its SMs, the CTAs an SM holds and the
+    clusters it holds at once, from the occupancy calculator."""
+    _check_dtypes(q_dtype, kv_dtype, D)
+    lib = library()
+    inst = instance(q_dtype, kv_dtype, D)
+    smem = smem_bytes(q_dtype, kv_dtype, D)
+
+    def occ(C):
+        return _occupancy(lib, inst, dev, smem, C)
+
+    p = plan(rows, G, W, D, kh, q_dtype, kv_dtype, sm_count(dev),
+             lambda C: occ(C)[1], per_sm=max(1, occ(1)[0]))
+    if p.resident < 1:
+        raise RuntimeError(f"decode_attention: no cluster of {p.cluster} "
+                           f"CTAs of {smem} bytes fits {dev}")
+    return p
+
+
+def _new_launch(key, dev: torch.device):
+    rows, G, W, D, kh, valid_stride, q_dtype, kv_dtype, _index = key
+    p = card_plan(rows, G, W, D, kh, q_dtype, kv_dtype, dev)
+    args = _PlanArgs(p.instance, rows, G, W, D, kh, valid_stride, p.blocks,
+                     p.cluster, p.head_blocks, D ** -0.5)
+    return p, args, ctypes.addressof(args), library().decode_attention_run
+
+
+def _launch(q, k, v, valid, valid_stride: int, kh: int, W: int, rows: int,
+            G: int, out: torch.Tensor) -> torch.Tensor:
+    """Launch the kernel: q (rows, G, D) contiguous; k and v rows of W
+    keys, row r being kv head r % kh of batch r // kh in a (B, W, kh, D)
+    buffer; valid row r at ``valid_stride * r``; the output into ``out``
+    (q's shape and type)."""
     dev = q.device
-    stream = stream_of(dev)
-    nsplit, per = splits(rows, W, sm_count(dev))
-    # float32 scratch: the partials (rows, nsplit, G, D), then their
-    # (m, l) pairs (rows, nsplit, G, 2)
-    n_part = rows * nsplit * G * D
-    scratch = _scratch(n_part + rows * nsplit * G * 2, dev, stream)
-    out = torch.empty_like(q)
-    err = library().decode_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
-        scratch.data_ptr(), scratch.data_ptr() + 4 * n_part,
-        out.data_ptr(), rows, G, W, D, kh,
-        valid_stride, nsplit, per, float(D ** -0.5),
-        int(q.dtype == torch.bfloat16), KV_TYPES[k.dtype],
-        copy_width(D * k.element_size(), k, v), stream)
-    raise_on(err, "decode_attention_fwd")
+    key = (rows, G, W, q.shape[-1], kh, valid_stride, q.dtype, k.dtype,
+           dev.index)
+    launch = _PLANS.get(key)
+    if launch is None:
+        launch = _PLANS[key] = _new_launch(key, dev)
+    _p, _args, addr, run = launch
+    raise_on(run(addr, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 valid.data_ptr(), out.data_ptr(), stream_of(dev)),
+             "decode_attention_fwd")
     decode_attention_fwd.launches += 1
     return out
 
 
+def _check_dtypes(q_dtype, kv_dtype, D: int) -> None:
+    if q_dtype not in _DTYPES or kv_dtype not in KV_TYPES:
+        raise TypeError(f"decode_attention takes q in {_DTYPES} and k, v "
+                        f"of one type in {tuple(KV_TYPES)}; got {q_dtype}, "
+                        f"{kv_dtype}")
+    if D > MAX_HEAD_DIM:
+        raise ValueError(f"head_dim must be at most {MAX_HEAD_DIM}, got {D}")
+
+
 def _check_types(q, k, v) -> None:
-    if q.dtype not in _DTYPES or k.dtype not in KV_TYPES \
-            or v.dtype != k.dtype:
+    if v.dtype != k.dtype:
         raise TypeError(f"decode_attention takes q in {_DTYPES} and k, v "
                         f"of one type in {tuple(KV_TYPES)}; got {q.dtype}, "
                         f"{k.dtype}, {v.dtype}")
-    D = q.shape[-1]
-    if D > MAX_HEAD_DIM:
-        raise ValueError(f"head_dim must be at most {MAX_HEAD_DIM}, got {D}")
+    _check_dtypes(q.dtype, k.dtype, q.shape[-1])
 
 
 def decode_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -168,7 +318,7 @@ def decode_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check_tensor("k", k, k.dtype, (rows, W, D), dev)
     check_tensor("v", v, k.dtype, (rows, W, D), dev)
     check_tensor("valid", valid, torch.int32, (rows, W), dev)
-    return _launch(q, k, v, valid, W, 1, W)
+    return _launch(q, k, v, valid, W, 1, W, rows, G, torch.empty_like(q))
 
 
 decode_attention_fwd.launches = 0
@@ -189,7 +339,8 @@ def _validity(W: int, index: int, window: int, device: torch.device
 
 def grouped_rows(q: torch.Tensor, KH: int) -> torch.Tensor:
     """(B, 1, H, D) -> contiguous (B·KH, G, D), G = H // KH: row b·KH + h
-    holds the q heads h·G .. h·G + G - 1 of batch b."""
+    holds the q heads h·G .. h·G + G - 1 of batch b.  A contiguous q
+    already lies so: the kernel reads it in place."""
     B, _, H, D = q.shape
     return q.reshape(B * KH, H // KH, D).contiguous()
 
@@ -209,22 +360,23 @@ def decode_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
     index, window = int(index), int(window)
     if index < 0 or window < 0 or W < 1:
         raise ValueError(f"index {index}, window {window}, W {W}")
-    qg = grouped_rows(q, KH)
-    for name, t in (("ck", ck), ("cv", cv)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    if not (ck.is_contiguous() and cv.is_contiguous()):
+        raise ValueError("ck and cv must be contiguous")
     dev = q.device
     ok = _validity(W, index, window, dev)
-    if dev.type == "cpu":
-        kf = ck.transpose(1, 2).reshape(B * KH, W, D)
-        vf = cv.transpose(1, 2).reshape(B * KH, W, D)
-        o = decode_attention_ref(qg, kf, vf, ok[None].expand(B * KH, W))
-    elif dev.type == "cuda":
-        _check_types(qg, ck, cv)        # shapes and layout checked above
+    if dev.type == "cuda":
         if ck.device != dev or cv.device != dev:
             raise ValueError(f"caches on {ck.device}, {cv.device}, "
                              f"expected {dev}")
-        o = _launch(qg, ck, cv, ok, 0, KH, W)
-    else:
+        if cv.dtype != ck.dtype:        # q's and the cache's types: `plan`
+            _check_types(q, ck, cv)
+        qc = q if q.is_contiguous() else q.contiguous()
+        return _launch(qc, ck, cv, ok, 0, KH, W, B * KH, H // KH,
+                       torch.empty_like(qc))
+    if dev.type != "cpu":
         raise ValueError(f"no decode_attention kernel for {dev}")
+    qg = grouped_rows(q, KH)
+    kf = ck.transpose(1, 2).reshape(B * KH, W, D)
+    vf = cv.transpose(1, 2).reshape(B * KH, W, D)
+    o = decode_attention_ref(qg, kf, vf, ok[None].expand(B * KH, W))
     return o.view(B, 1, H, D)

@@ -42,10 +42,12 @@ the chunk's cumulative decay, which it sums in float32, while the kernels
 sum it in float64 and take their products on the tensor cores with
 every float32 operand split (bfloat16 inputs: three bfloat16 parts, 24
 bits; float32 inputs: two TF32 parts, ~2^-22 of each product); the flash-decode kernel as the flash
-kernel (1e-5 in float32, 2^-7 in bfloat16: p is rounded
-against a running max per 32-key block; a float8 cache is widened
+kernel (1e-5 in float32, 2^-7 in bfloat16: p is rounded to bfloat16
+against a running max per 64-key tile, and its exponential is the
+special-function unit's, ~2^-22 relative; a float8 cache is widened
 exactly on both sides, so the same bars hold, and a lone valid slot
-gives its V row bit for bit); the small generation run's
+gives its V row bit for bit; the cluster's merge adds the runs in
+another order than the plain version); the small generation run's
 float32 logits to 1e-4, as the forward's; the RG-LRU recurrence kernel
 and its plain log-step scan each to 1e-5 max(1, max |h|) of the float64
 recurrence, and to that of each other (0 < a < 1: the recurrence is
@@ -772,27 +774,42 @@ DECODE_CASES = [  # (rows, W, G, D, q dtype, kv dtype)
     (4, 1000, 6, 128, torch.bfloat16, torch.bfloat16),
     (4, 1000, 7, 128, torch.bfloat16, torch.bfloat16),
     (1, 4096, 4, 80, torch.bfloat16, torch.bfloat16),
+    # the one-launch kernel's edges: W of one slot, one block less one
+    # slot, one more, and past recurrentgemma's ring; groups 1 and 17 (two
+    # head blocks); D 64, 80, 128, 256 and 72 (bf16: 144-byte rows by bulk
+    # copies; float8: 72-byte rows by element loads); float8 under bf16 q
+    # at the model's widths and past one 64-key tile
+    (4, 1, 4, 256, torch.bfloat16, torch.bfloat16),
+    (4, 63, 4, 256, torch.bfloat16, torch.bfloat16),
+    (4, 65, 4, 256, torch.bfloat16, torch.bfloat16),
+    (4, 2049, 16, 256, torch.bfloat16, torch.bfloat16),
+    (2, 2049, 4, 128, torch.float32, torch.float32),
+    (4, 1032, 1, 256, torch.bfloat16, torch.bfloat16),
+    (4, 1032, 17, 256, torch.bfloat16, torch.bfloat16),
+    (3, 777, 17, 128, torch.float32, torch.bfloat16),
+    (4, 1032, 4, 64, torch.bfloat16, torch.bfloat16),
+    (4, 1032, 4, 80, torch.bfloat16, torch.bfloat16),
+    (4, 1032, 4, 128, torch.bfloat16, torch.bfloat16),
+    (4, 1032, 4, 72, torch.bfloat16, torch.bfloat16),
+    (4, 1032, 8, 72, torch.bfloat16, torch.float8_e4m3fn),
+    (2, 1032, 4, 72, torch.float32, torch.float32),
+    (4, 1032, 8, 128, torch.float32, torch.float8_e4m3fn),
+    (4, 2048, 16, 256, torch.bfloat16, torch.float8_e4m3fn),
+    (4, 65, 8, 256, torch.bfloat16, torch.float8_e4m3fn),
 ]
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("case", DECODE_CASES)
-def test_cuda_decode_kernel_matches_plain_version(cuda_device, monkeypatch,
-                                                  case):
+def _decode_case(case, seed):
     rows, W, G, D, qdt, kvdt = case
-    g = torch.Generator().manual_seed(W + D)
+    g = torch.Generator().manual_seed(seed)
     q = torch.randn(rows, G, D, generator=g).to(qdt)
     k, v = (torch.randn(rows, W, D, generator=g).to(kvdt) for _ in range(2))
     valid = (torch.rand(rows, W, generator=g) > 0.3).to(torch.int32)
     valid[:, -1] = 1
-    want = da_ref.decode_attention_ref(q, k, v, valid)
-    monkeypatch.setattr(da_ops, "decode_attention_ref", _fail_if_called)
-    da_ops.reset_launches()
-    got = da_ops.decode_attention_fwd(*(t.to(cuda_device)
-                                        for t in (q, k, v, valid)))
-    torch.cuda.synchronize()
-    assert da_ops.decode_attention_fwd.launches == 1
-    assert got.dtype == qdt and got.shape == q.shape
+    return q, k, v, valid
+
+
+def _assert_decode_close(got, want, qdt):
     tol = 1e-5 if qdt == torch.float32 else 2.0 ** -7
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().numpy(),
@@ -801,15 +818,148 @@ def test_cuda_decode_kernel_matches_plain_version(cuda_device, monkeypatch,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", DECODE_CASES)
+def test_cuda_decode_kernel_matches_plain_version(cuda_device, monkeypatch,
+                                                  case):
+    rows, W, G, D, qdt, kvdt = case
+    q, k, v, valid = _decode_case(case, W + D)
+    want = da_ref.decode_attention_ref(q, k, v, valid)
+    monkeypatch.setattr(da_ops, "decode_attention_ref", _fail_if_called)
+    da_ops.reset_launches()
+    got = da_ops.decode_attention_fwd(*(t.to(cuda_device)
+                                        for t in (q, k, v, valid)))
+    torch.cuda.synchronize()
+    assert da_ops.decode_attention_fwd.launches == 1
+    assert got.dtype == qdt and got.shape == q.shape
+    _assert_decode_close(got, want, qdt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cluster", range(1, 17))
+def test_cuda_decode_every_cluster_size(cuda_device, monkeypatch, cluster):
+    """Two rows whose caches hold ``cluster`` 64-key blocks (the last one
+    ragged): the plan takes one CTA a block, so every cluster size from 1
+    to 16 merges its runs, in bf16 over a bf16 cache and over a float8
+    one."""
+    W = 64 * cluster - 5
+    plan = da_ops.card_plan(2, 8, W, 128, 1, torch.bfloat16, torch.bfloat16,
+                            cuda_device)
+    assert plan.cluster == cluster and plan.resident >= 2
+    monkeypatch.setattr(da_ops, "decode_attention_ref", _fail_if_called)
+    for kvdt in (torch.bfloat16, torch.float8_e4m3fn):
+        q, k, v, valid = _decode_case((2, W, 8, 128, torch.bfloat16, kvdt),
+                                      cluster)
+        want = da_ref.decode_attention_ref(q, k, v, valid)
+        got = da_ops.decode_attention_fwd(*(t.to(cuda_device)
+                                            for t in (q, k, v, valid)))
+        _assert_decode_close(got, want, torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qdt,kvdt", [
+    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float8_e4m3fn),
+    (torch.float32, torch.float32)])
+def test_cuda_decode_merges_runs_without_valid_slots(cuda_device,
+                                                    monkeypatch, qdt, kvdt):
+    """1032 slots over a cluster of 16 CTAs: row 0's only valid slot is
+    the last (in the last CTA's run), row 1's first and row 2's lie in the
+    first 200 slots (so most runs hold none and must weigh nothing in the
+    merge), row 3 random."""
+    rows, W, G, D = 4, 1032, 4, 256
+    q, k, v, valid = _decode_case((rows, W, G, D, qdt, kvdt), 3)
+    valid[0] = 0
+    valid[0, -1] = 1
+    valid[1] = 0
+    valid[1, 0] = 1
+    valid[2, 200:] = 0
+    valid[2, 7] = 1
+    plan = da_ops.card_plan(rows, G, W, D, 1, qdt, kvdt, cuda_device)
+    assert plan.cluster == 16
+    want = da_ref.decode_attention_ref(q, k, v, valid)
+    monkeypatch.setattr(da_ops, "decode_attention_ref", _fail_if_called)
+    got = da_ops.decode_attention_fwd(*(t.to(cuda_device)
+                                        for t in (q, k, v, valid)))
+    _assert_decode_close(got, want, qdt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kvdt", [torch.bfloat16, torch.float8_e4m3fn])
+def test_cuda_decode_misaligned_cache_takes_element_loads(cuda_device,
+                                                          monkeypatch, kvdt):
+    """K and V that start 2 or 1 bytes past a 16-byte boundary (views into
+    a larger buffer): the launcher takes element loads in the same kernel
+    and the result is the aligned call's, bit for bit."""
+    case = (4, 1032, 4, 128, torch.bfloat16, kvdt)
+    q, k, v, valid = (t.to(cuda_device) for t in _decode_case(case, 5))
+    got = da_ops.decode_attention_fwd(q, k, v, valid)
+    n = k.numel()
+    buf = torch.empty(2 * n + 2, dtype=kvdt, device=cuda_device)
+    km = buf[1:n + 1].view(k.shape)
+    vm = buf[n + 1:2 * n + 1].view(v.shape)
+    km.view(torch.uint8).copy_(k.view(torch.uint8))
+    vm.view(torch.uint8).copy_(v.view(torch.uint8))
+    assert km.data_ptr() % 16 and vm.data_ptr() % 16
+    monkeypatch.setattr(da_ops, "decode_attention_ref", _fail_if_called)
+    da_ops.reset_launches()
+    again = da_ops.decode_attention_fwd(q, km, vm, valid)
+    assert da_ops.decode_attention_fwd.launches == 1
+    torch.testing.assert_close(again, got, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qdt,kvdt", [
+    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float8_e4m3fn),
+    (torch.float32, torch.float32)])
+def test_cuda_decode_is_one_kernel_per_call(cuda_device, qdt, kvdt):
+    """Through the model's entry, a call is one CUDA kernel under
+    `torch.profiler` (no combine kernel, no copy of the cache), and the
+    launch counter counts the calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    B, W, KH, G, D = 4, 1032, 1, 4, 256
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    q = torch.randn(B, 1, KH * G, D, generator=g,
+                    device=cuda_device).to(qdt)
+    ck, cv = (torch.randn(B, W, KH, D, generator=g,
+                          device=cuda_device).to(kvdt) for _ in range(2))
+    da_ops.decode_attention(q, ck, cv, 1016)        # plan and validity made
+    marker = torch.zeros(1, device=cuda_device)
+    torch.cuda.synchronize()
+    for _attempt in range(3):           # a trace now and then misses a
+        da_ops.reset_launches()         # kernel: the first whole window
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            marker.add_(1)              # the trace's first kernel, not counted
+            torch.cuda.synchronize()
+            for _ in range(3):
+                da_ops.decode_attention(q, ck, cv, 1016)
+            torch.cuda.synchronize()
+        kernels = [ev.name for ev in prof.events()
+                   if ev.device_type == DeviceType.CUDA]
+        decode = [name for name in kernels if "decode_" in name]
+        assert all("decode_attention_kernel" in name for name in decode)
+        assert da_ops.decode_attention_fwd.launches == 3
+        if len(decode) == 3:
+            break
+    assert len(decode) == 3, kernels
+    assert len(kernels) - len(decode) <= 1, kernels   # the marker's
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W,slots", [(64, (0, 17, 40, 63)),
+                                     (1032, (0, 300, 700, 1031))])
 @pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16])
 def test_cuda_decode_widens_every_float8_value_exactly(cuda_device,
-                                                      monkeypatch, qdt):
+                                                      monkeypatch, qdt, W,
+                                                      slots):
     """A float8_e4m3fn V holding all 256 byte patterns (4 rows x 64
     columns), each row with one valid slot and q = 0: p = 1 on that slot,
     so the output is that slot's V row widened to q's type, bit for bit,
-    NaN (0x7f, 0xff) as NaN."""
-    rows, W, D = 4, 64, 64
-    slot = torch.tensor([0, 17, 40, 63])
+    NaN (0x7f, 0xff) as NaN.  At 1032 slots the four slots lie in the runs
+    of four different CTAs of a 16-CTA cluster, whose merge weighs the
+    others' empty runs by 0."""
+    rows, D = 4, 64
+    slot = torch.tensor(slots)
     vb = torch.zeros(rows, W, D, dtype=torch.uint8)
     vb[torch.arange(rows), slot] = torch.arange(256, dtype=torch.uint8
                                                 ).view(rows, D)
@@ -829,7 +979,8 @@ def test_cuda_decode_widens_every_float8_value_exactly(cuda_device,
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("kvdt", [torch.float32, torch.float8_e4m3fn])
-@pytest.mark.parametrize("B,KH,G", [(1, 1, 4), (2, 2, 2), (2, 1, 16)])
+@pytest.mark.parametrize("B,KH,G", [(1, 1, 4), (2, 2, 2), (2, 1, 16),
+                                    (2, 8, 2)])
 def test_cuda_decode_model_entry_reads_the_cache_in_place(cuda_device,
                                                          monkeypatch, B,
                                                          KH, G, kvdt):
@@ -850,6 +1001,30 @@ def test_cuda_decode_model_entry_reads_the_cache_in_place(cuda_device,
         got = da_ops.decode_attention(dq, dk, dv, i, window=w).cpu()
         torch.testing.assert_close(got, ref_o, rtol=0, atol=1e-5)
     assert da_ops.decode_attention_fwd.launches == len(cases)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kvdt", [torch.bfloat16, torch.float8_e4m3fn])
+@pytest.mark.parametrize("G", [2, 8])
+def test_cuda_decode_model_entry_strided_rows(cuda_device, monkeypatch, G,
+                                              kvdt):
+    """bf16 q over (B, W, 8, 128) caches (a kv head's rows KH D apart, one
+    bulk copy a row), the validity one row shared by every (batch, kv
+    head) row (stride 0), before the ring wraps, after it and with a
+    window, against the CPU entry at the bf16 bars."""
+    B, W, KH, D = 4, 1032, 8, 128
+    g = torch.Generator().manual_seed(G)
+    q = torch.randn(B, 1, KH * G, D, generator=g).to(torch.bfloat16)
+    ck, cv = (torch.randn(B, W, KH, D, generator=g).to(kvdt)
+              for _ in range(2))
+    cases = ((500, 0), (1100, 0), (1100, 300))
+    want = [da_ops.decode_attention(q, ck, cv, i, window=w)
+            for i, w in cases]
+    monkeypatch.setattr(da_ops, "decode_attention_ref", _fail_if_called)
+    dq, dk, dv = (t.to(cuda_device) for t in (q, ck, cv))
+    for (i, w), ref_o in zip(cases, want):
+        got = da_ops.decode_attention(dq, dk, dv, i, window=w)
+        _assert_decode_close(got, ref_o, torch.bfloat16)
 
 
 @pytest.mark.gpu

@@ -187,40 +187,84 @@ def test_cache_types_the_kernel_takes():
         ops._check_types(torch.zeros(2, 1, 8), fp8, kv.bfloat16())
 
 
-@pytest.mark.parametrize("rows,W,sms", [(4, 512, 132), (4, 1032, 132),
-                                        (1, 7, 132), (64, 40000, 132),
-                                        (3, 100, 8), (4, 2048, 132),
-                                        (1, 1, 132), (2, 130, 132),
-                                        (200, 5000, 132)])
-def test_splits_cover_the_cache(rows, W, sms):
-    """Whole 64-key blocks, every slot in exactly one split, no empty
-    split, and at most one split per block and about one CTA per SM in
-    all (ceil(sms / rows) splits a row)."""
-    nsplit, per = ops.splits(rows, W, sms)
-    assert ops.SPLIT_KEYS == 64
-    assert per % ops.SPLIT_KEYS == 0 and nsplit >= 1
-    assert nsplit * per >= W and (nsplit - 1) * per < W
-    covered = np.zeros(W, dtype=int)
-    for s in range(nsplit):
-        lo, hi = s * per, min(W, (s + 1) * per)
-        assert hi > lo                          # no empty split
-        covered[lo:hi] += 1
-    np.testing.assert_array_equal(covered, 1)
-    assert nsplit <= -(-W // ops.SPLIT_KEYS)
-    assert nsplit <= max(1, -(-sms // rows))
+PLAN_CASES = [(4, 512, 132), (4, 1032, 132), (1, 7, 132), (64, 40000, 132),
+              (3, 100, 8), (4, 2048, 132), (1, 1, 132), (2, 130, 132),
+              (200, 5000, 132)]
 
 
-def test_scratch_is_kept_per_stream_and_grows():
-    """The partials' float32 scratch is one buffer per (device, stream):
-    reused while it is large enough, replaced by a larger one when not,
-    and never shared between two streams."""
-    dev = torch.device("cpu")
-    a = ops._scratch(100, dev, 11)
-    assert a.dtype == torch.float32 and a.numel() >= 100
-    assert ops._scratch(50, dev, 11).data_ptr() == a.data_ptr()
-    b = ops._scratch(1000, dev, 11)
-    assert b.numel() >= 1000
-    assert ops._scratch(100, dev, 11).data_ptr() == b.data_ptr()
-    c = ops._scratch(100, dev, 12)
-    assert c.data_ptr() != b.data_ptr()
-    ops._SCRATCH.pop((None, 11)), ops._SCRATCH.pop((None, 12))
+@pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,W,sms", PLAN_CASES)
+def test_plan_covers_the_cache(rows, W, sms, qdt):
+    """For every head width, cache type, group and CTAs an SM holds: whole
+    64-key blocks, every slot in exactly one CTA's run, no empty run; at
+    most 16 CTAs a cluster and about one CTA per slot in all; ceil(G /
+    16) clusters a row; a ring of at least 3
+    stages within a block's 232,448 bytes of shared memory; bulk copies
+    planned only for rows of a multiple of 16 bytes."""
+    for D in (1, 20, 64, 72, 80, 128, 256):
+        for kvdt in ops.KV_TYPES:
+            itemsize = torch.empty(0, dtype=kvdt).element_size()
+            for G, per_sm in ((1, 1), (4, 2), (16, 1), (17, 1)):
+                p = ops.plan(rows, G, W, D, 1, qdt, kvdt, sms, per_sm=per_sm)
+                assert p.per_sm == per_sm
+                assert p.head_blocks == -(-G // 16)
+                assert p.blocks == -(-W // ops.BLOCK_KEYS)
+                assert 1 <= p.cluster <= 16 and p.cluster <= p.blocks
+                assert (rows * p.head_blocks * p.cluster
+                        <= max(sms * per_sm, rows * p.head_blocks))
+                covered = np.zeros(W, dtype=int)
+                for lo, hi in ops.cta_runs(W, p.blocks, p.cluster):
+                    assert hi > lo and lo % ops.BLOCK_KEYS == 0
+                    assert hi - lo <= p.keys_per_cta
+                    covered[lo:hi] += 1
+                np.testing.assert_array_equal(covered, 1)
+                assert p.stages >= 3 and p.smem <= 232448
+                assert p.width >= D and p.width in (64, 128, 256)
+                assert p.bulk == (D * itemsize % 16 == 0)
+                assert 0 < p.in_flight <= (2 * p.stages * p.tile_keys * D
+                                           * itemsize)
+                assert p.resident is None
+
+
+def test_plan_shrinks_the_cluster_to_what_is_resident():
+    """Clusters of 16 CTAs need 16 free SMs of one GPC: where the card
+    holds fewer clusters of a size than the call has (row, 16 q heads)
+    pairs, the plan takes the largest size that it does hold, down to
+    single CTAs."""
+    bf = torch.bfloat16
+
+    def resident(c):
+        return 7 if c > 8 else 132 // c
+
+    p = ops.plan(8, 16, 2048, 256, 1, bf, bf, 132, resident)
+    assert p.cluster == 8 and p.resident == 16
+    p = ops.plan(4, 4, 1032, 256, 1, bf, bf, 132, resident)
+    assert p.cluster == 16 and p.resident == 7
+    p = ops.plan(4, 4, 1032, 256, 1, bf, bf, 132, lambda c: 0)
+    assert p.cluster == 1 and p.resident == 0
+    # two CTAs an SM: the families' 32 rows take clusters of 8, not 4
+    p = ops.plan(32, 6, 1032, 128, 8, bf, bf, 132, per_sm=2)
+    assert p.cluster == 8 and p.head_blocks == 1
+    p = ops.plan(32, 6, 1032, 128, 8, bf, bf, 132)
+    assert p.cluster == 4
+
+
+def test_instances_cover_every_type_and_width():
+    """One kernel instance per (q type, cache type, padded width), each
+    numbered as the launcher's table, each within a block's shared
+    memory; a float8 cache under bfloat16 q adds a widened bfloat16 tile
+    and still takes less than a bfloat16 cache."""
+    seen = set()
+    for qdt in (torch.float32, torch.bfloat16):
+        for kvdt in ops.KV_TYPES:
+            for D in (64, 128, 256):
+                i = ops.instance(qdt, kvdt, D)
+                assert ops.instance(qdt, kvdt, D - 1) == i
+                seen.add(i)
+                assert ops.smem_bytes(qdt, kvdt, D) <= ops.SMEM_LIMIT
+    assert seen == set(range(18))
+    bf, f8 = torch.bfloat16, torch.float8_e4m3fn
+    assert ops.smem_bytes(bf, f8, 256) < ops.smem_bytes(bf, bf, 256)
+    assert ops.tile_keys(bf, bf) == 64 and ops.tile_keys(bf, f8) == 64
+    assert ops.tile_keys(torch.float32, bf) == 32
+    assert ops.tile_keys(bf, torch.float32) == 32
