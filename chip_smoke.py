@@ -17,9 +17,10 @@ Phases, each printing JSON lines; any failure exits non-zero:
               HGMMA and UTMALDG and no HMMA (its float32 kernels keep
               their split-TF32 mma.sync), and unless every flash-decode
               instance holds bulk copies (UBLKCP) and the cluster barrier
-              (UCGABAR_ARV / _WAIT) with no spill; then the
-              pivot kernels' lanes per CTA at the fleet shape, each SSD
-              kernel's, the CCKP instances' and the RG-LRU geometries'
+              (UCGABAR_ARV / _WAIT) with no spill, and unless every
+              many-lane CCKP instance holds bulk copies (UBLKCP); then
+              the pivot kernels' lanes per CTA at the fleet shape, each
+              SSD kernel's, the CCKP plans' and the RG-LRU geometries'
               dynamic shared memory and CTAs per SM (the occupancy
               calculator).
   3. kernels  each kernel against its plain PyTorch version at the shapes
@@ -35,9 +36,12 @@ Phases, each printing JSON lines; any failure exits non-zero:
               p and accuracies from the fleet's profiles: both models of
               an AMDP call in one `models_dp` launch from the start grid,
               and one model (`model_dp`'s m = 1) on the first model's
-              output, then 4 grids of 4001 x 301 (the global-memory
-              instance), each bitwise against its plain version, with
-              its bound (bytes: 8 + 4 m a cell); the flash attention kernel
+              output (the many-lane instance), then AMDP's own calls of
+              `examples/amdp_identical.py`'s sweep (B = 1: 2001 x 26,
+              4001 x 90, 8001 x 279, p = (10, 45)) and 4 grids of 4001
+              x 301 (the split instance), each bitwise against its plain
+              version, with its instance, CTAs and bound (bytes: 8 + 4 m
+              a cell, or the walks' operations); the flash attention kernel
               at the LM path's shapes (paper_edge's ES model: 32 jobs x 64
               tokens, 8 heads on 4 KV heads, head_dim 64, causal;
               gemma3-1b: 2 x 2048 tokens, 4 heads on 1, head_dim 256,
@@ -231,7 +235,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
               set to 0 before and read after; per period the policy,
               accuracy, predicted and wall makespan, violation and the
               replanned flag; no dropped job, period 2 replanned, the flash
-              kernel launched.
+              kernel launched; its AMDP DP calls (B = 1) are recorded and
+              replayed bitwise and timed (`cckp_lm_serve_calls`).
      lm_generate  for gemma3-1b and mamba2-130m at full width and depth:
               `init_cache`, `prefill` of 4 prompts of 1000 `TokenPipeline`
               tokens (max_seq 1032; gemma3's 512-slot local rings have
@@ -384,8 +389,13 @@ RTOL = ATOL = 1e-12
 # ES-disabled replan offloads none)
 T_BUDGET, DP_T1, DP_K1 = 1.2, 1201, 13
 # a grid too large for a block's shared memory (the reference docstring's
-# 4001 x 301), on a few lanes: the CCKP kernel's global-memory instance
+# 4001 x 301), on a few lanes: the CCKP kernel's split instance
 DP_GLOBAL = (4, 4001, 301)
+# `examples/amdp_identical.py`'s sweep: n identical jobs in T seconds on two
+# ED models and the ES (its defaults), each one AMDP solve at B = 1
+EXAMPLE_SIZES = ((30, 2.0), (100, 4.0), (300, 8.0))
+EXAMPLE_P_ED, EXAMPLE_P_ES = (0.010, 0.045), 0.35
+EXAMPLE_ACC = (0.395, 0.559, 0.771)
 CCKP_SRC = "src/repro_torch/kernels/cckp_dp/csrc/cckp_dp.cu"
 SIMPLEX_SRC = "src/repro_torch/kernels/simplex_pivot/csrc/simplex_pivot.cu"
 SIMPLEX_TPU = "src/repro/kernels/simplex_pivot/simplex_pivot.py"
@@ -612,6 +622,24 @@ def ssd_sass(path, instances) -> None:
 
 
 DECODE_SASS = ("UBLKCP", "UCGABAR_ARV", "UCGABAR_WAIT", "HMMA")
+CCKP_LANES_KERNEL = "cckp_lanes_kernel"
+
+
+def cckp_sass(path, instances) -> None:
+    """The CCKP library as Hopper code: every many-lane instance
+    (`cckp_lanes_kernel`, one per compiled K1 and the generic one) holds
+    bulk copies (UBLKCP), counted by function in the SASS.  Prints each
+    instance's registers, spills and static shared memory (a spill fails
+    the build phase)."""
+    by_fn = {k: v["UBLKCP"] for k, v in
+             sass_by_function(path, ("UBLKCP",)).items()}
+    lanes = {k: v for k, v in by_fn.items() if CCKP_LANES_KERNEL in k}
+    emit("build", source=CCKP_SRC, ublkcp_by_function=by_fn,
+         instances=[dict(kernel=i["kernel"], registers=i["registers"],
+                         smem=i["smem"], spill_stores=i["spill_stores"],
+                         spill_loads=i["spill_loads"]) for i in instances])
+    check(len(lanes) == 17 and all(v > 0 for v in lanes.values()),
+          f"build: a many-lane CCKP instance lacks bulk copies: {lanes}")
 
 
 def decode_sass(path, instances) -> None:
@@ -846,13 +874,20 @@ def cckp_work(torch, p, T1, K1, n_steps):
     return (8 + 4 * m) * B * T1 * K1, 3 * n_q
 
 
-def cckp_row(torch, dev, name, y, p, a, n_steps, reps, plain_reps):
+def cckp_row(torch, dev, name, y, p, a, n_steps, reps, plain_reps,
+             phase="kernels", src=None):
     """`models_dp` on (y, p (B, m), a (B, m)) against its plain version on
-    the card (values and every table bitwise), with its times and bound;
-    emitted as a kernels line and returned."""
+    the card (values and every table bitwise), with its times (``ms``
+    over ``reps`` calls, ``ms_queued`` with them queued behind a device
+    sleep: the device's time where the host's launch rate would set
+    ``ms``; the bound share is of the latter), bound and
+    plan (instance, rows a warp of the split instance holds, CTAs, CTAs
+    an SM; `time_kernels.py` may hand it a tree whose wrapper has no
+    `card_plan`: then none); emitted as a ``phase`` line and returned."""
     from repro_torch.kernels.cckp_dp import ops as cckp_ops
     from repro_torch.kernels.cckp_dp import ref as cckp_ref
     B, T1, K1 = y.shape
+    m = p.shape[1]
     got_y, got_q = cckp_ops.models_dp(y, p, a, n_steps)
     want_y, want_q = cckp_ref.cckp_models_dp_ref(y, p, a, n_steps)
     torch.cuda.synchronize()
@@ -863,51 +898,91 @@ def cckp_row(torch, dev, name, y, p, a, n_steps, reps, plain_reps):
     check(bool((got_q > 0).any()) and bool((got_y > cckp_ref.NEG).any()),
           f"cckp {name}: the inputs give no non-trivial cell")
     del got_y, got_q, want_y, want_q
-    ms = cuda_ms(lambda: cckp_ops.models_dp(y, p, a, n_steps), [()] * reps,
-                 torch, warm_up=True)
+    ms, ms_queued = (cuda_ms(lambda: cckp_ops.models_dp(y, p, a, n_steps),
+                             [()] * reps, torch, warm_up=True, ahead=ahead)
+                     for ahead in (False, True))
     plain_ms = cuda_ms(lambda: cckp_ref.cckp_models_dp_ref(y, p, a, n_steps),
                        [()] * plain_reps, torch)
     nbytes, flops = cckp_work(torch, p, T1, K1, n_steps)
     bound_ms, bound_by = bound_of(nbytes, flops, FP32_FLOPS)
-    shared = cckp_ops.uses_shared(T1, K1, n_steps, dev)
-    row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-               bytes=nbytes, flops=flops, bound_ms=bound_ms,
-               bound_by=bound_by, shape=[B, T1, K1], models=p.shape[1],
-               instance="shared" if shared else "global",
-               ctas_per_sm=cckp_ops.occupancy(T1, K1, n_steps, shared))
-    emit("kernels", kernel="cckp_model_dp", case=name, **row)
+    plan = None
+    if hasattr(cckp_ops, "card_plan"):
+        pl, ctas = cckp_ops.card_plan(B, T1, K1, m, dev)
+        plan = dict(pl._asdict(), ctas=ctas, ctas_per_sm=cckp_ops.occupancy(
+            pl.instance, T1, K1, pl.rows))
+    row = dict(max_abs_err=err, ms=ms, ms_queued=ms_queued,
+               plain_ms=plain_ms, library_ms=None, bytes=nbytes, flops=flops,
+               bound_ms=bound_ms, bound_by=bound_by,
+               bound_share=bound_ms / ms_queued,
+               shape=[B, T1, K1], models=m, n_steps=n_steps, plan=plan)
+    emit(phase, kernel="cckp_model_dp", case=name,
+         **(row if src is None else dict(row, src=src)))
     return row
 
 
-def phase_cckp_kernel(torch, dev):
-    """The CCKP kernel at the serve path's largest grids (16384 lanes of
-    1201 x 13): `models_dp` with both models of an AMDP call in one launch
-    from the start grid, and `model_dp` (one model, m = 1) on the first
-    model's output; then a grid that takes the global-memory instance.
-    Returns the m = 2 row (the kernels line's)."""
+def example_dp_calls(torch, dev):
+    """AMDP's own DP calls of `examples/amdp_identical.py`'s sweep
+    (`EXAMPLE_SIZES`: one `amdp` solve of n identical jobs each, B = 1),
+    recorded through `record_dp_calls`."""
+    import numpy as np
+
+    from repro_torch.core import amdp
+    from repro_torch.core.types import OffloadInstance
+    from repro_torch.kernels.cckp_dp import ops as cckp_ops
+    calls = []
+    amdp.cckp_ops = record_dp_calls(cckp_ops, calls)
+    try:
+        for n, T in EXAMPLE_SIZES:
+            amdp.amdp(OffloadInstance(
+                p_ed=np.tile(EXAMPLE_P_ED, (n, 1)),
+                p_es=np.full(n, EXAMPLE_P_ES), acc=np.array(EXAMPLE_ACC),
+                T=T), device=dev)
+    finally:
+        amdp.cckp_ops = cckp_ops
+    return calls
+
+
+def cckp_cases(torch, dev):
+    """(name, y, p, a, n_steps) of the CCKP rows, made one at a time: the
+    fleet shape at m = 2 from the start grid and at m = 1 on the first
+    model's output (the many-lane instance), the example sweep's calls
+    (`example_dp_calls`) and 4 random grids of 4001 x 301 (the split
+    instance)."""
     from repro_torch.kernels.cckp_dp import ops as cckp_ops
     y0, p, a = cckp_case(torch, dev)
-    both = cckp_row(torch, dev, "models_dp m=2, serve shape", y0, p, a,
-                    DP_K1, 5, 2)
-    check(both["instance"] == "shared",
-          "cckp: the serve shape did not take the shared instance")
+    yield "models_dp m=2, serve shape", y0, p, a, DP_K1
     y1, _ = cckp_ops.models_dp(y0, p[:, :1].contiguous(),
                                a[:, :1].contiguous(), DP_K1)
     del y0
-    cckp_row(torch, dev, "m=1 (model_dp), second model", y1,
-             p[:, 1:].contiguous(), a[:, 1:].contiguous(), DP_K1, 5, 2)
+    yield ("m=1 (model_dp), second model", y1, p[:, 1:].contiguous(),
+           a[:, 1:].contiguous(), DP_K1)
     del y1
+    for call in example_dp_calls(torch, dev):
+        B, T1, K1 = call["shape"]
+        yield (f"example B={B} {T1}x{K1}", start_grid(torch, dev, B, T1, K1),
+               call["p"], call["a"], call["n_steps"])
     B, T1, K1 = DP_GLOBAL
     g = torch.Generator(device=dev).manual_seed(19)
     y = torch.randn((B, T1, K1), generator=g, device=dev)
     pg = torch.tensor([[3, 7], [0, 40], [1, T1 + 99], [13, 2]],
                       dtype=torch.int32, device=dev)[:B].contiguous()
     ag = 0.3 + 0.69 * torch.rand((B, 2), generator=g, device=dev)
-    row = cckp_row(torch, dev, "models_dp m=2, global instance", y, pg, ag,
-                   K1, 2, 1)
-    check(row["instance"] == "global",
-          f"cckp: a {T1} x {K1} grid did not take the global instance")
-    return both
+    yield f"models_dp m=2, {B} x {T1} x {K1}", y, pg, ag, K1
+
+
+def phase_cckp_kernel(torch, dev):
+    """The CCKP kernel at `cckp_cases`: the fleet shape in the many-lane
+    instance, the example's B = 1 grids and 4 x 4001 x 301 in the split
+    one.  Returns the m = 2 fleet row (the kernels line's)."""
+    rows = {}
+    for n, (name, y, p, a, n_steps) in enumerate(cckp_cases(torch, dev)):
+        rows[name] = cckp_row(torch, dev, name, y, p, a, n_steps, 5, 1)
+        del y
+        want = "lanes" if n < 2 else "split"
+        check(rows[name]["plan"]["instance"] == want,
+              f"cckp {name}: took the {rows[name]['plan']['instance']} "
+              f"instance, not the {want} one")
+    return rows["models_dp m=2, serve shape"]
 
 
 def record_dp_calls(cckp_ops, calls):
@@ -925,21 +1000,25 @@ def record_dp_calls(cckp_ops, calls):
     return types.SimpleNamespace(models_dp=recording)
 
 
-def phase_cckp_serve_calls(torch, dev, calls):
-    """Serve's own AMDP calls again (the plan over every AMDP lane, the
-    replans over the bumped lanes), each from the start grid: the kernel
-    against its plain version (bitwise) and its time."""
+def cckp_replay(torch, dev, calls, phase, reps=3, src=None):
+    """Recorded AMDP calls again, each from the start grid: the kernel
+    against its plain version (bitwise), its time, bound and plan; one
+    line per call and a ``phase`` line with their sums."""
     rows = []
     for n, call in enumerate(calls):
         B, T1, K1 = call["shape"]
         y = start_grid(torch, dev, B, T1, K1)
-        row = cckp_row(torch, dev, f"serve call {n}", y, call["p"],
-                       call["a"], call["n_steps"], 3, 1)
+        row = cckp_row(torch, dev, f"{phase} {n}", y, call["p"], call["a"],
+                       call["n_steps"], reps, 1, phase="kernels", src=src)
         rows.append(dict(call=n, shape=call["shape"], ms=row["ms"],
-                         bound_ms=row["bound_ms"], plain_ms=row["plain_ms"]))
+                         ms_queued=row["ms_queued"],
+                         bound_ms=row["bound_ms"], plain_ms=row["plain_ms"],
+                         instance=(row["plan"] or {}).get("instance")))
         del y
-    emit("cckp_serve_calls", calls=rows,
-         kernel_ms_total=sum(r["ms"] for r in rows))
+    emit(phase, calls=rows, kernel_ms_total=sum(r["ms"] for r in rows),
+         kernel_ms_queued_total=sum(r["ms_queued"] for r in rows),
+         bound_ms_total=sum(r["bound_ms"] for r in rows),
+         **({} if src is None else dict(src=src)))
     return rows
 
 
@@ -3000,17 +3079,26 @@ def phase_lm_forward(torch, dev):
 
 
 def phase_lm_serve(torch, dev):
-    """The port's launcher on the paper_edge ladder; returns the flash
-    launches of the run."""
+    """The port's launcher on the paper_edge ladder, AMDP's DP calls
+    recorded (`record_dp_calls`); returns the flash launches of the run
+    and the calls."""
+    from repro_torch.core import amdp
+    from repro_torch.kernels.cckp_dp import ops as cckp_ops
     from repro_torch.launch import serve
     periods, fail = 6, 2
+    calls = []
     torch.cuda.synchronize()
     reset_launches()
-    t0 = time.perf_counter()
-    history = serve.main(["--periods", str(periods), "--n", "24",
-                          "--fail-period", str(fail), "--device", str(dev)])
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
+    amdp.cckp_ops = record_dp_calls(cckp_ops, calls)
+    try:
+        t0 = time.perf_counter()
+        history = serve.main(["--periods", str(periods), "--n", "24",
+                              "--fail-period", str(fail), "--device",
+                              str(dev)])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        amdp.cckp_ops = cckp_ops
     launches = kernel_launches()
     check(len(history) == periods, "lm_serve: missing periods")
     for period, s in enumerate(history):
@@ -3026,10 +3114,15 @@ def phase_lm_serve(torch, dev):
           f"lm_serve: the ES outage of period {fail} was not replanned")
     check(launches["flash_attention_fwd"] > 0,
           "lm_serve: the flash kernel never launched")
+    check(launches["cckp_model_dp"] == len(calls),
+          f"lm_serve: {launches['cckp_model_dp']} DP launches for "
+          f"{len(calls)} AMDP calls")
     emit("lm_serve", periods=periods, jobs_per_period=24, seconds=seconds,
          launches=launches,
-         flash_launches_per_period=launches["flash_attention_fwd"] / periods)
-    return launches["flash_attention_fwd"]
+         flash_launches_per_period=launches["flash_attention_fwd"] / periods,
+         dp_calls=[dict(lanes=c["shape"][0], grid=c["shape"][1:],
+                        models=c["models"]) for c in calls])
+    return launches["flash_attention_fwd"], calls
 
 
 # --------------------------------------------------------------------------
@@ -3281,7 +3374,7 @@ def decode_row(torch, da_ops, da_ref, dev, g, case, reps=50):
     (`PROFILED_CALLS` calls); the plan (`ops.card_plan`: cluster size, keys per
     CTA, clusters resident, bytes in flight per CTA; the splits of a tree
     before it); SDPA on the same inputs as the library column, and the
-    bound.  ``da_ops`` may be another tree's (`time_decode.py`).  Returns
+    bound.  ``da_ops`` may be another tree's (`time_kernels.py`).  Returns
     (row, ok)."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     B = GEN_BATCH
@@ -4880,7 +4973,8 @@ def phase_profile(torch, dev, params, seconds, serve_seconds):
              busy_share=device_s / wall if device_s else None,
              n_kernel_launches=n, top=top)
     engine = serve_engine(dev)
-    device_s, n, top = profiled(torch, lambda: engine.run(PERIODS))
+    device_s, n, top = profiled(torch, lambda: engine.run(PERIODS),
+                                keep=("cckp_",))
     emit("profile", path="serve", device_seconds=device_s,
          wall_seconds=serve_seconds,
          busy_share=device_s / serve_seconds if device_s else None,
@@ -4966,19 +5060,20 @@ def main() -> int:
             ssd_sass(path, instances)
         if source == DECODE_SRC:
             decode_sass(path, instances)
+        if source == CCKP_SRC:
+            cckp_sass(path, instances)
     emit("build", seconds=time.perf_counter() - t0)
     emit("build", occupancy=dict(
         simplex_pivot=ops.occupancy("simplex_pivot", R + 1, C0 + 1),
         reduced_pivot=ops.occupancy("reduced_pivot", R, C0),
         ssd_scan_bf16=ssd_ops.occupancy(True),
         ssd_scan_f32=ssd_ops.occupancy(False),
-        cckp_shared_serve_grid=dict(
-            smem=cckp_ops.smem_bytes(DP_T1, DP_K1, DP_K1, True),
-            ctas_per_sm=cckp_ops.occupancy(DP_T1, DP_K1, DP_K1, True)),
-        cckp_global=dict(
-            smem=cckp_ops.smem_bytes(*DP_GLOBAL[1:], DP_GLOBAL[2], False),
-            ctas_per_sm=cckp_ops.occupancy(*DP_GLOBAL[1:], DP_GLOBAL[2],
-                                           False)),
+        cckp={f"{B}x{T1}x{K1}": dict(plan._asdict(), ctas=ctas,
+                                      ctas_per_sm=cckp_ops.occupancy(
+                                          plan.instance, T1, K1, plan.rows))
+              for B, T1, K1 in ((D_FLEET, DP_T1, DP_K1), (1, 2001, 26),
+                                (1, 4001, 90), (1, 8001, 279), DP_GLOBAL)
+              for plan, ctas in [cckp_ops.card_plan(B, T1, K1, 2, dev)]},
         rglru_scan={name: dict(geo._asdict(), **rg_ops.occupancy(geo))
                     for name, geo in ((name, rg_ops.launch_geometry(B, S, W))
                                       for name, B, S, W, _ in RGLRU_SHAPES)}))
@@ -4998,7 +5093,7 @@ def main() -> int:
     phase_front(torch, dev)
     serve_launches, serve_seconds, dp_calls = phase_serve(torch, dev)
     launches["cckp_model_dp"] = serve_launches["cckp_model_dp"]
-    phase_cckp_serve_calls(torch, dev, dp_calls)
+    cckp_replay(torch, dev, dp_calls, "cckp_serve_calls")
     del dp_calls
     phase_rollout_dual(torch, dev, dual_params, amr2_metrics["tableau"])
     phase_rollout_poisson(torch, ops, dev, fleet)
@@ -5019,7 +5114,9 @@ def main() -> int:
     del dual_params, amr2_metrics, fleet
     phase_lm_forward(torch, dev)
     phase_lm_forward_ssm(torch, dev)
-    launches["flash_attention_fwd"] = phase_lm_serve(torch, dev)
+    launches["flash_attention_fwd"], lm_calls = phase_lm_serve(torch, dev)
+    cckp_replay(torch, dev, lm_calls, "cckp_lm_serve_calls")
+    del lm_calls
     rows["flash_attention_fwd"] = flash_rows[FLASH_LINE]
     launches["decode_attention_fwd"] = phase_lm_generate(
         torch, dev, "gemma3_1b")["decode_attention_fwd"]

@@ -218,14 +218,71 @@ def test_models_dp_with_no_model_returns_the_grid():
     assert got_q.shape == (0,) + tuple(y.shape)
 
 
-def test_shared_instance_is_chosen_by_shape():
-    """The serve path's grid (1201 x 13, 13 steps) fits a block's shared
-    memory with its stage and q·a table (89,128 bytes; H100: 232,448 a
-    block), the reference docstring's 4001 x 301 does not; the global
-    instance keeps only the table, min(n_steps, K1) floats."""
-    assert ops.smem_bytes(1201, 13, 13, True) \
-        == 4 * (13 + 1201 * 13 + 2 * 256 * 13)
-    assert ops.smem_bytes(1201, 13, 13, True) <= 232448 // 2
-    assert ops.smem_bytes(4001, 301, 301, True) > 232448
-    assert ops.smem_bytes(4001, 301, 301, False) == 4 * 301
-    assert ops.smem_bytes(9, 9, 4, False) == 16
+# (B, T1, K1, m) -> (instance, smem, rows, units) on an H100 (132 SMs, a
+# block's opt-in shared memory 232,448 bytes).  The many-lane instance's
+# bytes: three buffers of the lane's cells plus 12 bytes, rounded to 16,
+# sixteen walking warps' stages of 32 rows of counts, 4 mbarriers and 3
+# tickets; the split one's units: models x lanes x row blocks (8 warps x
+# rows) x column blocks of 32.
+LANES_1201_13 = 3 * 62464 + 16 * 32 * 13 * 4 + 48
+
+
+@pytest.mark.parametrize("shape,want", [
+    # serve's calls (plans of 4,501-6,884 lanes, replans of ~8,000) and
+    # the fleet shape: the many-lane instance, one CTA an SM
+    ((4501, 1201, 13, 2), ("lanes", LANES_1201_13, 0, 4501)),
+    ((8003, 1201, 13, 2), ("lanes", LANES_1201_13, 0, 8003)),
+    ((16384, 1201, 13, 2), ("lanes", LANES_1201_13, 0, 16384)),
+    # fewer lanes than SMs, down to two: still one SM a lane
+    ((133, 1201, 13, 2), ("lanes", LANES_1201_13, 0, 133)),
+    ((131, 1201, 13, 2), ("lanes", LANES_1201_13, 0, 131)),
+    ((2, 326, 17, 2), ("lanes", 3 * 22192 + 16 * 32 * 17 * 4 + 48, 0, 2)),
+    # one lane: alone on an SM when small and compiled (lm_serve's
+    # grids), else over the whole card
+    ((1, 326, 9, 2), ("lanes", 3 * 11760 + 16 * 32 * 9 * 4 + 48, 0, 1)),
+    ((1, 326, 17, 2), ("split", 0, 1, 2 * 41)),
+    ((1, 1201, 13, 2), ("split", 0, 1, 2 * 151)),
+    ((1, 1201, 25, 2), ("split", 0, 1, 2 * 151)),
+    ((1, 20000, 1, 2), ("split", 0, 1, 2 * 2500)),
+    # the example's B = 1 grids and the 4 x 4001 x 301 grid
+    ((1, 2001, 26, 2), ("split", 0, 1, 2 * 251)),
+    ((1, 4001, 90, 2), ("split", 0, 1, 2 * 501 * 3)),
+    ((1, 8001, 279, 2), ("split", 0, 2, 2 * 501 * 9)),
+    ((4, 4001, 301, 2), ("split", 0, 4, 2 * 4 * 126 * 10)),
+    # many lanes whose three grids overflow shared memory
+    ((16384, 1201, 25, 2), ("split", 0, 4, 2 * 16384 * 38)),
+    # no model: the split instance's units copy the grid once
+    ((1, 2001, 26, 0), ("split", 0, 1, 251)),
+])
+def test_shared_instance_is_chosen_by_shape(shape, want):
+    """`ops.plan`, the wrapper's one choice of instance: the many-lane
+    instance when three of its grids fit a block's shared memory and
+    there are two lanes or more, or one of at most 8192 cells and a
+    compiled K1; else the split one over the whole card, its warps
+    holding the most rows that still give every SM 32 units of a
+    model."""
+    B, T1, K1, m = shape
+    got = ops.plan(B, T1, K1, m, sms=132, max_smem=232448)
+    assert tuple(got) == want
+    assert got.smem == ops.smem_bytes(got.instance, T1, K1)
+    assert got.smem <= 232448
+
+
+def test_stamps_go_into_the_kernel_source():
+    """`time_kernels.py --kernel cckp --phases` builds the kernel with its
+    stamps on: the source's own ``CCKP_STAMPS`` hooks, the stamp buffer
+    and its C entries in at the source's marker, once."""
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(root))
+    try:
+        import time_kernels
+    finally:
+        sys.path.remove(str(root))
+    text = ops.LIBRARY.src.read_text()
+    stamped = time_kernels.stamped_source(text)
+    assert stamped.startswith("#define CCKP_STAMPS 1\n")
+    assert "// CCKP_STAMP_DECL" not in stamped
+    assert stamped.count("cckp_stamps_read") == 1
+    assert stamped.count("stamp_write(") == 2      # defined, then called

@@ -270,7 +270,7 @@ def _cckp_case(seed, T1=257, K1=16, lanes=64):
     y[::2] = cckp_ref.NEG
     y[::2, :, 0] = 0.0
     p = torch.randint(0, 40, (lanes,), generator=g, dtype=torch.int32)
-    p[0], p[1], p[2] = 0, T1, T1 + 9
+    p[:3] = torch.tensor([0, T1, T1 + 9], dtype=torch.int32)[:lanes]
     a = 0.3 + 0.69 * torch.rand((lanes,), generator=g)
     return y, p, a
 
@@ -315,40 +315,100 @@ def test_cuda_cckp_kernel_matches_plain_version_bitwise(cuda_device,
     assert torch.equal(got[1].cpu(), want[1])
 
 
-# (T1, K1, lanes): the shared instance compiled for its K1 (K1 <= 16), the
-# shared instance for any K1, and a grid too large for shared memory
-MODELS_DP_CASES = [(257, 13, 64), (300, 21, 16), (2000, 40, 3)]
+# (T1, K1, lanes, n_steps or None for K1, p of every lane or None for
+# `_cckp_case`'s): the many-lane instance compiled for its K1 and for any
+# K1, lanes just below and just above an H100's 132 SMs with n_steps <
+# K1, K1 = 1, and one small lane alone (lm_serve's grids); the split
+# instance at grids too large for shared memory (two column blocks at K1
+# 40), the example's B = 1 grids (p = (10, 45), as `amdp_identical` gives
+# them), B = 1 at 1201 x 25 and 1201 x 13 (n_steps < K1) and K1 = 1.
+# `_cckp_case` puts p = 0, p = T1 and p > T1 on its first lanes.
+MODELS_DP_CASES = [(257, 13, 64, None, None), (300, 21, 16, None, None),
+                   (300, 21, 300, None, None), (257, 13, 600, None, None),
+                   (1201, 13, 131, 9, None), (1201, 13, 133, 9, None),
+                   (1201, 1, 200, None, None), (326, 9, 1, None, None),
+                   (2000, 40, 3, None, None), (2001, 26, 1, None, (10, 45)),
+                   (4001, 90, 1, None, (10, 45)), (1201, 25, 1, None, None),
+                   (1201, 13, 1, 9, None), (20000, 1, 1, None, None)]
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m", [1, 2])
+@pytest.mark.parametrize("m", [1, 2, 3])
 @pytest.mark.parametrize("case", MODELS_DP_CASES)
 def test_cuda_models_dp_matches_plain_version_bitwise(cuda_device,
                                                       monkeypatch, case, m):
-    """All m models in one launch, in the shared-memory and the
-    global-memory instance, values and every table bitwise against the
-    plain version chained on the CPU."""
-    T1, K1, lanes = case
+    """All m models in one launch, in the instance the plan names for the
+    card (m = 3 reads a grid that this launch wrote after reading it),
+    values and every table bitwise against the plain version chained on
+    the CPU; the C side's shared memory is the plan's."""
+    T1, K1, lanes, n_steps, p_fixed = case
+    n_steps = K1 if n_steps is None else n_steps
     y, p1, a1 = _cckp_case(8 + m, T1=T1, K1=K1, lanes=lanes)
     g = torch.Generator().manual_seed(T1 + m)
     p = torch.randint(0, 40, (lanes, m), generator=g, dtype=torch.int32)
     p[:, 0] = p1
+    if p_fixed is not None:
+        p[:, :len(p_fixed)] = torch.tensor(p_fixed[:m], dtype=torch.int32)
     a = 0.3 + 0.69 * torch.rand((lanes, m), generator=g)
     a[:, 0] = a1
-    want = cckp_ref.cckp_models_dp_ref(y, p, a, K1)
+    want = cckp_ref.cckp_models_dp_ref(y, p, a, n_steps)
     monkeypatch.setattr(cckp_ops, "cckp_model_dp_ref", _fail_if_called)
     monkeypatch.setattr(cckp_ops, "cckp_models_dp_ref", _fail_if_called)
-    shared = cckp_ops.uses_shared(T1, K1, K1, cuda_device)
-    assert shared == (T1 * K1 * 4 < 200_000)
-    assert cckp_ops.library().cckp_dp_smem_bytes(T1, K1, K1, int(shared)) \
-        == cckp_ops.smem_bytes(T1, K1, K1, shared)
+    max_smem, sms = cckp_ops._card(cuda_device.index)
+    plan = cckp_ops.plan(lanes, T1, K1, m, sms, max_smem)
+    assert cckp_ops.library().cckp_dp_smem_bytes(
+        cckp_ops.INSTANCES.index(plan.instance), T1, K1) == plan.smem
     cckp_ops.reset_launches()
-    got = cckp_ops.models_dp(*(t.to(cuda_device) for t in (y, p, a)), K1)
+    got = cckp_ops.models_dp(*(t.to(cuda_device) for t in (y, p, a)),
+                             n_steps)
     torch.cuda.synchronize()
     assert cckp_ops.models_dp.launches == 1
+    assert cckp_ops.models_dp.last_plan == plan
     assert got[1].shape == (m, lanes, T1, K1)
     assert torch.equal(got[0].cpu(), want[0])
     assert torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [(257, 13, 200), (1201, 13, 1)])
+def test_cuda_models_dp_with_no_model_returns_the_grid(cuda_device, case):
+    """m = 0 in either instance (the many-lane one stores the loaded grid,
+    the split one copies it): the grid itself, no table, one launch."""
+    T1, K1, lanes = case
+    y = _cckp_case(13, T1=T1, K1=K1, lanes=lanes)[0].to(cuda_device)
+    p = torch.zeros((lanes, 0), dtype=torch.int32, device=cuda_device)
+    a = torch.zeros((lanes, 0), device=cuda_device)
+    cckp_ops.reset_launches()
+    got_y, got_q = cckp_ops.models_dp(y, p, a, K1)
+    torch.cuda.synchronize()
+    assert cckp_ops.models_dp.launches == 1
+    assert cckp_ops.models_dp.last_plan.instance == (
+        "lanes" if lanes > 1 else "split")
+    assert torch.equal(got_y, y) and got_y.data_ptr() != y.data_ptr()
+    assert got_q.shape == (0, lanes, T1, K1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [(257, 13, 200), (1201, 13, 1)])
+def test_cuda_models_dp_takes_a_misaligned_grid(cuda_device, case):
+    """A grid 4 bytes past a 16-byte boundary (the kernel's bulk copies
+    want 16) gives the aligned grid's values and tables, in one launch,
+    in either instance."""
+    T1, K1, lanes = case
+    y, p1, a1 = _cckp_case(12, T1=T1, K1=K1, lanes=lanes)
+    p = torch.stack([p1, p1.flip(0)], 1).contiguous()
+    a = torch.stack([a1, a1.flip(0)], 1).contiguous()
+    y, p, a = (t.to(cuda_device) for t in (y, p, a))
+    flat = torch.empty(y.numel() + 1, device=cuda_device)
+    shifted = flat[1:].view(y.shape)
+    shifted.copy_(y)
+    assert shifted.data_ptr() % 16 == 4
+    want = cckp_ops.models_dp(y, p, a, K1)
+    cckp_ops.reset_launches()
+    got = cckp_ops.models_dp(shifted, p, a, K1)
+    torch.cuda.synchronize()
+    assert cckp_ops.models_dp.launches == 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.gpu

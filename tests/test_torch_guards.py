@@ -64,11 +64,11 @@ def test_port_imports_neither_jax_nor_the_reference():
             "repro_torch.examples.train_lm"} <= walked
 
 
-def test_chip_smoke_imports_neither_jax_nor_the_reference():
-    """`chip_smoke.py` (run on a card machine without jax) names no `jax`
-    or `repro` module in any import statement."""
+def _import_roots(script):
+    """The top-level packages a script of the repo root names in its
+    import statements."""
     import ast
-    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+    with open(os.path.join(REPO, script)) as f:
         tree = ast.parse(f.read())
     names = set()
     for node in ast.walk(tree):
@@ -76,7 +76,21 @@ def test_chip_smoke_imports_neither_jax_nor_the_reference():
             names.update(a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.module:
             names.add(node.module)
-    roots = {n.split(".")[0] for n in names}
+    return {n.split(".")[0] for n in names}
+
+
+def test_chip_smoke_imports_neither_jax_nor_the_reference():
+    """`chip_smoke.py` (run on a card machine without jax) names no `jax`
+    or `repro` module in any import statement."""
+    roots = _import_roots("chip_smoke.py")
+    assert "repro_torch" in roots
+    assert not roots & {"jax", "jaxlib", "repro"}, sorted(roots)
+
+
+def test_time_kernels_imports_neither_jax_nor_the_reference():
+    """`time_kernels.py`, the card's two-trees timing harness, names no
+    `jax` or `repro` module either."""
+    roots = _import_roots("time_kernels.py")
     assert "repro_torch" in roots
     assert not roots & {"jax", "jaxlib", "repro"}, sorted(roots)
 
