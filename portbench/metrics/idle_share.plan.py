@@ -1,0 +1,9 @@
+"""The card under the planner: the share of the traced window in which
+no device operation ran, in %."""
+
+
+def read(ctx):
+    if ctx.get("kind") != "fleet" or ctx["trace"]["window_s"] <= 0:
+        return None
+    t = ctx["trace"]
+    return 100.0 * (1.0 - t["busy_s"] / t["window_s"])
